@@ -1,0 +1,67 @@
+"""Backend implementations for the `repro_torch.api` registry.
+
+Port of the dense backend of `repro/api/backends.py`: `fit_dense` builds
+the problem (perplexity affinities, then a Laplacian-eigenmaps start, each
+skipped when the caller passes it), the strategy, and the dense objective,
+and runs the fit engine.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from repro_torch.core.affinities import Affinities, make_affinities
+from repro_torch.core.minimize import DenseObjective
+from repro_torch.core.spectral_init import laplacian_eigenmaps
+from repro_torch.embed.engine import EngineResult, fit_loop, make_loop_config
+
+from .registries import BACKENDS, strategy_entry
+
+
+def _timed(fn, device: torch.device):
+    """fn() and its wall-clock seconds, the device work included."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _dense_problem(spec, Y, X0, aff, device: torch.device):
+    phase_times: dict[str, float] = {}
+    if aff is None:
+        if Y is None:
+            raise ValueError("fit needs Y (or a precomputed aff=)")
+        Yt = torch.as_tensor(Y, dtype=torch.float32, device=device)
+        aff, phase_times["affinities_s"] = _timed(
+            lambda: make_affinities(Yt, spec.perplexity, model=spec.kind),
+            device)
+    else:
+        aff = Affinities(*(torch.as_tensor(w, dtype=torch.float32,
+                                           device=device) for w in aff))
+    if X0 is None:
+        X0, phase_times["spectral_init_s"] = _timed(
+            lambda: laplacian_eigenmaps(aff.Wp, spec.dim) * 0.1, device)
+    X0 = torch.as_tensor(X0, dtype=torch.float32, device=device)
+    return aff, X0, phase_times
+
+
+def fit_dense(spec, Y, *, X0=None, aff=None, device, callback=None
+              ) -> tuple[EngineResult, Affinities, torch.Tensor]:
+    """Single-device dense backend: full affinities, any registered
+    strategy, the fused step of `core/minimize.DenseObjective`.  Returns
+    the engine result, the affinities and the starting point."""
+    aff, X0, phase_times = _dense_problem(spec, Y, X0, aff, device)
+    strategy = strategy_entry(spec.strategy).dense_factory(
+        spec, **dict(spec.strategy_opts))
+    ls = spec.resolved_ls()
+    lam = torch.tensor(spec.lam, dtype=X0.dtype, device=device)
+    obj = DenseObjective(aff, spec.kind, lam, strategy, ls, X0,
+                         impl=spec.kernel_args())
+    res = fit_loop(obj, X0, make_loop_config(spec, ls), callback)
+    res.phase_times = phase_times
+    return res, aff, X0
+
+
+BACKENDS["dense"].fit = fit_dense

@@ -1,0 +1,133 @@
+"""Strategy and backend registries behind `repro_torch.api.Embedding`.
+
+Port of `repro/api/registries.py` for this slice: the strategies ``gd``,
+``fp`` and ``sd`` and the ``dense`` backend.  ``backend="auto"`` resolves to
+``dense`` up to AUTO_SPARSE_N points; above that the reference picks its
+sparse neighbour-graph backend, which is not ported yet, so resolution
+raises instead of quietly running the O(N^2) dense path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.core.strategies import FP, GD, SD
+
+#: N above which ``backend="auto"`` picks the sparse backend in `repro`
+AUTO_SPARSE_N = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class StrategyEntry:
+    """One registered search-direction strategy; `dense_factory(spec,
+    **opts)` builds the `core/strategies` object of the dense backend."""
+
+    name: str
+    backends: frozenset[str]
+    dense_factory: Callable[..., Any]
+    default_ls_init: str = "one"   # LSConfig.init_step when EmbedSpec.ls=None
+    doc: str = ""
+
+
+STRATEGIES: dict[str, StrategyEntry] = {}
+
+
+def register_strategy(name: str, *, backends, dense_factory,
+                      default_ls_init: str = "one", doc: str = "") -> None:
+    STRATEGIES[name] = StrategyEntry(
+        name=name, backends=frozenset(backends), dense_factory=dense_factory,
+        default_ls_init=default_ls_init, doc=doc)
+
+
+def available_strategies() -> list[str]:
+    return sorted(STRATEGIES)
+
+
+def canonical_strategy(name: str) -> str:
+    """Canonical registry name, or ValueError listing the valid names."""
+    low = name.lower()
+    if low not in STRATEGIES:
+        raise ValueError(f"unknown strategy {name!r}; registered strategies: "
+                         f"{available_strategies()}")
+    return low
+
+
+def strategy_entry(name: str) -> StrategyEntry:
+    return STRATEGIES[canonical_strategy(name)]
+
+
+@dataclasses.dataclass
+class BackendEntry:
+    """One registered fitting path; `fit` is attached by
+    `repro_torch.api.backends` on first use."""
+
+    name: str
+    doc: str = ""
+    fit: Callable[..., Any] | None = None
+
+
+BACKENDS: dict[str, BackendEntry] = {}
+
+
+def register_backend(name: str, *, doc: str = "", fit=None) -> None:
+    BACKENDS[name] = BackendEntry(name=name, doc=doc, fit=fit)
+
+
+def available_backends() -> list[str]:
+    return sorted(BACKENDS)
+
+
+def validate_backend(name: str) -> str:
+    if name != "auto" and name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; registered backends: "
+                         f"{available_backends()} (or 'auto')")
+    return name
+
+
+def validate_strategy_backend(strategy: str, backend: str) -> None:
+    entry = strategy_entry(strategy)
+    if backend != "auto" and backend not in entry.backends:
+        raise ValueError(
+            f"strategy {entry.name!r} is not available on backend "
+            f"{backend!r}; it runs on {sorted(entry.backends)}")
+
+
+def backend_impl(name: str):
+    """The backend's fit callable (importing `repro_torch.api.backends` on
+    first use, which attaches the implementations)."""
+    entry = BACKENDS[validate_backend(name)]
+    if entry.fit is None:
+        import repro_torch.api.backends  # noqa: F401  (attaches fit)
+    return BACKENDS[name].fit
+
+
+def resolve_backend(backend: str, *, n: int, strategy: str) -> str:
+    """``auto`` policy: ``dense`` up to AUTO_SPARSE_N points.  Above that
+    `repro` runs its sparse backend, which this port does not have yet, so
+    this raises rather than pick dense for a problem that size."""
+    if backend != "auto":
+        return validate_backend(backend)
+    if n > AUTO_SPARSE_N:
+        raise NotImplementedError(
+            f"backend='auto' with N={n} > AUTO_SPARSE_N={AUTO_SPARSE_N} "
+            f"resolves to the sparse neighbour-graph backend, which "
+            f"repro_torch does not port yet; pass backend='dense' to run the "
+            f"O(N^2) dense fit")
+    validate_strategy_backend(strategy, "dense")
+    return "dense"
+
+
+register_backend("dense", doc="single device, full affinities, fused step "
+                              "(core/minimize.py)")
+
+register_strategy("gd", backends=("dense",),
+                  dense_factory=lambda spec, **o: GD(**o),
+                  doc="gradient descent: B = I")
+register_strategy("fp", backends=("dense",),
+                  dense_factory=lambda spec, **o: FP(**o),
+                  doc="diagonal fixed-point: B = 4 D+ (x) I_d")
+register_strategy("sd", backends=("dense",), default_ls_init="adaptive_grow",
+                  dense_factory=lambda spec, **o: SD(**{"mu_scale":
+                                                        spec.mu_scale, **o}),
+                  doc="the spectral direction: B = 4 L+ + mu I (paper "
+                      "headline)")

@@ -1,0 +1,67 @@
+"""Carry state from `repro` (the JAX package) into the port.
+
+The JAX package's state crosses as numpy arrays and plain dicts, so this
+module imports nothing of JAX: the caller hands over `np.asarray(...)` of
+the arrays and `dataclasses.asdict(spec)` of a `repro.api.EmbedSpec`.  With
+these, both packages fit from identical affinities and starting points.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.api.spec import EmbedSpec
+from repro_torch.core.affinities import Affinities
+from repro_torch.core.linesearch import LSConfig
+
+#: `repro` kernel_impl names -> the port's
+KERNEL_IMPL = {"auto": "auto", "pallas": "kernel", "pallas-interpret": "torch",
+               "jnp": "torch"}
+
+#: `repro.api.EmbedSpec` fields of backends and paths this port does not
+#: have yet (sparse graph, out-of-sample transform, Barnes-Hut tree, the
+#: stochastic PRNG seed, the checkpoint cadence); they do not affect a
+#: dense fit and are dropped.  A set `checkpoint_dir` is not dropped: the
+#: port's EmbedSpec refuses it.
+UNPORTED_FIELDS = frozenset({
+    "n_neighbors", "n_negatives", "z_ema_decay", "knn_method", "cg_tol",
+    "cg_maxiter", "transform_iters", "transform_negatives", "theta",
+    "tree_depth", "tree_cap", "seed", "checkpoint_every"})
+
+
+def affinities_from_numpy(Wp, Wm, device) -> Affinities:
+    """`repro.core.Affinities` arrays -> float32 tensors on `device`."""
+    return Affinities(*(torch.tensor(np.asarray(w), dtype=torch.float32,
+                                     device=device) for w in (Wp, Wm)))
+
+
+def embedding_from_numpy(X, device) -> torch.Tensor:
+    """An (N, d) embedding (e.g. a JAX starting point) -> float32 tensor."""
+    return torch.tensor(np.asarray(X), dtype=torch.float32, device=device)
+
+
+def spec_from_jax_fields(fields: dict) -> EmbedSpec:
+    """`dataclasses.asdict(repro.api.EmbedSpec(...))` -> the port's
+    EmbedSpec.  `kernel_impl` maps pallas -> kernel and jnp /
+    pallas-interpret -> torch; the line-search config maps field by field;
+    knobs of unported backends are dropped; any other unknown field raises.
+    """
+    known = {f.name for f in dataclasses.fields(EmbedSpec)}
+    out = {}
+    for name, value in fields.items():
+        if name in UNPORTED_FIELDS:
+            continue
+        if name not in known:
+            raise ValueError(f"EmbedSpec field {name!r} has no counterpart "
+                             f"in repro_torch")
+        if name == "kernel_impl":
+            value = KERNEL_IMPL[value]
+        elif name == "ls" and value is not None:
+            value = LSConfig(**(value._asdict() if hasattr(value, "_asdict")
+                                else dict(value)))
+        elif name == "strategy_opts":
+            value = dict(value)
+        out[name] = value
+    return EmbedSpec(**out)

@@ -1,0 +1,93 @@
+"""Plain PyTorch oracle for the fused pairwise embedding computation.
+
+Port of `repro/kernels/ref.py`.  It materializes the N x N pair matrices
+and is the plain version beside the CUDA kernel (csrc/pairwise.cu): the
+CPU path of `ops.pairwise_terms` and the yardstick the kernel is held to.
+
+Unified contract — for X (N, d), attractive weights Wa, repulsive weights
+Wb (both symmetric, zero diagonal):
+
+    kind      a_nm (attractive)    b_nm (repulsive)        e_plus            s
+    'ee'      Wa                   Wb * exp(-t)            sum Wa*t          sum b
+    'ssne'    Wa (=P)              Wb * exp(-t)            sum Wa*t          sum b
+    'tsne'    Wa*K                 Wb*K^2  (K=1/(1+t))     sum Wa*log(1+t)   sum Wb*K
+    'tee'     Wa                   Wb*K^2                  sum Wa*t          sum Wb*K
+    'epan'    Wa                   Wb*[t<1]                sum Wa*t          sum Wb*max(1-t,0)
+
+with t = ||x_n - x_m||^2.  Outputs la_x = L(a) X, lb_x = L(b) X and the
+scalars e_plus and s; core/objectives.py combines them into E and grad E.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+KINDS = ("ee", "ssne", "tsne", "tee", "epan")
+
+
+class PairwiseTerms(NamedTuple):
+    la_x: torch.Tensor    # (N, d)
+    lb_x: torch.Tensor    # (N, d)
+    e_plus: torch.Tensor  # 0-d
+    s: torch.Tensor       # 0-d
+
+
+def _pairwise_sq_dists(X: torch.Tensor) -> torch.Tensor:
+    r = torch.sum(X * X, dim=-1)
+    t = r[:, None] + r[None, :] - 2.0 * (X @ X.T)
+    t = torch.clamp_min(t, 0.0)
+    return t.fill_diagonal_(0.0)
+
+
+def _lap_matmul(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    return torch.sum(W, dim=-1)[:, None] * X - W @ X
+
+
+def negative_pair_terms(kind: str, t: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pair repulsive terms (s_pair, b) at squared distances t, for all
+    kinds (W- = 1 off-diagonal): s_pair sums to the repulsive term s and b
+    is the pair's gradient-Laplacian weight.  The normalized kinds pair like
+    the unnormalized ones: ssne like ee (Gaussian), tsne like tee
+    (Student-t)."""
+    if kind in ("ee", "ssne"):
+        s_pair = torch.exp(-t)
+        return s_pair, s_pair
+    if kind in ("tee", "tsne"):
+        K = 1.0 / (1.0 + t)
+        return K, K * K
+    if kind == "epan":
+        return torch.clamp_min(1.0 - t, 0.0), (t < 1.0).to(t.dtype)
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def pairwise_terms_ref(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
+                       kind: str) -> PairwiseTerms:
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    t = _pairwise_sq_dists(X)
+    if kind in ("ee", "ssne"):
+        a = Wa
+        b = Wb * torch.exp(-t)
+        e_plus = torch.sum(Wa * t)
+        s = torch.sum(b)
+    elif kind == "tsne":
+        K = 1.0 / (1.0 + t)
+        a = Wa * K
+        b = Wb * K * K
+        e_plus = torch.sum(Wa * torch.log1p(t))
+        s = torch.sum(Wb * K)
+    elif kind == "tee":
+        K = 1.0 / (1.0 + t)
+        a = Wa
+        b = Wb * K * K
+        e_plus = torch.sum(Wa * t)
+        s = torch.sum(Wb * K)
+    else:  # 'epan'
+        a = Wa
+        b = Wb * (t < 1.0).to(X.dtype)
+        e_plus = torch.sum(Wa * t)
+        s = torch.sum(Wb * torch.clamp_min(1.0 - t, 0.0))
+    return PairwiseTerms(la_x=_lap_matmul(a, X), lb_x=_lap_matmul(b, X),
+                         e_plus=e_plus, s=s)

@@ -1,0 +1,141 @@
+"""The port's estimator (repro_torch.api) against the JAX reference.
+
+`Embedding(EmbedSpec(...), device="cpu").fit(Y)` runs the whole dense fit
+— affinities, spectral start, strategy, fused steps — and must give JAX's
+energy trace at rtol 1e-4 (the reference's own trace tolerance,
+tests/test_api.py:92).  The energy depends only on pairwise distances, so
+the sign of a spectral-start eigenvector does not change the trace.
+
+GD and FP are pinned at lambda = 1.  At larger lambda their first steps
+from the 0.1-scaled spectral start are huge, and a last-bit difference —
+in the start, or in the order of a sum — grows to ~1e-3 within five
+iterations: on such problems the reference's own jnp and Pallas-interpret
+paths differ by up to 8.6e-4 from one start.  SD does not amplify it.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import Embedding as JEmbedding
+from repro.api import EmbedSpec as JEmbedSpec
+from repro.core import laplacian_eigenmaps as jeig
+from repro.core import make_affinities as jmake
+from repro_torch import convert
+from repro_torch.api import Embedding, EmbedSpec, resolve_backend
+from repro_torch.api.registries import AUTO_SPARSE_N
+from repro_torch.kernels import ops
+from tests.conftest import three_loops
+
+LAMS = {"ee": 50.0, "ssne": 1.0, "tsne": 1.0, "tee": 10.0, "epan": 10.0}
+
+
+@pytest.fixture(scope="module")
+def Y():
+    return np.array(three_loops(n_per=16, loops=3, dim=8), dtype=np.float32)
+
+
+def _traces(Y, **kw):
+    jres = JEmbedding(JEmbedSpec(**kw)).fit(jnp.asarray(Y)).result_
+    tres = Embedding(EmbedSpec(**kw), device="cpu").fit(Y).result_
+    return jres, tres
+
+
+@pytest.mark.parametrize("kind,strategy,lam", [
+    *[(k, "sd", LAMS[k]) for k in LAMS],
+    ("ee", "gd", 1.0),
+    ("ee", "fp", 1.0),
+])
+def test_fit_energy_trace_matches_jax(Y, kind, strategy, lam):
+    jres, tres = _traces(Y, kind=kind, strategy=strategy, backend="dense",
+                         lam=lam, perplexity=8.0, max_iters=5, tol=0.0)
+    assert tres.n_iters == jres.n_iters == 5
+    np.testing.assert_allclose(tres.energies, jres.energies, rtol=1e-4)
+    np.testing.assert_array_equal(tres.n_fevals, jres.n_fevals)
+    assert tres.energies[-1] < tres.energies[0]
+    assert ops.last_dispatch("pairwise_terms")["path"] == "torch"
+
+
+@pytest.mark.parametrize("strategy,lam", [("sd", 50.0), ("gd", 1.0),
+                                          ("fp", 1.0)])
+def test_fit_from_carried_jax_state(Y, strategy, lam):
+    """JAX's affinities, start and spec carried across by convert.py give
+    the same trace (SD sparsified to kappa = 7)."""
+    jspec = JEmbedSpec(kind="ee", strategy=strategy, backend="dense",
+                       lam=lam, perplexity=8.0, max_iters=5, tol=0.0,
+                       strategy_opts={"kappa": 7} if strategy == "sd" else {},
+                       kernel_impl="jnp")
+    aff = jmake(jnp.asarray(Y), 8.0, model="ee")
+    X0 = jeig(aff.Wp, 2) * 0.1
+    jres = JEmbedding(jspec).fit(None, X0=X0, aff=aff).result_
+    spec = convert.spec_from_jax_fields(dataclasses.asdict(jspec))
+    assert spec.kernel_impl == "torch" and spec.strategy == strategy
+    emb = Embedding(spec, device="cpu").fit(
+        None, X0=convert.embedding_from_numpy(X0, "cpu"),
+        aff=convert.affinities_from_numpy(aff.Wp, aff.Wm, "cpu"))
+    np.testing.assert_allclose(emb.result_.energies, jres.energies,
+                               rtol=1e-4)
+    assert emb.backend_ == "dense"
+    assert emb.embedding_.shape == (Y.shape[0], 2)
+
+
+def test_spec_from_jax_fields_maps_and_validates():
+    fields = dataclasses.asdict(JEmbedSpec(kind="tsne", lam=1.0,
+                                           kernel_impl="pallas",
+                                           n_neighbors=30))
+    spec = convert.spec_from_jax_fields(fields)
+    assert (spec.kind, spec.lam, spec.kernel_impl) == ("tsne", 1.0, "kernel")
+    with pytest.raises(ValueError, match="counterpart"):
+        convert.spec_from_jax_fields({**fields, "mesh_shape": (2, 2)})
+
+
+def test_embedding_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Embedding(EmbedSpec())
+    assert Embedding(EmbedSpec(), device="cpu").device.type == "cpu"
+
+
+def test_auto_backend_above_cutoff_raises():
+    assert resolve_backend("auto", n=AUTO_SPARSE_N, strategy="sd") == "dense"
+    with pytest.raises(NotImplementedError, match="sparse"):
+        resolve_backend("auto", n=AUTO_SPARSE_N + 1, strategy="sd")
+    with pytest.raises(NotImplementedError, match="sparse"):
+        Embedding(EmbedSpec(), device="cpu").fit(
+            np.zeros((AUTO_SPARSE_N + 1, 3), np.float32))
+    assert resolve_backend("dense", n=10 * AUTO_SPARSE_N,
+                           strategy="sd") == "dense"
+
+
+def test_spec_validation_and_unported_options():
+    with pytest.raises(ValueError, match="model families"):
+        EmbedSpec(kind="nope")
+    with pytest.raises(ValueError, match="registered strategies"):
+        EmbedSpec(strategy="sd-")
+    with pytest.raises(ValueError, match="registered backends"):
+        EmbedSpec(backend="sparse")
+    with pytest.raises(ValueError, match="kernel_impl"):
+        EmbedSpec(kernel_impl="pallas")
+    with pytest.raises(ValueError, match="kernel_precision"):
+        EmbedSpec(kernel_precision="float16")
+    assert EmbedSpec(strategy="SD").strategy == "sd"
+    assert EmbedSpec().kernel_args() == {}
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        EmbedSpec(checkpoint_dir="ckpt")
+
+
+def test_callback_sees_each_iteration_and_bf16_fit(Y):
+    seen = []
+    spec = EmbedSpec(kind="tsne", lam=1.0, perplexity=8.0, max_iters=3,
+                     tol=0.0, kernel_precision="bfloat16")
+    emb = Embedding(spec, device="cpu")
+    X = emb.fit_transform(Y, callback=lambda it, X, e, d: seen.append(d))
+    assert [d["it"] for d in seen] == [1, 2, 3]
+    assert [d["energy"] for d in seen] == list(emb.result_.energies[1:])
+    assert X.shape == (Y.shape[0], 2) and bool(torch.isfinite(X).all())
+    assert ops.last_dispatch("pairwise_terms")["storage"] == "bfloat16"
+    assert emb.result_.energies[-1] < emb.result_.energies[0]
+    assert set(emb.result_.phase_times) == {"affinities_s", "spectral_init_s"}
+    assert "fitted[dense]" in repr(emb)
