@@ -9,7 +9,8 @@ Phases, each printing one line (or a few) and failing the run on error:
   2. build  — compile the CUDA kernels from src/repro_torch/kernels/csrc.
   3. check  — the pairwise kernel against its plain PyTorch version: all
               five kinds, float32 and bfloat16 storage, ragged and aligned
-              N, several d; a rerun must be bit-identical.
+              N (one column tile and several), several d; a rerun must be
+              bit-identical.
   4. fit    — the main path at full width: `Embedding(EmbedSpec(
               backend="dense", strategy="sd"))` on MNIST-shaped data
               (N = 20000, D = 784, perplexity 30), EE (lambda = 100,
@@ -18,18 +19,20 @@ Phases, each printing one line (or a few) and failing the run on error:
               and must not increase, and the first three iterations must
               match the plain-PyTorch path at rtol 1e-4.
   5. time   — the kernel at N = 20000, d = 2, every kind, float32 and
-              bfloat16, with CUDA events, beside its memory bound and the
-              plain version.
+              bfloat16, on the fits' own embeddings and affinities (EE's
+              for the unnormalized kinds, t-SNE's for the normalized ones),
+              with CUDA events, beside its memory bound and the plain
+              version; each call is held against the plain version.
   6. profile — three SD iterations of the t-SNE fit under torch.profiler:
               device time by kernel and the device's idle share.
 
-The line before the last is a JSON record of every kernel; the last line is
+Every phase runs, at full width; the script takes no options.  The line
+before the last is a JSON record of every kernel; the last line is
 `{"ok": true, "device": {...}}`.  Without CUDA the script exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("probe", "build", "check", "fit", "time", "profile")
+N_FIT = 20000        # MNIST-20k, the paper's large configuration
 
 # NVIDIA H100 SXM data sheet (700 W): HBM3 rate, f32 rate outside the
 # tensor cores
@@ -53,10 +56,24 @@ FLOPS_PER_PAIR = 25
 
 # tolerances of tests/test_kernels_pairwise.py (the reference's own kernel
 # test): la_x, lb_x at rtol 5e-5 with atol scaled by max|.|, scalars 1e-4.
+# The atol here is 5e-5 max|want| without the reference test's "+ 1": on
+# the fits' affinities la_x is far below 1, and an absolute floor of 5e-5
+# would pass any la_x at all.
 # The kernel is held against its plain version evaluated in float64 on the
 # same (storage-rounded) inputs: in float32 the plain version's
 # sum(a) x_n - sum(a x_m) loses digits to cancellation on a spread-out
 # embedding, which the kernel's sum(a (x_n - x_m)) does not.
+# On the fits' own data a row of L(w)X may cancel far below its terms, and
+# a float32 sum is only good to its terms' magnitude: there the bound also
+# has 5e-5 sum_m |w_nm (x_n - x_m)| per entry, above the worst-case
+# rounding of the kernel's sums (N/32 terms a lane, 625 * 2^-24 = 3.7e-5
+# at N = 20000), and a floor for what float32 cannot hold: each of a row's
+# N terms may lose up to FLT_MIN (1 + w)(1 + |x_n - x_m|) where a weight
+# such as exp(-t) falls below float32's smallest normal number (in the
+# bfloat16-rounded t-SNE embedding, ssne's lb_x is ~1e-63 in float64).
+# Every bound must reject an all-zero la_x and lb_x ("teeth"), except with
+# bfloat16 storage of the fits' embeddings, whose rounding may merge
+# neighbours and leave only cancellation noise or underflow.
 TOL_LAP = 5e-5
 TOL_SCALAR = 1e-4
 EPAN_EDGE = 1e-5     # |t - 1| band of the epan slack (float32 t: ~1e-7)
@@ -85,42 +102,83 @@ def rand_problem(n: int, d: int, seed: int, device) -> tuple:
     return X, Ws[0], Ws[1]
 
 
-def plain64(X, Wa, Wb, kind, storage):
-    """The plain version in float64 on the storage-rounded inputs, and the
-    per-entry slack of lb_x at Epanechnikov's support edge.
+def plain64(X, Wa, Wb, kind, storage, with_mass=False, chunk=2048):
+    """The plain version in float64 on the storage-rounded inputs, the
+    per-entry slack of lb_x at Epanechnikov's support edge and, with
+    `with_mass`, the terms' magnitudes sum_m |w_nm (x_n - x_m)| of la_x
+    (w = a) and lb_x (w = b), as {"la_x": ..., "lb_x": ...}.
+
+    With `with_mass`, la_x and lb_x are also summed as sum_m w (x_n - x_m)
+    in float64 and replace the oracle's (sum_m w) x_n - sum_m w x_m: on the
+    t-SNE fit's embedding la_x is ~1e-9 in float32 (far less in bfloat16),
+    and that form's float64 cancellation would exceed the bound.  The
+    largest gap between the two forms is returned as mass["gap"], and the
+    float32 underflow floor of the bound (see TOL_LAP) as mass["floor"].
 
     epan's b = Wb [t < 1] jumps at t = 1: a pair whose t lies within float32
     rounding of 1 can fall on either side in two correct float32
     evaluations, moving lb_x by Wb |x_n - x_m|.  The sum of that over the
     pairs with |t - 1| < EPAN_EDGE is the slack added to lb_x's bound."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import pairwise_terms_ref
+    from repro_torch.kernels.ref import negative_pair_terms, pairwise_terms_ref
     X64, Wa64, Wb64 = (ops.to_storage(t, storage).double()
                        for t in (X, Wa, Wb))
     ref = pairwise_terms_ref(X64, Wa64, Wb64, kind)
     slack = torch.zeros_like(ref.lb_x)
-    if kind == "epan":
-        t = torch.cdist(X64, X64) ** 2
-        near = ((t - 1.0).abs() < EPAN_EDGE) * Wb64
-        for k in range(X64.shape[1]):
-            slack[:, k] = torch.sum(
-                near * (X64[:, None, k] - X64[None, :, k]).abs(), dim=1)
-    return ref, slack
+    mass = ({"la_x": torch.zeros_like(ref.la_x),
+             "lb_x": torch.zeros_like(ref.lb_x)} if with_mass else None)
+    direct = {k: torch.zeros_like(v) for k, v in (mass or {}).items()}
+    if kind != "epan" and not with_mass:
+        return ref, slack, mass
+    for r0 in range(0, X64.shape[0], chunk):   # (chunk, N) temporaries
+        rows = slice(r0, r0 + chunk)
+        signed = X64[rows, None, :] - X64[None, :, :]
+        diff = signed.abs()
+        t = torch.sum(signed * signed, dim=-1)
+        if kind == "epan":
+            near = ((t - 1.0).abs() < EPAN_EDGE) * Wb64[rows]
+            slack[rows] = torch.einsum("cm,cmk->ck", near, diff)
+        if with_mass:
+            s_pair, b_pair = negative_pair_terms(kind, t)
+            a = Wa64[rows] * s_pair if kind == "tsne" else Wa64[rows]
+            b = Wb64[rows] * b_pair
+            for name, w in (("la_x", a), ("lb_x", b)):
+                mass[name][rows] = torch.einsum("cm,cmk->ck", w, diff)
+                direct[name][rows] = torch.einsum("cm,cmk->ck", w, signed)
+    if with_mass:
+        mass["gap"] = max(float((getattr(ref, k) - direct[k]).abs().max())
+                          for k in direct)
+        ref = ref._replace(**direct)
+        span = 1.0 + float(X64.max() - X64.min())
+        mass["floor"] = {name: torch.finfo(torch.float32).tiny * X64.shape[0]
+                         * (1.0 + float(W.abs().max())) * span
+                         for name, W in (("la_x", Wa64), ("lb_x", Wb64))}
+    return ref, slack, mass
 
 
-def compare(terms, ref, slack) -> tuple[float, float, float]:
-    """Max abs error of la_x/lb_x, max relative error of the scalars, and
-    the largest error-to-bound ratio of la_x/lb_x; raises when a tolerance
-    is missed."""
+def compare(terms, ref, slack, mass=None, teeth=True
+            ) -> tuple[float, float, float, list]:
+    """Max abs error of la_x/lb_x, max relative error of the scalars, the
+    largest error-to-bound ratio of la_x/lb_x, and the names among la_x,
+    lb_x whose bound an all-zero output would meet; raises when a tolerance
+    is missed, or with `teeth` when a bound would pass zeros."""
     lap_err = ratio = 0.0
+    toothless = []
     for name in ("la_x", "lb_x"):
         got, want = getattr(terms, name).double(), getattr(ref, name)
         err = (got - want).abs()
-        tol = TOL_LAP * (want.abs().max() + 1) + TOL_LAP * want.abs()
+        tol = TOL_LAP * want.abs().max() + TOL_LAP * want.abs()
         if name == "lb_x":
             tol = tol + slack
+        if mass is not None:
+            tol = tol + TOL_LAP * mass[name] + mass["floor"][name]
         if not bool(torch.all(err <= tol)):
             raise AssertionError(f"{name}: max abs err {float(err.max()):.3e}")
+        if bool(torch.all(want.abs() <= tol)):
+            toothless.append(name)
+            if teeth:
+                raise AssertionError(f"{name}: the bound would pass an "
+                                     f"all-zero output")
         lap_err = max(lap_err, float(err.max()))
         ratio = max(ratio, float((err / tol).max()))
     sc_err = 0.0
@@ -130,7 +188,7 @@ def compare(terms, ref, slack) -> tuple[float, float, float]:
         if rel > TOL_SCALAR:
             raise AssertionError(f"{name}: {got} vs {want} (rel {rel:.3e})")
         sc_err = max(sc_err, rel)
-    return lap_err, sc_err, ratio
+    return lap_err, sc_err, ratio, toothless
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -181,7 +239,10 @@ def phase_check() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.pairwise import pairwise_terms_cuda
     from repro_torch.kernels.ref import KINDS
-    cases = [(n, d) for n in (1000, 4097) for d in (2, 3)]
+    # N = 1000 fits one column tile (1024); 4096 is several tiles with
+    # 16-byte aligned rows, the vectorized path the main path runs; 4097 is
+    # ragged and runs the scalar path
+    cases = [(n, d) for n in (1000, 4096, 4097) for d in (2, 3)]
     cases += [(1000, 1), (1000, 4), (1000, 6), (4097, 5)]
     worst_ratio = worst_sc = 0.0
     n_ok = 0
@@ -190,11 +251,11 @@ def phase_check() -> None:
         for storage in ("float32", "bfloat16"):
             Xs, Was, Wbs = (ops.to_storage(t, storage) for t in (X, Wa, Wb))
             for kind in KINDS:
-                ref, slack = plain64(X, Wa, Wb, kind, storage)
+                ref, slack, _ = plain64(X, Wa, Wb, kind, storage)
                 got = pairwise_terms_cuda(Xs, Was, Wbs, kind)
                 torch.cuda.synchronize()
                 try:
-                    _, sc, ratio = compare(got, ref, slack)
+                    _, sc, ratio, _ = compare(got, ref, slack)
                 except AssertionError as e:
                     raise AssertionError(
                         f"kernel != plain at n={n} d={d} {storage} {kind}: "
@@ -212,7 +273,7 @@ def phase_check() -> None:
                  f"scalar rel err {worst_sc:.3e}")
 
 
-def phase_fit(n: int, iters: int = 10) -> dict:
+def phase_fit(n: int = N_FIT, iters: int = 10) -> dict:
     from repro_torch.api import Embedding, EmbedSpec
     from repro_torch.data import mnist_like
     from repro_torch.kernels import pairwise
@@ -232,6 +293,7 @@ def phase_fit(n: int, iters: int = 10) -> dict:
                            tol=0.0)),
     ]
     launches = 0
+    data = {}
     emb = None
     for kind, spec in configs:
         emb = None            # free the previous fit's N x N state first
@@ -277,25 +339,26 @@ def phase_fit(n: int, iters: int = 10) -> dict:
         say("fit", f"{kind}: first 3 iterations match the plain path, max "
                    f"rel diff {rel:.2e}")
         del plain
+        data[kind] = (X, emb.affinities_.Wp, emb.affinities_.Wm)
     emb.result_.state = None    # the timing phase needs X and aff only
-    return {"launches": launches, "emb": emb}
+    return {"launches": launches, "emb": emb, "data": data}
 
 
-def phase_time(n: int, emb) -> dict:
+def phase_time(data: dict) -> dict:
     """The kernel beside its bound and its plain version, for every kind and
-    both storage dtypes, on the last fit's embedding and affinities."""
+    both storage dtypes, each call held against the plain version.  A kind
+    runs on the embedding and affinities of the fit that shares its
+    normalization: EE's for ee, tee and epan, t-SNE's for ssne and tsne."""
+    from repro_torch.core.objectives import is_normalized
     from repro_torch.kernels import ops
     from repro_torch.kernels.pairwise import pairwise_terms_cuda
     from repro_torch.kernels.ref import KINDS
 
-    if emb is not None:
-        X, Wa, Wb = emb.embedding_, emb.affinities_.Wp, emb.affinities_.Wm
-    else:
-        X, Wa, Wb = rand_problem(n, 2, seed=7, device="cuda")
-    d = X.shape[1]
+    n, d = data["ee"][0].shape
     out = {}
     for storage, size in (("float32", 4), ("bfloat16", 2)):
-        Xs, Was, Wbs = (ops.to_storage(t, storage) for t in (X, Wa, Wb))
+        stored = {fit: tuple(ops.to_storage(t, storage) for t in tensors)
+                  for fit, tensors in data.items()}
         nbytes = 2 * n * n * size + n * d * size + 2 * n * d * 4 + 8
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = FLOPS_PER_PAIR * n * n / PEAK_F32_FLOPS * 1e3
@@ -306,27 +369,44 @@ def phase_time(n: int, emb) -> dict:
                     f"float64 plain version; no single PyTorch call computes "
                     f"this function, so library_ms is null")
         for kind in KINDS:
+            fit = "tsne" if is_normalized(kind) else "ee"
+            X, Wa, Wb = data[fit]
+            Xs, Was, Wbs = stored[fit]
             ms = cuda_ms(lambda: pairwise_terms_cuda(Xs, Was, Wbs, kind),
                          reps=20)
             plain_ms = cuda_ms(lambda: ops.pairwise_terms(
                 Xs, Was, Wbs, kind, impl="torch"), reps=3, warmup=1)
             got = pairwise_terms_cuda(Xs, Was, Wbs, kind)
-            ref, slack = plain64(X, Wa, Wb, kind, storage)
-            lap_err, sc_err, _ = compare(got, ref, slack)
+            ref, slack, mass = plain64(X, Wa, Wb, kind, storage,
+                                       with_mass=True)
+            try:
+                lap_err, sc_err, ratio, toothless = compare(
+                    got, ref, slack, mass, teeth=storage == "float32")
+            except AssertionError as e:
+                raise AssertionError(f"kernel != plain at N={n} {storage} "
+                                     f"{kind} on the {fit} fit: {e}") from None
+            sizes = "/".join(f"{float(getattr(ref, k).abs().max()):.2e}"
+                             for k in ("la_x", "lb_x"))
             plain = ops.pairwise_terms(Xs, Was, Wbs, kind, impl="torch")
             plain_err = max(float((getattr(plain, k).double()
                                    - getattr(ref, k)).abs().max())
                             for k in ("la_x", "lb_x"))
-            del got, ref, slack, plain
+            mass_gap = mass["gap"]
+            del got, ref, slack, mass, plain
             out[kind, storage] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "max_abs_err": lap_err}
-            say("time", f"  {kind:4s} {storage}: kernel {ms:.3f} ms "
+            say("time", f"  {kind:4s} {storage} on the {fit} fit: kernel "
+                        f"{ms:.3f} ms "
                         f"({t_bytes / ms * 100:.0f}% of the memory bound), "
                         f"plain {plain_ms:.3f} ms; la/lb max abs err "
-                        f"{lap_err:.3e} (plain float32: {plain_err:.3e}), "
-                        f"scalar rel err {sc_err:.2e}")
+                        f"{lap_err:.3e}, at {ratio:.2f} of its bound "
+                        f"(max |la_x|/|lb_x| {sizes}; plain float32 err "
+                        f"{plain_err:.3e}), scalar rel err {sc_err:.2e}; "
+                        f"bounds that would pass zeros: "
+                        f"{'/'.join(toothless) or 'none'}; float64 oracle "
+                        f"forms differ by {mass_gap:.1e}")
     return out
 
 
@@ -380,55 +460,36 @@ def phase_profile(emb, iters: int = 3) -> None:
                        f"{count // iters:3d} calls/iteration  {key[:90]}")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma list of {PHASES}")
-    ap.add_argument("--n", type=int, default=20000,
-                    help="points of the main-path fits and the timing")
-    args = ap.parse_args(argv)
-    phases = args.phases.split(",")
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from repro_torch.kernels import pairwise
 
-    fit = {"launches": 0, "emb": None}
-    timing = None
     t_start = time.perf_counter()
-    if "probe" in phases:
-        phase_probe()
-    if "build" in phases:
-        phase_build()
-    if "check" in phases:
-        phase_check()
-    if "fit" in phases:
-        fit = phase_fit(args.n)
-    if "time" in phases:
-        timing = phase_time(args.n, fit["emb"])
-    if "profile" in phases and fit["emb"] is not None:
-        phase_profile(fit["emb"])
+    phase_probe()
+    phase_build()
+    phase_check()
+    fit = phase_fit()
+    timing = phase_time(fit["data"])
+    phase_profile(fit["emb"])
     say("done", f"{time.perf_counter() - t_start:.1f} s")
 
-    if timing is not None:
-        f32 = timing["tsne", "float32"]     # the costlier main-path kind
-        record = {"kernels": [{
-            "name": "pairwise_terms", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/pairwise.cu",
-            "replaces": "src/repro/kernels/pairwise.py:131",
-            "launches": fit["launches"],
-            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-            "bound_by": f32["bound_by"], "library_ms": None}]}
-        if "fit" in phases and record["kernels"][0]["launches"] < 1:
-            raise AssertionError("the main path launched no pairwise kernel")
-        print(smi())
-        print(json.dumps(record))
-    else:
-        print(smi())
+    f32 = timing["tsne", "float32"]     # the costlier main-path kind
+    if fit["launches"] < 1:
+        raise AssertionError("the main path launched no pairwise kernel")
+    record = {"kernels": [{
+        "name": "pairwise_terms", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise.cu",
+        "replaces": "src/repro/kernels/pairwise.py:131",
+        "launches": fit["launches"],
+        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": None}]}
+    print(smi())
+    print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
