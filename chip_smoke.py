@@ -6,25 +6,46 @@
 Phases, each printing one line (or a few) and failing the run on error:
 
   1. probe  — torch/CUDA versions, the device, nvcc, nvidia-smi.
-  2. build  — compile the CUDA kernels from src/repro_torch/kernels/csrc.
-  3. check  — the pairwise kernel against its plain PyTorch version: all
-              five kinds, float32 and bfloat16 storage, ragged and aligned
-              N (one column tile and several), several d; a rerun must be
-              bit-identical.
-  4. fit    — the main path at full width: `Embedding(EmbedSpec(
+  2. build  — compile the CUDA kernels from src/repro_torch/kernels/csrc,
+              one nvcc per source, all started together.
+  3. check  — each kernel against its plain PyTorch version in float64:
+              the pairwise kernel for all five kinds, float32 and bfloat16
+              storage, ragged and aligned N (one column tile and several),
+              several d; the ELL kernel in both layouts, float32 and
+              bfloat16, N in {1000, 4096, 4097}, k in {1, 24, 90, 386}, d in
+              {1, 2, 3, 8}, with padding slots, all-padding rows and a
+              repeated column.  Reruns must be bit-identical.
+  4. fit    — slice 1's main path at full width: `Embedding(EmbedSpec(
               backend="dense", strategy="sd"))` on MNIST-shaped data
               (N = 20000, D = 784, perplexity 30), EE (lambda = 100,
               kappa = 7) and t-SNE (lambda = 1), ten iterations each.  The
               kernel's launch counter must grow, the energies must be finite
               and must not increase, and the first three iterations must
               match the plain-PyTorch path at rtol 1e-4.
-  5. time   — the kernel at N = 20000, d = 2, every kind, float32 and
-              bfloat16, on the fits' own embeddings and affinities (EE's
+  5. time   — the pairwise kernel at N = 20000, d = 2, every kind, float32
+              and bfloat16, on the fits' own embeddings and affinities (EE's
               for the unnormalized kinds, t-SNE's for the normalized ones),
               with CUDA events, beside its memory bound and the plain
               version; each call is held against the plain version.
-  6. profile — three SD iterations of the t-SNE fit under torch.profiler:
-              device time by kernel and the device's idle share.
+  6. profile — three dense SD iterations of the t-SNE fit under
+              torch.profiler: device time by kernel and the idle share.
+  7. fit_sparse — slice 2's main path: `Embedding(EmbedSpec(kind=...,
+              strategy="sd"))` with the default backend="auto" on
+              `mnist_like(n=70000, dim=784)` (the full MNIST set; perplexity
+              30, so k = 90; five negatives; approximate kNN), EE
+              (lambda = 100) and t-SNE (lambda = 1), ten iterations each.
+              The backend must resolve to sparse, the ELL kernel's launch
+              counter must grow, the energies must be finite with the last
+              surrogate below the first, and the first three iterations
+              must match a kernel_impl="torch" run with the same draws at
+              rtol 1e-4.  Then the EE fit again with kernel_layout="hbm"
+              (the staged-gather layout on the same path).
+  8. time_ell — each ELL layout on the fits' forward and reverse graphs,
+              float32 and bfloat16: CUDA-event time, the memory bound, the
+              plain version and torch.sparse.mm on the CSR Laplacian; each
+              call held against the float64 plain version.
+  9. profile_sparse — three sparse t-SNE SD iterations under
+              torch.profiler: device time by kernel and the idle share.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -220,19 +241,23 @@ def phase_probe() -> None:
 
 
 def phase_build() -> None:
+    """Build every kernel source (one nvcc each, all started together)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load("pairwise")
-    info = _build.BUILD_INFO["pairwise"]
-    regs = [int(line.split("Used ")[1].split(" registers")[0])
-            for line in info["log"].splitlines() if "registers" in line]
-    spills = [line.strip() for line in info["log"].splitlines()
-              if "spill" in line
-              and "0 bytes spill stores, 0 bytes spill loads" not in line]
-    say("build", f"pairwise.cu built in {info['seconds']:.1f} s "
-                 f"(load {time.perf_counter() - t0:.1f} s); "
-                 f"{len(regs)} kernels, registers max {max(regs, default=0)}, "
-                 f"kernels spilling {len(spills)}")
+    for name in ("pairwise", "ell"):
+        _build.load(name)
+    for name in ("pairwise", "ell"):
+        info = _build.BUILD_INFO[name]
+        regs = [int(line.split("Used ")[1].split(" registers")[0])
+                for line in info["log"].splitlines() if "registers" in line]
+        spills = [line.strip() for line in info["log"].splitlines()
+                  if "spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        say("build", f"{name}.cu built in {info['seconds']:.1f} s; "
+                     f"{len(regs)} kernels, registers max "
+                     f"{max(regs, default=0)}, kernels spilling {len(spills)}")
+    say("build", f"all sources loaded {time.perf_counter() - t0:.1f} s after "
+                 f"the build started")
 
 
 def phase_check() -> None:
@@ -460,6 +485,329 @@ def phase_profile(emb, iters: int = 3) -> None:
                        f"{count // iters:3d} calls/iteration  {key[:90]}")
 
 
+# -- slice 2: the sparse backend and the ELL kernels -------------------------
+
+N_SPARSE = 70000     # the full MNIST set; backend="auto" resolves to sparse
+ELL_LAYOUTS = ("vmem", "hbm")
+
+
+def ell_problem(n: int, k: int, d: int, seed: int, device) -> tuple:
+    """X (n, d), an ELL graph idx (n, k) int32 and weights (n, k) >= 0 with
+    the cases the contract names: every 7th slot a padding slot (self, 0),
+    rows 3 and 4 all padding, and row 5 one column repeated."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n, d), generator=g, device=device)
+    idx = torch.randint(0, n, (n, k), generator=g, device=device,
+                        dtype=torch.int32)
+    w = torch.randn((n, k), generator=g, device=device).abs_()
+    rows = torch.arange(n, device=device, dtype=torch.int32)[:, None]
+    pad = torch.zeros((n, k), dtype=torch.bool, device=device)
+    pad[:, 3::7] = True
+    pad[3:5] = True
+    idx = torch.where(pad, rows, idx)
+    w = torch.where(pad, 0.0, w)
+    idx[5] = (5 + 1) % n
+    return X, idx, w
+
+
+def ell_plain64(X, idx, w, storage):
+    """The plain version in float64 on the storage-rounded inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ell_lap_matvec_ref
+    return ell_lap_matvec_ref(ops.to_storage(X, storage).double(), idx,
+                              ops.to_storage(w, storage).double())
+
+
+def ell_compare(got, want, mass=None) -> tuple[float, float]:
+    """Max abs error and its largest ratio to the bound.  The bound is that
+    of tests/test_sparse_kernel.py (rtol 5e-5, atol 5e-5 max|want|) without
+    the reference test's "+ 1" floor; on the fits' graphs (`mass` given) it
+    adds 5e-5 sum_j |w_nj| (|x_n| + |x_m|), above the worst-case float32
+    rounding of a k <= 400 term sum (400 * 2^-24 = 2.4e-5).  Raises when the
+    error exceeds the bound or when the bound would pass an all-zero
+    output."""
+    err = (got.double() - want).abs()
+    tol = TOL_LAP * want.abs().max() + TOL_LAP * want.abs()
+    if mass is not None:
+        tol = tol + TOL_LAP * mass
+    if not bool(torch.all(err <= tol)):
+        raise AssertionError(f"max abs err {float(err.max()):.3e}")
+    if bool(torch.all(want.abs() <= tol)):
+        raise AssertionError("the bound would pass an all-zero output")
+    return float(err.max()), float((err / tol).max())
+
+
+def phase_check_ell() -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
+    n_ok = 0
+    worst = 0.0
+    for n in (1000, 4096, 4097):
+        for k in (1, 24, 90, 386):
+            for d in (1, 2, 3, 8):
+                X, idx, w = ell_problem(n, k, d, seed=n + 7 * k + d,
+                                        device="cuda")
+                for storage in ("float32", "bfloat16"):
+                    Xs, ws = ops.to_storage(X, storage), ops.to_storage(
+                        w, storage)
+                    want = ell_plain64(X, idx, w, storage)
+                    for layout in ELL_LAYOUTS:
+                        got = ell_lap_matvec_cuda(Xs, idx, ws, layout=layout)
+                        torch.cuda.synchronize()
+                        case = f"n={n} k={k} d={d} {storage} {layout}"
+                        try:
+                            _, ratio = ell_compare(got, want)
+                        except AssertionError as e:
+                            raise AssertionError(
+                                f"ELL kernel != plain at {case}: {e}") from None
+                        if not bool(torch.all(got[3:5] == 0)):
+                            raise AssertionError(f"all-padding rows not 0 at "
+                                                 f"{case}")
+                        again = ell_lap_matvec_cuda(Xs, idx, ws,
+                                                    layout=layout)
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"rerun not bit-identical "
+                                                 f"at {case}")
+                        worst = max(worst, ratio)
+                        n_ok += 1
+    say("check", f"ELL: {n_ok} cases (N in 1000/4096/4097 x k in "
+                 f"1/24/90/386 x d in 1/2/3/8 x f32/bf16 x vmem/hbm, with "
+                 f"padding slots, all-padding rows and a repeated column) "
+                 f"match the float64 plain version, reruns bit-identical, "
+                 f"padding rows exactly 0; worst error at {worst:.2f} of its "
+                 f"bound")
+
+
+def _graph_stats(g) -> str:
+    pad = float((g.weights == 0).float().mean())
+    return f"width {g.k}, padded share {pad:.3f}"
+
+
+def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
+    """The slice-2 main path: `Embedding(EmbedSpec(kind=..., strategy="sd"))`
+    with the default backend="auto" on N = 70000 points."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.data import mnist_like
+    from repro_torch.kernels import sparse_attractive
+
+    t0 = time.perf_counter()
+    Y, _ = mnist_like(n=n, dim=784, seed=0)
+    say("fit_sparse", f"mnist_like(n={n}, dim=784) made in "
+                      f"{time.perf_counter() - t0:.1f} s")
+    configs = [
+        ("ee", EmbedSpec(kind="ee", lam=100.0, perplexity=30.0,
+                         strategy="sd", n_negatives=5, max_iters=iters,
+                         tol=0.0)),
+        ("tsne", EmbedSpec(kind="tsne", lam=1.0, perplexity=30.0,
+                           strategy="sd", n_negatives=5, max_iters=iters,
+                           tol=0.0)),
+    ]
+    out = {"launches": {lay: 0 for lay in ELL_LAYOUTS}, "fits": {}}
+    for kind, spec in configs:
+        sparse_attractive.reset_launch_counts()
+        diags = []
+        t0 = time.perf_counter()
+        emb = Embedding(spec).fit(Y, callback=lambda it, X, e, dg:
+                                  diags.append(dg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sparse_attractive.launch_counts)
+        if emb.backend_ != "sparse":
+            raise AssertionError(f"{kind}: backend='auto' resolved to "
+                                 f"{emb.backend_!r} at N={n}")
+        if counts["ell_lap_matvec_vmem"] < 1:
+            raise AssertionError(f"{kind}: the fit launched no ELL kernel")
+        out["launches"]["vmem"] += counts["ell_lap_matvec_vmem"]
+        out["launches"]["hbm"] += counts["ell_lap_matvec_hbm"]
+        res = emb.result_
+        e = res.energies
+        if not np.all(np.isfinite(e)):
+            raise AssertionError(f"{kind}: non-finite energies {e}")
+        if not e[-1] < e[0]:
+            raise AssertionError(f"{kind}: last surrogate energy {e[-1]} is "
+                                 f"not below the first {e[0]}")
+        X = emb.embedding_
+        if tuple(X.shape) != (n, 2) or not bool(torch.isfinite(X).all()):
+            raise AssertionError(f"{kind}: bad embedding {tuple(X.shape)}")
+        saff = emb.affinities_
+        pt = res.phase_times
+        pcg = [dg["pcg_iters"] for dg in diags]
+        say("fit_sparse", f"{kind}: N={n} backend {emb.backend_}; set-up kNN "
+                          f"(approximate) {pt['knn_s']:.2f} s, calibration "
+                          f"{pt['calibrate_s']:.2f} s, reverse graph "
+                          f"{pt['reverse_s']:.2f} s, spectral init (ELL "
+                          f"power iteration) {pt['spectral_init_s']:.2f} s; "
+                          f"{res.n_iters} iterations at "
+                          f"{res.times[-1] / res.n_iters * 1e3:.1f} ms each; "
+                          f"wall {wall:.1f} s")
+        say("fit_sparse", f"{kind}: PCG iterations per step {pcg}; ELL "
+                          f"launches {counts}; forward graph "
+                          f"{_graph_stats(saff.graph)}; reverse graph "
+                          f"{_graph_stats(saff.rev)}")
+        say("fit_sparse", f"{kind}: energies {np.array2string(e, precision=8)}")
+        plain = Embedding(spec.replace(kernel_impl="torch", max_iters=3)).fit(
+            None, X0=emb.X0_, saff=saff)
+        ep = plain.result_.energies
+        rel = float(np.max(np.abs(ep - e[:4]) / np.abs(e[:4])))
+        if rel > 1e-4:
+            raise AssertionError(f"{kind}: kernel path {e[:4]} vs plain path "
+                                 f"{ep} (rel {rel:.2e})")
+        say("fit_sparse", f"{kind}: first 3 iterations match the "
+                          f"kernel_impl='torch' run (same draws), max rel "
+                          f"diff {rel:.2e}")
+        out["fits"][kind] = emb
+    # the staged-gather layout on the same path, from the EE fit's graph and
+    # start: a user's kernel_layout="hbm"
+    emb = out["fits"]["ee"]
+    sparse_attractive.reset_launch_counts()
+    t0 = time.perf_counter()
+    hbm = Embedding(emb.spec.replace(kernel_layout="hbm")).fit(
+        None, X0=emb.X0_, saff=emb.affinities_)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(sparse_attractive.launch_counts)
+    if hbm.backend_ != "sparse" or counts["ell_lap_matvec_hbm"] < 1:
+        raise AssertionError(f"kernel_layout='hbm': backend {hbm.backend_}, "
+                             f"launches {counts}")
+    out["launches"]["hbm"] += counts["ell_lap_matvec_hbm"]
+    out["launches"]["vmem"] += counts["ell_lap_matvec_vmem"]
+    eh, ev = hbm.result_.energies, emb.result_.energies
+    rel = float(np.max(np.abs(eh - ev) / np.abs(ev)))
+    if rel > 1e-4:
+        raise AssertionError(f"kernel_layout='hbm' {eh} vs vmem {ev} "
+                             f"(rel {rel:.2e})")
+    say("fit_sparse", f"ee with kernel_layout='hbm': {hbm.result_.n_iters} "
+                      f"iterations at "
+                      f"{hbm.result_.times[-1] / hbm.result_.n_iters * 1e3:.1f}"
+                      f" ms each, wall {wall:.1f} s; launches {counts}; "
+                      f"energies match the vmem fit, max rel diff {rel:.2e}")
+    return out
+
+
+def _laplacian_csr(g):
+    """L = diag(sum_j w_nj) - A as one CSR matrix (the library yardstick)."""
+    n, k = g.indices.shape
+    rows = torch.arange(n, device=g.indices.device)
+    r = torch.cat([rows.repeat_interleave(k), rows])
+    c = torch.cat([g.indices.reshape(-1).long(), rows])
+    v = torch.cat([-g.weights.reshape(-1), g.weights.sum(-1)])
+    return torch.sparse_coo_tensor(torch.stack([r, c]), v, (n, n)
+                                   ).coalesce().to_sparse_csr()
+
+
+def phase_time_ell(fits: dict) -> dict:
+    """Each ELL layout on the fits' own forward and reverse graphs at
+    N = 70000, float32 and bfloat16, with the embedding of the same fit:
+    kernel, plain version and torch.sparse.mm on the CSR Laplacian, each
+    call held against the float64 plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
+
+    out = {}
+    for kind, emb in fits.items():
+        X = emb.embedding_
+        n, d = X.shape
+        for gname, g in (("forward", emb.affinities_.graph),
+                         ("reverse", emb.affinities_.rev)):
+            k = g.k
+            for storage, size in (("float32", 4), ("bfloat16", 2)):
+                Xs = ops.to_storage(X, storage)
+                ws = ops.to_storage(g.weights, storage)
+                nbytes = n * k * (4 + size) + n * d * size + n * d * 4
+                bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = 3 * n * k * d / PEAK_F32_FLOPS * 1e3
+                want = ell_plain64(X, g.indices, g.weights, storage)
+                X64 = ops.to_storage(X, storage).double()
+                w64 = ops.to_storage(g.weights, storage).double().abs()
+                mass = (w64.sum(-1, keepdim=True) * X64.abs()
+                        + torch.einsum("nk,nkd->nd", w64,
+                                       X64[g.indices].abs()))
+                plain_ms = cuda_ms(lambda: ops.ell_lap_matvec(
+                    Xs, g.indices, ws, impl="torch"), reps=10)
+                csr = _laplacian_csr(g._replace(weights=ws))
+                lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, Xs), reps=50)
+                lib = torch.sparse.mm(csr, Xs)
+                lib_err = float((lib.double() - want).abs().max())
+                del csr, lib
+                for layout in ELL_LAYOUTS:
+                    ms = cuda_ms(lambda: ell_lap_matvec_cuda(
+                        Xs, g.indices, ws, layout=layout), reps=200)
+                    got = ell_lap_matvec_cuda(Xs, g.indices, ws,
+                                              layout=layout)
+                    try:
+                        err, ratio = ell_compare(got, want, mass)
+                    except AssertionError as e:
+                        raise AssertionError(
+                            f"ELL {layout} != plain on the {kind} fit's "
+                            f"{gname} graph {storage}: {e}") from None
+                    out[kind, gname, storage, layout] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes" if bound_ms >= t_ops
+                        else "operations",
+                        "library_ms": lib_ms, "max_abs_err": err}
+                    say("time_ell", f"{kind} {gname} graph (N={n}, k={k}, "
+                                    f"d={d}) {storage} {layout}: kernel "
+                                    f"{ms * 1e3:.1f} us "
+                                    f"({bound_ms / ms * 100:.0f}% of the "
+                                    f"{nbytes / 1e6:.1f} MB bound "
+                                    f"{bound_ms * 1e3:.1f} us), plain "
+                                    f"{plain_ms * 1e3:.1f} us, "
+                                    f"torch.sparse.mm CSR {lib_ms * 1e3:.1f}"
+                                    f" us (its err {lib_err:.2e}); max abs "
+                                    f"err {err:.2e} at {ratio:.2f} of its "
+                                    f"bound")
+    return out
+
+
+def phase_profile_sparse(emb, iters: int = 3) -> None:
+    """Where a sparse SD iteration's time goes: `iters` iterations of the
+    t-SNE fit's objective, continued from its embedding, under
+    torch.profiler: device time by kernel and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.embed.engine import LoopConfig, fit_loop
+    from repro_torch.embed.trainer import build_sparse_objective
+
+    spec, X = emb.spec, emb.embedding_
+
+    def run(n_iters):
+        obj, X0, _ = build_sparse_objective(
+            spec, None, X, strategy=spec.strategy, saff=emb.affinities_,
+            device=X.device)
+        return fit_loop(obj, X0, LoopConfig(max_iters=n_iters, tol=0.0,
+                                            ls=spec.resolved_ls(),
+                                            seed=spec.seed))
+
+    run(1)                                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    if not rows:
+        say("profile_sparse", "torch.profiler recorded no device kernels: "
+                              "device time and idle share not measured")
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    say("profile_sparse", f"{spec.kind} N={X.shape[0]}: {iters} sparse SD "
+                          f"iterations (+ the initial evaluation; "
+                          f"{int(res.n_fevals[-1])} energy evaluations) in "
+                          f"{wall * 1e3:.1f} ms wall; device busy "
+                          f"{busy * 1e3:.1f} ms, idle share "
+                          f"{max(0.0, 1 - busy / wall):.2f}")
+    for dev_us, key, count in rows[:10]:
+        say("profile_sparse", f"  {dev_us / 1e3 / iters:8.3f} ms/iteration "
+                              f"{count / iters:7.1f} calls/iteration  "
+                              f"{key[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -472,24 +820,43 @@ def main() -> int:
     phase_probe()
     phase_build()
     phase_check()
+    phase_check_ell()
     fit = phase_fit()
+    fit_launches = fit["launches"]
     timing = phase_time(fit["data"])
     phase_profile(fit["emb"])
+    del fit
+    torch.cuda.empty_cache()
+    sparse = phase_fit_sparse()
+    timing_ell = phase_time_ell(sparse["fits"])
+    phase_profile_sparse(sparse["fits"]["tsne"])
     say("done", f"{time.perf_counter() - t_start:.1f} s")
 
     f32 = timing["tsne", "float32"]     # the costlier main-path kind
-    if fit["launches"] < 1:
+    if fit_launches < 1:
         raise AssertionError("the main path launched no pairwise kernel")
-    record = {"kernels": [{
+    kernels = [{
         "name": "pairwise_terms", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise.cu",
         "replaces": "src/repro/kernels/pairwise.py:131",
-        "launches": fit["launches"],
+        "launches": fit_launches,
         "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": None}]}
+        "bound_by": f32["bound_by"], "library_ms": None}]
+    # the ELL kernels at the wider of the main path's two graphs: the EE
+    # fit's reverse graph, float32
+    for layout, line in (("vmem", 96), ("hbm", 186)):
+        t = timing_ell["ee", "reverse", "float32", layout]
+        if sparse["launches"][layout] < 1:
+            raise AssertionError(f"the sparse path launched no ELL {layout} "
+                                 f"kernel")
+        kernels.append({
+            "name": f"ell_lap_matvec_{layout}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ell.cu",
+            "replaces": f"src/repro/kernels/sparse_attractive.py:{line}",
+            "launches": sparse["launches"][layout], **t})
     print(smi())
-    print(json.dumps(record))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,20 @@
 """Backend implementations for the `repro_torch.api` registry.
 
-Port of the dense backend of `repro/api/backends.py`: `fit_dense` builds
-the problem (perplexity affinities, then a Laplacian-eigenmaps start, each
-skipped when the caller passes it), the strategy, and the dense objective,
-and runs the fit engine.
+Port of the single-device backends of `repro/api/backends.py`.  Each is
+`fit(spec, Y, *, X0, aff, saff, device, callback, shift_source) ->
+(EngineResult, affinities, X0)`:
+
+  * `fit_dense` builds the problem (perplexity affinities, then a
+    Laplacian-eigenmaps start, each skipped when the caller passes it), the
+    strategy and the dense objective, and runs the fit engine;
+  * `fit_sparse` builds the ELL neighbour graph (skipped for a precomputed
+    `saff=`), the spectral start and the sparse objective
+    (embed/trainer.py), and runs the engine's host loop.
+
+Precomputed inputs pin their family: `aff=` (dense `core.Affinities`) is
+dense-only, `saff=` (`sparse.SparseAffinities`) and `shift_source=` (the
+draw of the negatives) sparse-only; each backend rejects the other
+family's with a pointed error.
 """
 from __future__ import annotations
 
@@ -15,6 +26,7 @@ from repro_torch.core.affinities import Affinities, make_affinities
 from repro_torch.core.minimize import DenseObjective
 from repro_torch.core.spectral_init import laplacian_eigenmaps
 from repro_torch.embed.engine import EngineResult, fit_loop, make_loop_config
+from repro_torch.embed.trainer import build_sparse_objective
 
 from .registries import BACKENDS, strategy_entry
 
@@ -47,11 +59,19 @@ def _dense_problem(spec, Y, X0, aff, device: torch.device):
     return aff, X0, phase_times
 
 
-def fit_dense(spec, Y, *, X0=None, aff=None, device, callback=None
+def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device,
+              callback=None, shift_source=None
               ) -> tuple[EngineResult, Affinities, torch.Tensor]:
     """Single-device dense backend: full affinities, any registered
     strategy, the fused step of `core/minimize.DenseObjective`.  Returns
     the engine result, the affinities and the starting point."""
+    if saff is not None:
+        raise ValueError("precomputed saff= is for the sparse backend (the "
+                         "dense backend computes dense affinities; pass aff= "
+                         "instead)")
+    if shift_source is not None:
+        raise ValueError("shift_source= draws the sparse backend's negatives;"
+                         " the dense backend samples nothing")
     aff, X0, phase_times = _dense_problem(spec, Y, X0, aff, device)
     strategy = strategy_entry(spec.strategy).dense_factory(
         spec, **dict(spec.strategy_opts))
@@ -64,4 +84,29 @@ def fit_dense(spec, Y, *, X0=None, aff=None, device, callback=None
     return res, aff, X0
 
 
+def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device,
+               callback=None, shift_source=None
+               ) -> tuple[EngineResult, object, torch.Tensor]:
+    """Single-device sparse backend: ELL affinities, negative-sampled
+    repulsion, matrix-free sd/fp/gd directions.  Returns the engine result,
+    the `SparseAffinities` and the starting point; `phase_times` holds the
+    graph build's steps and the spectral start (those skipped are absent).
+    """
+    if aff is not None:
+        raise ValueError("precomputed aff= is dense-backend-only (the sparse "
+                         "backend builds its own ELL graph; pass saff= for a "
+                         "precomputed one)")
+    if Y is None and saff is None:
+        raise ValueError("fit needs Y (or a precomputed saff=)")
+    phase_times: dict[str, float] = {}
+    obj, X0, saff = build_sparse_objective(
+        spec, Y, X0, strategy=spec.strategy, saff=saff, device=device,
+        shift_source=shift_source, phase_times=phase_times)
+    res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                   callback)
+    res.phase_times = phase_times
+    return res, saff, X0
+
+
 BACKENDS["dense"].fit = fit_dense
+BACKENDS["sparse"].fit = fit_sparse

@@ -14,7 +14,9 @@ no device and no CUDA it raises rather than fall back to the CPU.  After
   * `embedding_`   — the (N, dim) embedding, a tensor on the device
   * `result_`      — the full `EngineResult` (energies, times, fevals, ...)
   * `backend_`     — the resolved backend name
-  * `affinities_`  — the affinities the fit used (computed or passed)
+  * `affinities_`  — the affinities the fit used (computed or passed):
+                     `core.Affinities` (dense) or
+                     `sparse.SparseAffinities` (sparse)
   * `X0_`          — the starting point the fit used
 """
 from __future__ import annotations
@@ -54,26 +56,38 @@ class Embedding:
         self.device = resolve_device(device)
 
     def fit(self, Y, X0=None, aff=None,
-            callback: Callable[..., None] | None = None) -> "Embedding":
+            callback: Callable[..., None] | None = None, *, saff=None,
+            shift_source=None) -> "Embedding":
         """Fit the embedding.  `Y` is the (N, D) data (array or tensor); the
         dense backend alternatively accepts precomputed `aff=`
-        (`core.Affinities`), so that several fits share one calibration.
-        `X0` replaces the spectral start."""
+        (`core.Affinities`) and the sparse backend `saff=`
+        (`sparse.SparseAffinities`), so that several fits share one
+        calibration.  `X0` replaces the spectral start.  `shift_source(seed,
+        it)` replaces the sparse backend's draw of iteration `it`'s
+        negative shifts ((n_negatives,) ints in 1..N-1)."""
+        if aff is not None and saff is not None:
+            raise ValueError("pass aff= (dense) or saff= (sparse), not both "
+                             "- they pin different backends")
         if Y is not None:
             n = Y.shape[0]
         elif aff is not None:
             n = aff.Wp.shape[0]
+        elif saff is not None:
+            n = saff.graph.n
         else:
-            raise ValueError("fit needs Y (or a precomputed aff=)")
+            raise ValueError("fit needs Y (or a precomputed aff= or saff=)")
         if aff is not None and self.spec.backend == "auto":
             backend = "dense"   # only the dense path consumes dense aff=
+        elif saff is not None and self.spec.backend == "auto":
+            backend = "sparse"  # and only the sparse path an ELL graph
         else:
             backend = registries.resolve_backend(
                 self.spec.backend, n=n, strategy=self.spec.strategy)
         registries.validate_strategy_backend(self.spec.strategy, backend)
         fit_fn = registries.backend_impl(backend)
-        res, aff, X0 = fit_fn(self.spec, Y, X0=X0, aff=aff,
-                              device=self.device, callback=callback)
+        res, aff, X0 = fit_fn(self.spec, Y, X0=X0, aff=aff, saff=saff,
+                              device=self.device, callback=callback,
+                              shift_source=shift_source)
         self.backend_ = backend
         self.result_ = res
         self.embedding_ = res.X

@@ -1,10 +1,10 @@
 """Strategy and backend registries behind `repro_torch.api.Embedding`.
 
-Port of `repro/api/registries.py` for this slice: the strategies ``gd``,
-``fp`` and ``sd`` and the ``dense`` backend.  ``backend="auto"`` resolves to
-``dense`` up to AUTO_SPARSE_N points; above that the reference picks its
-sparse neighbour-graph backend, which is not ported yet, so resolution
-raises instead of quietly running the O(N^2) dense path.
+Port of `repro/api/registries.py` for the single-device backends: the
+strategies ``gd``, ``fp`` and ``sd`` and the backends ``dense`` and
+``sparse``.  ``backend="auto"`` resolves to ``dense`` up to AUTO_SPARSE_N
+points and to ``sparse`` above, falling back to ``dense`` for a strategy
+the sparse backend lacks.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Any, Callable
 
 from repro_torch.core.strategies import FP, GD, SD
 
-#: N above which ``backend="auto"`` picks the sparse backend in `repro`
+#: N above which ``backend="auto"`` picks the sparse backend
 AUTO_SPARSE_N = 2048
 
 
@@ -102,31 +102,32 @@ def backend_impl(name: str):
 
 
 def resolve_backend(backend: str, *, n: int, strategy: str) -> str:
-    """``auto`` policy: ``dense`` up to AUTO_SPARSE_N points.  Above that
-    `repro` runs its sparse backend, which this port does not have yet, so
-    this raises rather than pick dense for a problem that size."""
+    """``auto`` policy: ``sparse`` above AUTO_SPARSE_N points, else
+    ``dense``; ``dense`` also when the sparse backend cannot realize the
+    requested strategy."""
     if backend != "auto":
         return validate_backend(backend)
-    if n > AUTO_SPARSE_N:
-        raise NotImplementedError(
-            f"backend='auto' with N={n} > AUTO_SPARSE_N={AUTO_SPARSE_N} "
-            f"resolves to the sparse neighbour-graph backend, which "
-            f"repro_torch does not port yet; pass backend='dense' to run the "
-            f"O(N^2) dense fit")
-    validate_strategy_backend(strategy, "dense")
-    return "dense"
+    name = "sparse" if n > AUTO_SPARSE_N else "dense"
+    if name not in strategy_entry(strategy).backends:
+        name = "dense"               # every registered strategy runs dense
+    return name
 
+
+_BACKENDS = ("dense", "sparse")
 
 register_backend("dense", doc="single device, full affinities, fused step "
                               "(core/minimize.py)")
+register_backend("sparse", doc="single device, ELL neighbour graph + "
+                               "negative sampling, Jacobi-PCG "
+                               "(embed/trainer.py)")
 
-register_strategy("gd", backends=("dense",),
+register_strategy("gd", backends=_BACKENDS,
                   dense_factory=lambda spec, **o: GD(**o),
                   doc="gradient descent: B = I")
-register_strategy("fp", backends=("dense",),
+register_strategy("fp", backends=_BACKENDS,
                   dense_factory=lambda spec, **o: FP(**o),
                   doc="diagonal fixed-point: B = 4 D+ (x) I_d")
-register_strategy("sd", backends=("dense",), default_ls_init="adaptive_grow",
+register_strategy("sd", backends=_BACKENDS, default_ls_init="adaptive_grow",
                   dense_factory=lambda spec, **o: SD(**{"mu_scale":
                                                         spec.mu_scale, **o}),
                   doc="the spectral direction: B = 4 L+ + mu I (paper "

@@ -1,11 +1,12 @@
 """`EmbedSpec`: the declarative description of an embedding problem.
 
-Port of `EmbedSpec` from `repro/api/spec.py`, with the knobs of this slice:
-model `kind`, `strategy`, `backend`, the objective and loop settings, and
-kernel dispatch.  The names that select what runs are validated at
-construction.  The knobs of the backends not yet ported (sparse graph,
-transform, Barnes-Hut tree) are absent; `convert.spec_from_jax_fields`
-drops them when carrying a `repro` spec across.
+Port of `EmbedSpec` from `repro/api/spec.py`: model `kind`, `strategy`,
+`backend`, the objective and loop settings, the sparse neighbour-graph
+knobs, and kernel dispatch.  The names that select what runs are validated
+at construction.  The knobs of the parts not yet ported (transform,
+Barnes-Hut tree, checkpoint cadence) are absent;
+`convert.spec_from_jax_fields` drops them when carrying a `repro` spec
+across.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any, Mapping
 from repro_torch.core.linesearch import LSConfig
 from repro_torch.kernels.ops import IMPLS, STORAGE_DTYPES
 from repro_torch.kernels.ref import KINDS
+from repro_torch.kernels.sparse_attractive import LAYOUTS
 
 from . import registries
 
@@ -33,8 +35,11 @@ class EmbedSpec:
     `ls=None` resolves to the strategy's default initial-step policy
     (``adaptive_grow`` for SD, ``one`` otherwise).  `strategy_opts` is
     forwarded to the strategy factory (e.g. ``{"kappa": 7}`` for sparsified
-    SD).  `kernel_impl` selects the pairwise path (`kernels.ops`): ``auto``
+    SD).  `kernel_impl` selects the kernel path (`kernels.ops`): ``auto``
     (the CUDA kernel on CUDA, the oracle on CPU), ``kernel`` or ``torch``.
+    `kernel_layout` picks the ELL gather of the sparse backend's CG
+    operator: None (``vmem``), ``vmem`` or ``hbm`` (`kernels.ops.
+    ell_lap_matvec`); `repro` picks its layout by the TPU's memory instead.
     """
 
     kind: str = "ee"
@@ -48,10 +53,19 @@ class EmbedSpec:
     mu_scale: float = 1e-5
     ls: LSConfig | None = None
     checkpoint_dir: str | None = None    # not ported: must stay None
+    seed: int = 0                        # the sparse backend's draws
     max_seconds: float | None = None
     strategy_opts: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    # sparse neighbour-graph knobs
+    n_neighbors: int = 0          # ELL width k; 0 => auto (3 * perplexity)
+    n_negatives: int = 5          # uniform negative samples per point
+    z_ema_decay: float = 0.9      # streaming partition-function EMA
+    knn_method: str = "auto"      # 'exact' | 'approx' | 'auto'
+    cg_tol: float = 1e-3
+    cg_maxiter: int = 100
     kernel_impl: str = "auto"
     kernel_precision: str = "float32"    # storage; accumulation is float32
+    kernel_layout: str | None = None     # sparse CG operator: vmem | hbm
 
     def __post_init__(self):
         validate_kind(self.kind)
@@ -69,6 +83,9 @@ class EmbedSpec:
             raise ValueError(f"unknown kernel_precision "
                              f"{self.kernel_precision!r}; have "
                              f"{STORAGE_DTYPES}")
+        if self.kernel_layout is not None and self.kernel_layout not in LAYOUTS:
+            raise ValueError(f"unknown kernel_layout {self.kernel_layout!r}; "
+                             f"have {LAYOUTS} (or None)")
 
     def kernel_args(self) -> dict:
         """The `kernels.ops` dispatch kwargs this spec selects (empty at the
@@ -78,6 +95,14 @@ class EmbedSpec:
             out["impl"] = self.kernel_impl
         if self.kernel_precision != "float32":
             out["storage_dtype"] = self.kernel_precision
+        return out
+
+    def ell_kernel_args(self) -> dict:
+        """`kernel_args` plus the ELL layout: the dispatch kwargs of the
+        sparse backend's CG operator."""
+        out = self.kernel_args()
+        if self.kernel_layout is not None:
+            out["layout"] = self.kernel_layout
         return out
 
     def resolved_ls(self) -> LSConfig:

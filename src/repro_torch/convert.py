@@ -15,26 +15,39 @@ import torch
 from repro_torch.api.spec import EmbedSpec
 from repro_torch.core.affinities import Affinities
 from repro_torch.core.linesearch import LSConfig
+from repro_torch.sparse.graph import NeighborGraph, SparseAffinities
 
 #: `repro` kernel_impl names -> the port's
 KERNEL_IMPL = {"auto": "auto", "pallas": "kernel", "pallas-interpret": "torch",
                "jnp": "torch"}
 
-#: `repro.api.EmbedSpec` fields of backends and paths this port does not
-#: have yet (sparse graph, out-of-sample transform, Barnes-Hut tree, the
-#: stochastic PRNG seed, the checkpoint cadence); they do not affect a
-#: dense fit and are dropped.  A set `checkpoint_dir` is not dropped: the
-#: port's EmbedSpec refuses it.
+#: `repro.api.EmbedSpec` fields of parts this port does not have yet
+#: (out-of-sample transform, Barnes-Hut tree, the checkpoint cadence); they
+#: do not affect a dense or sparse fit and are dropped.  A set
+#: `checkpoint_dir` is not dropped: the port's EmbedSpec refuses it.
 UNPORTED_FIELDS = frozenset({
-    "n_neighbors", "n_negatives", "z_ema_decay", "knn_method", "cg_tol",
-    "cg_maxiter", "transform_iters", "transform_negatives", "theta",
-    "tree_depth", "tree_cap", "seed", "checkpoint_every"})
+    "transform_iters", "transform_negatives", "theta", "tree_depth",
+    "tree_cap", "checkpoint_every"})
 
 
 def affinities_from_numpy(Wp, Wm, device) -> Affinities:
     """`repro.core.Affinities` arrays -> float32 tensors on `device`."""
     return Affinities(*(torch.tensor(np.asarray(w), dtype=torch.float32,
                                      device=device) for w in (Wp, Wm)))
+
+
+def saff_from_numpy(indices, weights, rev_indices, rev_weights,
+                    device) -> SparseAffinities:
+    """`repro.sparse.SparseAffinities` arrays (the graph's and, unless None,
+    its reverse graph's) -> int32 / float32 tensors on `device`."""
+    def graph(idx, w):
+        return NeighborGraph(
+            torch.tensor(np.asarray(idx), dtype=torch.int32, device=device),
+            torch.tensor(np.asarray(w), dtype=torch.float32, device=device))
+
+    rev = (graph(rev_indices, rev_weights) if rev_indices is not None
+           else None)
+    return SparseAffinities(graph=graph(indices, weights), rev=rev)
 
 
 def embedding_from_numpy(X, device) -> torch.Tensor:

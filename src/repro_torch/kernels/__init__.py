@@ -1,7 +1,9 @@
-# The fused O(N^2 d) pairwise kernel of the paper's hot spot: a hand-written
-# CUDA kernel for Hopper (csrc/pairwise.cu, wrapped in pairwise.py), its
-# plain PyTorch oracle (ref.py) and the dispatch layer (ops.py).  Nothing is
-# compiled at import; _build.py compiles the CUDA sources at first launch.
+# The hand-written CUDA kernels for Hopper: the fused O(N^2 d) pairwise
+# terms of the dense path (csrc/pairwise.cu, wrapped in pairwise.py) and the
+# directed ELL Laplacian gather of the sparse path (csrc/ell.cu, wrapped in
+# sparse_attractive.py), their plain PyTorch oracles (ref.py) and the
+# dispatch layer (ops.py).  Nothing is compiled at import; _build.py
+# compiles the CUDA sources at first launch.
 from . import ops, ref
 from .ops import last_dispatch
 from .ref import KINDS, PairwiseTerms

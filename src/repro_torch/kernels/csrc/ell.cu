@@ -1,0 +1,314 @@
+// Directed ELL Laplacian gather for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernels of `repro/kernels/sparse_attractive.py`:
+//   * layout 0, "vmem": `ell_lap_matvec_pallas` (body `_ell_kernel`), where
+//     X is resident in VMEM and neighbour rows are gathered from it;
+//   * layout 1, "hbm": `ell_lap_matvec_pallas_hbm` (body `_ell_hbm_kernel`),
+//     where X stays in HBM and each chunk's neighbour rows are DMA'd into a
+//     double-buffered VMEM scratch.
+// Same contract as the plain PyTorch version
+// `repro_torch/kernels/ref.py::ell_lap_matvec_ref`: for X (n_x, d), an ELL
+// graph idx (n_rows, k) int32 with global column ids and weights w
+// (n_rows, k),
+//
+//     out_r = (sum_j w_rj) x_{row0 + r} - sum_j w_rj x_{idx[r, j]}
+//
+// for the local rows r < n_rows; single-device callers pass row0 = 0 and
+// n_rows = n_x.  The row offset is there for the row-sharded backend, whose
+// local-rows kernel (`ell_lap_matvec_local_pallas`) is this contract over
+// one shard's rows.  X and w are float32 or bfloat16 (widened to f32 after
+// the gather); sums and the output are float32.
+//
+// Bound on an H100 SXM (3.35 TB/s; ~3 flops a slot a dimension): memory.
+// The least traffic is the graph streamed once, N k (4 + s_w) bytes, plus X
+// read once and the output written once, N d (s_x + 4) bytes; the gathered
+// rows x_{idx} come from L2, which holds X whole at the sizes the sparse
+// backend runs (N = 70000, d = 2 is 0.56 MB of the 50 MB L2).  At N = 70000,
+// k = 90 in f32 that is 51.5 MB, ~15 us a call.  The design follows:
+//
+//   * "vmem" (direct gather).  A group of S lanes owns one row: a whole warp
+//     for k > 16, else 32 / S rows a warp so that short rows keep the lanes
+//     busy.  Lanes stride over the row's slots, so idx and w stream in
+//     coalesced, evict-first loads; each lane gathers x_{idx} through the
+//     read-only path (L1, then L2) and keeps the degree and D gathered sums
+//     in registers.  The group reduces them with a fixed butterfly of
+//     shuffles, and one lane writes the row.
+//   * "hbm" (staged gather).  A block walks its rows in chunks of one row a
+//     group.  The chunk's indices, then its k neighbour rows a row, are
+//     copied into a double-buffered shared-memory ring with cp.async: while
+//     chunk c is reduced from shared memory, chunk c + 1's rows and chunk
+//     c + 2's indices are in flight, which is what the TPU kernel's DMA
+//     double buffer does.  On Hopper X never has to leave device memory for
+//     capacity, so this layout pays only if the asynchronous copies hide
+//     the gather latency better than the direct loads do; it is kept, checked
+//     and timed beside "vmem".  cp.async moves 4-byte words: one element in
+//     float32, a pair in bfloat16 when d is even.  bfloat16 rows of odd d
+//     are not word-aligned and are staged with plain loads (no overlap).
+//
+// Shared rules:
+//   * d is a template parameter for d <= 4 (the paper embeds in d = 2), so
+//     nothing is padded to 128 lanes as on the TPU; larger d runs four
+//     output dimensions a block along gridDim.y.
+//   * The row is formed as the TPU kernel forms it, deg * x_n - acc, so the
+//     kernel and the plain version round alike.  A padding slot (self
+//     index, w = 0) adds exactly 0 to both sums; duplicate columns sum.
+//   * No float atomics: every row is summed by one group in a fixed order
+//     (strided slots, then the butterfly), so reruns are bit-identical.
+//   * Indices must lie in [0, n_x); the kernel does not check them.
+//
+// Built by `repro_torch/kernels/_build.py` with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and called through ctypes (`ell_lap_matvec_launch`, plain C interface).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;          // "vmem": 8 warps a block
+constexpr int kHbmThreads = 128;       // "hbm": 4 warps a block
+constexpr int kHbmChunks = 8;          // chunks a block walks
+constexpr int kMaxSmem = 232448;       // dynamic shared memory a block may use
+
+// bf16 is carried as its raw 16 bits; widening to f32 is exact.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Sum (deg, acc[0..D)) over the S lanes of a group, in a fixed order.
+template <int D, int S>
+__device__ __forceinline__ void group_reduce(float& deg, float (&acc)[D]) {
+#pragma unroll
+  for (int off = S / 2; off > 0; off >>= 1) {
+    deg += __shfl_xor_sync(0xffffffffu, deg, off);
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void write_row(const T* __restrict__ X, int d,
+                                          int c0, int xrow, int r, float deg,
+                                          const float (&acc)[D],
+                                          float* __restrict__ out) {
+  const T* xn = X + static_cast<size_t>(xrow) * d + c0;
+  float* o = out + static_cast<size_t>(r) * d + c0;
+#pragma unroll
+  for (int c = 0; c < D; ++c)
+    if (c0 + c < d) o[c] = deg * widen(__ldg(xn + c)) - acc[c];
+}
+
+// "vmem": direct gather, one group of S lanes a row.
+template <typename T, int D, int S>
+__global__ void __launch_bounds__(kThreads)
+ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
+           const T* __restrict__ w, int d, int k, int row0, int n_rows,
+           float* __restrict__ out) {
+  const int lane = threadIdx.x % S;
+  const int r = (blockIdx.x * kThreads + threadIdx.x) / S;
+  const int c0 = blockIdx.y * D;
+  const bool live = r < n_rows;   // dead lanes still join the shuffles
+  float deg = 0.f;
+  float acc[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+  if (live) {
+    const int* ir = idx + static_cast<size_t>(r) * k;
+    const T* wr = w + static_cast<size_t>(r) * k;
+    for (int j = lane; j < k; j += S) {
+      const int m = __ldcs(ir + j);
+      const float wj = widen(__ldcs(wr + j));
+      const T* xm = X + static_cast<size_t>(m) * d + c0;
+      deg += wj;
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        if (c0 + c < d) acc[c] += wj * widen(__ldg(xm + c));
+    }
+  }
+  group_reduce<D, S>(deg, acc);
+  if (live && lane == 0) write_row<T, D>(X, d, c0, row0 + r, r, deg, acc, out);
+}
+
+// "hbm": staged gather through a double-buffered shared-memory ring.
+// Shared memory: sidx[2][CH k] int32, then sx[2][CH k D] in the storage type.
+template <typename T, int D, int S>
+__global__ void __launch_bounds__(kHbmThreads)
+ell_gather_staged(const T* __restrict__ X, const int* __restrict__ idx,
+                  const T* __restrict__ w, int d, int k, int row0, int n_rows,
+                  float* __restrict__ out) {
+  constexpr int CH = kHbmThreads / S;            // rows a chunk, one a group
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* sidx = reinterpret_cast<int*>(smem);
+  T* sx = reinterpret_cast<T*>(sidx + 2 * CH * k);
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.y * D;
+  const int first = blockIdx.x * CH * kHbmChunks;
+  const int n_chunks = min(kHbmChunks, (n_rows - first + CH - 1) / CH);
+  // the rows of chunk c that exist
+  auto rows_of = [&](int c) { return min(CH, n_rows - first - c * CH); };
+
+  auto stage_idx = [&](int c) {
+    const int n = rows_of(c) * k;
+    const int* src = idx + static_cast<size_t>(first + c * CH) * k;
+    int* dst = sidx + (c & 1) * CH * k;
+    for (int e = tid; e < n; e += kHbmThreads) cp_async4(dst + e, src + e);
+  };
+  auto stage_x = [&](int c) {
+    const int n = rows_of(c) * k;
+    const int* si = sidx + (c & 1) * CH * k;
+    T* dst = sx + (c & 1) * CH * k * D;
+    for (int s = tid; s < n; s += kHbmThreads) {
+      const T* src = X + static_cast<size_t>(si[s]) * d + c0;
+      T* row = dst + s * D;
+      if constexpr (sizeof(T) == 4) {
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          if (c0 + c < d) cp_async4(row + c, src + c);
+      } else {
+        // bf16 pairs are word-aligned when d (hence D) is even; odd d takes
+        // plain loads
+        bool pairs = false;
+        if constexpr (D % 2 == 0) pairs = (d & 1) == 0;
+        if (pairs) {
+#pragma unroll
+          for (int c = 0; c < D; c += 2)
+            if (c0 + c < d) cp_async4(row + c, src + c);
+        } else {
+#pragma unroll
+          for (int c = 0; c < D; ++c)
+            if (c0 + c < d) row[c] = __ldg(src + c);
+        }
+      }
+    }
+  };
+
+  if (n_chunks <= 0) return;
+  stage_idx(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  stage_x(0);
+  if (n_chunks > 1) stage_idx(1);
+  cp_async_commit();
+
+  const int g = tid / S;
+  const int lane = tid % S;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait_all();   // chunk c's rows and chunk c + 1's indices
+    __syncthreads();
+    if (c + 1 < n_chunks) {
+      stage_x(c + 1);
+      if (c + 2 < n_chunks) stage_idx(c + 2);   // into chunk c's idx slot
+      cp_async_commit();
+    }
+    const int r = first + c * CH + g;
+    const bool live = g < rows_of(c);
+    float deg = 0.f;
+    float acc[D];
+#pragma unroll
+    for (int cc = 0; cc < D; ++cc) acc[cc] = 0.f;
+    if (live) {
+      const T* wr = w + static_cast<size_t>(r) * k;
+      const T* xs = sx + (c & 1) * CH * k * D + g * k * D;
+      for (int j = lane; j < k; j += S) {
+        const float wj = widen(__ldcs(wr + j));
+        deg += wj;
+#pragma unroll
+        for (int cc = 0; cc < D; ++cc)
+          if (c0 + cc < d) acc[cc] += wj * widen(xs[j * D + cc]);
+      }
+    }
+    group_reduce<D, S>(deg, acc);
+    if (live && lane == 0)
+      write_row<T, D>(X, d, c0, row0 + r, r, deg, acc, out);
+    __syncthreads();       // chunk c's slot is free for chunk c + 2
+  }
+}
+
+template <typename T, int D, int S>
+int launch(int layout, const T* X, const int* idx, const T* w, int d, int k,
+           int row0, int n_rows, float* out, cudaStream_t st) {
+  const int ychunks = (d + D - 1) / D;
+  if (layout == 0) {
+    const dim3 grid(
+        static_cast<unsigned>((static_cast<long long>(n_rows) * S + kThreads - 1)
+                              / kThreads), ychunks);
+    ell_gather<T, D, S><<<grid, kThreads, 0, st>>>(X, idx, w, d, k, row0,
+                                                   n_rows, out);
+  } else {
+    constexpr int CH = kHbmThreads / S;
+    const size_t bytes = 2ull * CH * k * (sizeof(int) + D * sizeof(T));
+    if (bytes > static_cast<size_t>(kMaxSmem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ell_gather_staged<T, D, S>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 grid((n_rows + CH * kHbmChunks - 1) / (CH * kHbmChunks),
+                    ychunks);
+    ell_gather_staged<T, D, S><<<grid, kHbmThreads, bytes, st>>>(
+        X, idx, w, d, k, row0, n_rows, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S: the lanes a row; a power of two >= k up to a warp, at least 4.
+template <typename T, int D>
+int launch_s(int layout, const T* X, const int* idx, const T* w, int d, int k,
+             int row0, int n_rows, float* out, cudaStream_t st) {
+  if (k <= 4) return launch<T, D, 4>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+  if (k <= 8) return launch<T, D, 8>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+  if (k <= 16) return launch<T, D, 16>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+  return launch<T, D, 32>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+}
+
+template <typename T>
+int launch_d(int layout, const void* Xv, const int* idx, const void* wv, int d,
+             int k, int row0, int n_rows, float* out, cudaStream_t st) {
+  const T* X = static_cast<const T*>(Xv);
+  const T* w = static_cast<const T*>(wv);
+  switch (d) {
+    case 1: return launch_s<T, 1>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 2: return launch_s<T, 2>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 3: return launch_s<T, 3>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    default: return launch_s<T, 4>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+  }
+}
+
+}  // namespace
+
+// X (n_x, d), idx (n_rows, k) int32, w (n_rows, k): row-major, contiguous,
+// X and w in the storage type (bf16 != 0: bfloat16, else float32), all
+// 16-byte aligned.  out: (n_rows, d) float32.  Row r of the graph is row
+// row0 + r of X.  layout: 0 "vmem" (direct gather), 1 "hbm" (staged).
+// Enqueues on `stream` and returns the launch status (cudaError_t as int).
+extern "C" int ell_lap_matvec_launch(const void* X, const void* idx,
+                                     const void* w, int n_x, int d, int k,
+                                     int row0, int n_rows, int bf16,
+                                     int layout, void* out, void* stream) {
+  if (n_x < 1 || d < 1 || k < 1 || row0 < 0 || n_rows < 0 ||
+      row0 > n_x - n_rows || (layout != 0 && layout != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  return bf16 ? launch_d<uint16_t>(layout, X, ip, w, d, k, row0, n_rows, o, st)
+              : launch_d<float>(layout, X, ip, w, d, k, row0, n_rows, o, st);
+}

@@ -1,30 +1,38 @@
-"""Kernel dispatch: the one entry point for the fused pairwise terms.
+"""Kernel dispatch: the one entry point for each hand-written kernel.
 
-Port of the `pairwise_terms` part of `repro/kernels/ops.py`.  The rest of
-the port calls `pairwise_terms`; it decides per call:
+Port of `repro/kernels/ops.py`: `pairwise_terms` (csrc/pairwise.cu) and
+`ell_lap_matvec` (csrc/ell.cu).  The rest of the port calls these; each
+decides per call:
 
   1. **Path**, by the `impl` knob: ``"auto"`` runs the CUDA kernel on CUDA
      tensors and the PyTorch oracle on CPU tensors; ``"kernel"`` runs the
      kernel and raises for CPU tensors; ``"torch"`` runs the oracle on any
      device (the yardstick the kernel is measured against).
-  2. **Precision**: ``storage_dtype="bfloat16"`` rounds X, Wa and Wb
+  2. **Precision**: ``storage_dtype="bfloat16"`` rounds X and the weights
      through bfloat16 (as `repro`'s `_maybe_bf16` does), on both paths, so
      the kernel and the oracle see the same quantization.  Accumulation is
      float32 and outputs are float32.
+  3. **Layout** (ELL only): ``"vmem"`` (direct gather, the default: on
+     Hopper X always sits in device memory, and L2 holds it whole at the
+     sizes the sparse backend runs) or ``"hbm"`` (staged gather through a
+     double-buffered shared-memory ring).  The reference picks between its
+     two layouts by the TPU's VMEM budget; that budget has no counterpart.
 
 The TPU layout steps of the reference (padding d to 128 lanes and N to a
-tile multiple) have no counterpart: the kernel takes any d and masks the
-ragged edge itself.
+tile multiple) have no counterpart either: the kernels take any d and mask
+the ragged edge themselves.
 
-Every decision is recorded: `last_dispatch("pairwise_terms")` returns the
-most recent one as a dict of path, reason and storage.
+Every decision is recorded: `last_dispatch("pairwise_terms")` and
+`last_dispatch("ell_lap_matvec")` return the most recent one as a dict of
+path, reason, storage (and layout).
 """
 from __future__ import annotations
 
 import torch
 
 from .pairwise import pairwise_terms_cuda
-from .ref import KINDS, PairwiseTerms, pairwise_terms_ref
+from .ref import KINDS, PairwiseTerms, ell_lap_matvec_ref, pairwise_terms_ref
+from .sparse_attractive import LAYOUTS, ell_lap_matvec_cuda
 
 IMPLS = ("auto", "kernel", "torch")
 STORAGE_DTYPES = ("float32", "bfloat16")
@@ -52,26 +60,58 @@ def to_storage(x: torch.Tensor, storage: str) -> torch.Tensor:
     return x.to(_TORCH_DTYPE[storage]).contiguous()
 
 
+def _path(impl: str, X: torch.Tensor) -> tuple[str, str]:
+    """(path, reason) for a request: the oracle for ``impl="torch"`` and
+    for CPU tensors under ``"auto"``; the kernel otherwise (which raises
+    for a CPU tensor under ``"kernel"``)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    if impl == "torch":
+        return "torch", "forced-off"
+    if impl == "auto":
+        return ("kernel", "cuda-default") if X.is_cuda else ("torch",
+                                                             "cpu-tensor")
+    if not X.is_cuda:
+        raise ValueError("impl='kernel' needs CUDA tensors; X is on "
+                         f"{X.device}")
+    return "kernel", "forced-on"
+
+
 def pairwise_terms(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
                    kind: str, *, impl: str = "auto",
                    storage_dtype: str | None = None) -> PairwiseTerms:
     """Fused pairwise terms; see kernels/ref.py for the contract."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    path, reason = _path(impl, X)
     storage = resolve_storage(storage_dtype)
-    if impl == "torch" or (impl == "auto" and not X.is_cuda):
-        reason = "forced-off" if impl == "torch" else "cpu-tensor"
-        _LAST["pairwise_terms"] = {"path": "torch", "reason": reason,
-                                   "storage": storage}
+    _LAST["pairwise_terms"] = {"path": path, "reason": reason,
+                               "storage": storage}
+    if path == "torch":
         Xs, Was, Wbs = (to_storage(t, storage).float() for t in (X, Wa, Wb))
         return pairwise_terms_ref(Xs, Was, Wbs, kind)
-    if not X.is_cuda:
-        raise ValueError("impl='kernel' needs CUDA tensors; X is on "
-                         f"{X.device}")
-    reason = "cuda-default" if impl == "auto" else "forced-on"
-    _LAST["pairwise_terms"] = {"path": "kernel", "reason": reason,
-                               "storage": storage}
     return pairwise_terms_cuda(to_storage(X, storage), to_storage(Wa, storage),
                                to_storage(Wb, storage), kind)
+
+
+def ell_lap_matvec(X: torch.Tensor, indices: torch.Tensor,
+                   weights: torch.Tensor, *, impl: str = "auto",
+                   layout: str | None = None,
+                   storage_dtype: str | None = None) -> torch.Tensor:
+    """Directed ELL Laplacian product L(A) X, float32 (N, d); see
+    kernels/ref.py for the contract.  `layout` None means ``"vmem"``."""
+    path, reason = _path(impl, X)
+    storage = resolve_storage(storage_dtype)
+    lay = layout or "vmem"
+    if lay not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
+    if path == "torch":
+        _LAST["ell_lap_matvec"] = {"path": path, "reason": reason,
+                                   "storage": storage}
+        return ell_lap_matvec_ref(to_storage(X, storage).float(), indices,
+                                  to_storage(weights, storage).float())
+    _LAST["ell_lap_matvec"] = {"path": path, "reason": reason,
+                               "storage": storage, "layout": lay}
+    return ell_lap_matvec_cuda(to_storage(X, storage),
+                               indices.to(torch.int32).contiguous(),
+                               to_storage(weights, storage), layout=lay)

@@ -1,8 +1,9 @@
-"""Plain PyTorch oracle for the fused pairwise embedding computation.
+"""Plain PyTorch oracles of the hand-written CUDA kernels.
 
-Port of `repro/kernels/ref.py`.  It materializes the N x N pair matrices
-and is the plain version beside the CUDA kernel (csrc/pairwise.cu): the
-CPU path of `ops.pairwise_terms` and the yardstick the kernel is held to.
+Port of `repro/kernels/ref.py`.  `pairwise_terms_ref` materializes the
+N x N pair matrices and is the plain version beside csrc/pairwise.cu;
+`ell_lap_matvec_ref` is the plain version beside csrc/ell.cu.  Each is the
+CPU path of its `ops` entry point and the yardstick its kernel is held to.
 
 Unified contract — for X (N, d), attractive weights Wa, repulsive weights
 Wb (both symmetric, zero diagonal):
@@ -42,6 +43,18 @@ def _pairwise_sq_dists(X: torch.Tensor) -> torch.Tensor:
 
 def _lap_matmul(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return torch.sum(W, dim=-1)[:, None] * X - W @ X
+
+
+def ell_lap_matvec_ref(X: torch.Tensor, indices: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Directed ELL Laplacian product (the contract of csrc/ell.cu):
+
+        (L(A) X)_n = (sum_j w_nj) x_n - sum_j w_nj x_{i_nj}
+
+    for indices (N, k) and weights (N, k).  A padding slot (indices[n, j] =
+    n, w = 0) contributes exactly zero; duplicate columns sum."""
+    deg = torch.sum(weights, dim=-1, keepdim=True)
+    return deg * X - torch.einsum("nk,nkd->nd", weights, X[indices])
 
 
 def negative_pair_terms(kind: str, t: torch.Tensor

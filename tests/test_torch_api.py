@@ -87,6 +87,7 @@ def test_spec_from_jax_fields_maps_and_validates():
                                            n_neighbors=30))
     spec = convert.spec_from_jax_fields(fields)
     assert (spec.kind, spec.lam, spec.kernel_impl) == ("tsne", 1.0, "kernel")
+    assert (spec.n_neighbors, spec.n_negatives, spec.seed) == (30, 5, 0)
     with pytest.raises(ValueError, match="counterpart"):
         convert.spec_from_jax_fields({**fields, "mesh_shape": (2, 2)})
 
@@ -99,14 +100,45 @@ def test_embedding_without_device_needs_cuda(monkeypatch):
 
 
 def test_auto_backend_above_cutoff_raises():
+    """Above AUTO_SPARSE_N, backend="auto" resolves to the sparse backend
+    (it raised until the sparse backend was ported); what still raises there
+    is what the sparse backend refuses, as in the reference: a neighbour
+    list narrower than the perplexity."""
     assert resolve_backend("auto", n=AUTO_SPARSE_N, strategy="sd") == "dense"
-    with pytest.raises(NotImplementedError, match="sparse"):
-        resolve_backend("auto", n=AUTO_SPARSE_N + 1, strategy="sd")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        Embedding(EmbedSpec(), device="cpu").fit(
-            np.zeros((AUTO_SPARSE_N + 1, 3), np.float32))
+    for strategy in ("sd", "fp", "gd"):
+        assert resolve_backend("auto", n=AUTO_SPARSE_N + 1,
+                               strategy=strategy) == "sparse"
     assert resolve_backend("dense", n=10 * AUTO_SPARSE_N,
                            strategy="sd") == "dense"
+    with pytest.raises(ValueError, match="n_neighbors"):
+        Embedding(EmbedSpec(perplexity=20.0, n_neighbors=10),
+                  device="cpu").fit(
+            np.zeros((AUTO_SPARSE_N + 1, 3), np.float32))
+
+
+def test_auto_backend_above_cutoff_fits_sparse_and_descends():
+    """The acceptance fit of the sparse slice on the CPU: N > 2048 with the
+    default backend="auto" runs the sparse backend (ELL graph, power-
+    iteration spectral start, sampled negatives, PCG) and descends."""
+    from repro_torch.data import mnist_like
+    from repro_torch.sparse import SparseAffinities
+
+    Y, _ = mnist_like(n=AUTO_SPARSE_N + 52, dim=30, seed=1)
+    seen = []
+    emb = Embedding(EmbedSpec(kind="tsne", lam=1.0, perplexity=8.0,
+                              n_neighbors=24, n_negatives=8, max_iters=8),
+                    device="cpu").fit(Y, callback=lambda it, X, e, d:
+                                      seen.append(d))
+    e = emb.result_.energies
+    assert emb.backend_ == "sparse" and "fitted[sparse]" in repr(emb)
+    assert isinstance(emb.affinities_, SparseAffinities)
+    assert emb.affinities_.graph.k == 24
+    assert np.all(np.isfinite(e)) and e[-1] < e[0]
+    assert emb.embedding_.shape == (Y.shape[0], 2)
+    assert set(emb.result_.phase_times) == {
+        "knn_s", "calibrate_s", "reverse_s", "spectral_init_s"}
+    assert all(d["pcg_iters"] >= 1 and d["z_ema"] > 0 for d in seen)
+    assert ops.last_dispatch("ell_lap_matvec")["path"] == "torch"
 
 
 def test_spec_validation_and_unported_options():
@@ -115,7 +147,11 @@ def test_spec_validation_and_unported_options():
     with pytest.raises(ValueError, match="registered strategies"):
         EmbedSpec(strategy="sd-")
     with pytest.raises(ValueError, match="registered backends"):
-        EmbedSpec(backend="sparse")
+        EmbedSpec(backend="tree")
+    with pytest.raises(ValueError, match="kernel_layout"):
+        EmbedSpec(kernel_layout="smem")
+    assert EmbedSpec(kernel_layout="hbm").ell_kernel_args() == {
+        "layout": "hbm"}
     with pytest.raises(ValueError, match="kernel_impl"):
         EmbedSpec(kernel_impl="pallas")
     with pytest.raises(ValueError, match="kernel_precision"):

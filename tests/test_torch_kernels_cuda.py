@@ -1,7 +1,7 @@
-"""The CUDA pairwise kernel against its plain PyTorch version, on the GPU.
+"""The CUDA kernels against their plain PyTorch versions, on the GPU.
 
-Marked `cuda`; each test skips without a CUDA device (the kernel has no CPU
-mode).  This file imports no JAX, so it runs on a machine that has only the
+Marked `cuda`; each test skips without a CUDA device (the kernels have no
+CPU mode).  This file imports no JAX, so it runs on a machine that has only the
 port's dependencies:
 
     python3 -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -11,13 +11,17 @@ Tolerances are those of the reference's kernel test
 5e-5 * (max|.| + 1), e_plus and s at rtol 1e-4, against the oracle in
 float64 on the same storage-rounded inputs (in float32 the oracle's
 sum(a) x_n - sum(a x_m) cancels digits that the kernel keeps), with the
-Epanechnikov support-edge slack of `_epan_slack`.
+Epanechnikov support-edge slack of `_epan_slack`.  The ELL kernels (both
+layouts) are held at the tolerance of tests/test_sparse_kernel.py (rtol
+5e-5, atol 5e-5 max|.|), against the float64 oracle on the same
+storage-rounded inputs.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sparse_attractive
 from repro_torch.kernels.pairwise import launch_counts
 
 TOL = 5e-5
@@ -95,3 +99,66 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
         pairwise_terms_cuda(X, Wa.T, Wb, "ee")
     with pytest.raises(ValueError, match=r"\(64, 64\)"):
         pairwise_terms_cuda(X, Wa[:32], Wb, "ee")
+
+
+def _ell_graph(seed: int, n: int, k: int, d: int, device):
+    """Random ELL graph with padding slots, an all-padding row (3) and a
+    row of one repeated column (5)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    w = np.abs(rng.normal(size=(n, k))).astype(np.float32)
+    idx[:, 1::5] = np.arange(n)[:, None]
+    w[:, 1::5] = 0.0
+    idx[3], w[3] = 3, 0.0
+    idx[5] = 6
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    return (torch.from_numpy(a).to(device) for a in (X, idx, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_ell_kernel_matches_oracle(cuda_device, layout, storage):
+    """Short and long rows (one to a warp and several), d = 1..3 and the
+    generic-d path, ragged N; one launch of the layout per call; padding
+    rows exactly 0; a rerun is bit-identical."""
+    name = f"ell_lap_matvec_{layout}"
+    for n, k, d in [(300, 3, 2), (301, 24, 1), (257, 90, 3), (200, 40, 6)]:
+        X, idx, w = _ell_graph(n + k, n, k, d, cuda_device)
+        want = ref.ell_lap_matvec_ref(ops.to_storage(X, storage).double(),
+                                      idx,
+                                      ops.to_storage(w, storage).double())
+        before = sparse_attractive.launch_counts[name]
+        got = ops.ell_lap_matvec(X, idx, w, layout=layout,
+                                 storage_dtype=storage)
+        torch.cuda.synchronize()
+        assert sparse_attractive.launch_counts[name] == before + 1
+        assert ops.last_dispatch("ell_lap_matvec")["layout"] == layout
+        err = (got.double() - want).abs()
+        tol = TOL * want.abs().max() + TOL * want.abs()
+        assert bool(torch.all(err <= tol)), float(err.max())
+        assert bool(torch.all(got[3] == 0))
+        again = ops.ell_lap_matvec(X, idx, w, layout=layout,
+                                   storage_dtype=storage)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_ell_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
+
+    X, idx, w = _ell_graph(0, 64, 8, 2, cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        ell_lap_matvec_cuda(X, idx.long(), w)
+    with pytest.raises(TypeError, match="storage dtype"):
+        ell_lap_matvec_cuda(X, idx, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_lap_matvec_cuda(X, idx.T.contiguous().T, w)
+    with pytest.raises(ValueError, match=r"\(64, k\)"):
+        ell_lap_matvec_cuda(X, idx[:32], w[:32])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        wide = torch.zeros((64, 100000), dtype=torch.int32,
+                           device=cuda_device)
+        ell_lap_matvec_cuda(X, wide, torch.zeros(wide.shape,
+                                                 device=cuda_device),
+                            layout="hbm")
