@@ -38,8 +38,10 @@ Phases, each printing one line (or a few) and failing the run on error:
               counter must grow, the energies must be finite with the last
               surrogate below the first, and the first three iterations
               must match a kernel_impl="torch" run with the same draws at
-              rtol 1e-4.  Then the EE fit again with kernel_layout="hbm"
-              (the staged-gather layout on the same path).
+              rtol 1e-4; that run must launch no ELL kernel.  Then the EE
+              fit's objective again with the CG operator on the hbm layout
+              (the staged gather; `build_sparse_objective(ell_layout=)`,
+              which no user option selects), driven by the same engine.
   8. time_ell — each ELL layout on the fits' forward and reverse graphs,
               float32 and bfloat16: CUDA-event time, the memory bound, the
               plain version and torch.sparse.mm on the CSR Laplacian; each
@@ -354,8 +356,12 @@ def phase_fit(n: int = N_FIT, iters: int = 10) -> dict:
                    f"iteration); wall {wall:.1f} s")
         say("fit", f"{kind}: energies {np.array2string(e, precision=8)}")
         # the same fit through the plain PyTorch path, same start
+        pairwise.reset_launch_counts()
         plain = Embedding(spec.replace(kernel_impl="torch", max_iters=3)).fit(
             None, X0=emb.X0_, aff=emb.affinities_)
+        if pairwise.launch_counts["pairwise_terms"]:
+            raise AssertionError(f"{kind}: the plain path launched the "
+                                 f"kernel: {dict(pairwise.launch_counts)}")
         ep = plain.result_.energies
         rel = np.max(np.abs(ep - e[:4]) / np.abs(e[:4]))
         if rel > 1e-4:
@@ -588,6 +594,8 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
     with the default backend="auto" on N = 70000 points."""
     from repro_torch.api import Embedding, EmbedSpec
     from repro_torch.data import mnist_like
+    from repro_torch.embed.engine import fit_loop, make_loop_config
+    from repro_torch.embed.trainer import build_sparse_objective
     from repro_torch.kernels import sparse_attractive
 
     t0 = time.perf_counter()
@@ -602,7 +610,7 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
                            strategy="sd", n_negatives=5, max_iters=iters,
                            tol=0.0)),
     ]
-    out = {"launches": {lay: 0 for lay in ELL_LAYOUTS}, "fits": {}}
+    out = {"launches": {"vmem": 0}, "fits": {}}
     for kind, spec in configs:
         sparse_attractive.reset_launch_counts()
         diags = []
@@ -615,10 +623,10 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
         if emb.backend_ != "sparse":
             raise AssertionError(f"{kind}: backend='auto' resolved to "
                                  f"{emb.backend_!r} at N={n}")
-        if counts["ell_lap_matvec_vmem"] < 1:
-            raise AssertionError(f"{kind}: the fit launched no ELL kernel")
+        if counts["ell_lap_matvec_vmem"] < 1 or counts["ell_lap_matvec_hbm"]:
+            raise AssertionError(f"{kind}: the default fit's ELL launches "
+                                 f"{counts} (vmem only, at least one)")
         out["launches"]["vmem"] += counts["ell_lap_matvec_vmem"]
-        out["launches"]["hbm"] += counts["ell_lap_matvec_hbm"]
         res = emb.result_
         e = res.energies
         if not np.all(np.isfinite(e)):
@@ -645,8 +653,13 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
                           f"{_graph_stats(saff.graph)}; reverse graph "
                           f"{_graph_stats(saff.rev)}")
         say("fit_sparse", f"{kind}: energies {np.array2string(e, precision=8)}")
+        sparse_attractive.reset_launch_counts()
         plain = Embedding(spec.replace(kernel_impl="torch", max_iters=3)).fit(
             None, X0=emb.X0_, saff=saff)
+        if any(sparse_attractive.launch_counts.values()):
+            raise AssertionError(
+                f"{kind}: the kernel_impl='torch' run launched an ELL kernel:"
+                f" {dict(sparse_attractive.launch_counts)}")
         ep = plain.result_.energies
         rel = float(np.max(np.abs(ep - e[:4]) / np.abs(e[:4])))
         if rel > 1e-4:
@@ -656,31 +669,34 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
                           f"kernel_impl='torch' run (same draws), max rel "
                           f"diff {rel:.2e}")
         out["fits"][kind] = emb
-    # the staged-gather layout on the same path, from the EE fit's graph and
-    # start: a user's kernel_layout="hbm"
+    # the staged-gather layout on the CG path of the same fit, from the EE
+    # fit's graph and start, through the engine loop that fit_sparse runs;
+    # its launches are reported apart from the default fits'
     emb = out["fits"]["ee"]
+    spec = emb.spec
     sparse_attractive.reset_launch_counts()
     t0 = time.perf_counter()
-    hbm = Embedding(emb.spec.replace(kernel_layout="hbm")).fit(
-        None, X0=emb.X0_, saff=emb.affinities_)
+    obj, X0, _ = build_sparse_objective(
+        spec, None, emb.X0_, strategy=spec.strategy, saff=emb.affinities_,
+        device=emb.X0_.device, ell_layout="hbm")
+    hbm = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(sparse_attractive.launch_counts)
-    if hbm.backend_ != "sparse" or counts["ell_lap_matvec_hbm"] < 1:
-        raise AssertionError(f"kernel_layout='hbm': backend {hbm.backend_}, "
-                             f"launches {counts}")
-    out["launches"]["hbm"] += counts["ell_lap_matvec_hbm"]
-    out["launches"]["vmem"] += counts["ell_lap_matvec_vmem"]
-    eh, ev = hbm.result_.energies, emb.result_.energies
+    if counts["ell_lap_matvec_hbm"] < 1:
+        raise AssertionError(f"ell_layout='hbm': launches {counts}")
+    out["launches_hbm_fit"] = counts
+    eh, ev = hbm.energies, emb.result_.energies
     rel = float(np.max(np.abs(eh - ev) / np.abs(ev)))
     if rel > 1e-4:
-        raise AssertionError(f"kernel_layout='hbm' {eh} vs vmem {ev} "
+        raise AssertionError(f"ell_layout='hbm' {eh} vs vmem {ev} "
                              f"(rel {rel:.2e})")
-    say("fit_sparse", f"ee with kernel_layout='hbm': {hbm.result_.n_iters} "
-                      f"iterations at "
-                      f"{hbm.result_.times[-1] / hbm.result_.n_iters * 1e3:.1f}"
-                      f" ms each, wall {wall:.1f} s; launches {counts}; "
-                      f"energies match the vmem fit, max rel diff {rel:.2e}")
+    say("fit_sparse", f"ee with the CG operator on ell_layout='hbm': "
+                      f"{hbm.n_iters} iterations at "
+                      f"{hbm.times[-1] / hbm.n_iters * 1e3:.1f} ms each, wall "
+                      f"{wall:.1f} s; launches {counts} (the gradient's stay "
+                      f"on vmem); energies match the vmem fit, max rel diff "
+                      f"{rel:.2e}")
     return out
 
 
@@ -844,17 +860,23 @@ def main() -> int:
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": None}]
     # the ELL kernels at the wider of the main path's two graphs: the EE
-    # fit's reverse graph, float32
+    # fit's reverse graph, float32.  vmem's launches are the two default
+    # fits'; hbm's come from the EE fit with its CG operator on that layout
+    # (the default path selects vmem)
+    launches = {"vmem": (sparse["launches"]["vmem"],
+                         "the default EE and t-SNE sparse fits"),
+                 "hbm": (sparse["launches_hbm_fit"]["ell_lap_matvec_hbm"],
+                         "the EE sparse fit with ell_layout='hbm'")}
     for layout, line in (("vmem", 96), ("hbm", 186)):
         t = timing_ell["ee", "reverse", "float32", layout]
-        if sparse["launches"][layout] < 1:
-            raise AssertionError(f"the sparse path launched no ELL {layout} "
-                                 f"kernel")
+        n_launch, origin = launches[layout]
+        if n_launch < 1:
+            raise AssertionError(f"{origin} launched no ELL {layout} kernel")
         kernels.append({
             "name": f"ell_lap_matvec_{layout}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ell.cu",
             "replaces": f"src/repro/kernels/sparse_attractive.py:{line}",
-            "launches": sparse["launches"][layout], **t})
+            "launches": n_launch, "launches_from": origin, **t})
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

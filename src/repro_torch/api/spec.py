@@ -16,7 +16,6 @@ from typing import Any, Mapping
 from repro_torch.core.linesearch import LSConfig
 from repro_torch.kernels.ops import IMPLS, STORAGE_DTYPES
 from repro_torch.kernels.ref import KINDS
-from repro_torch.kernels.sparse_attractive import LAYOUTS
 
 from . import registries
 
@@ -37,9 +36,6 @@ class EmbedSpec:
     forwarded to the strategy factory (e.g. ``{"kappa": 7}`` for sparsified
     SD).  `kernel_impl` selects the kernel path (`kernels.ops`): ``auto``
     (the CUDA kernel on CUDA, the oracle on CPU), ``kernel`` or ``torch``.
-    `kernel_layout` picks the ELL gather of the sparse backend's CG
-    operator: None (``vmem``), ``vmem`` or ``hbm`` (`kernels.ops.
-    ell_lap_matvec`); `repro` picks its layout by the TPU's memory instead.
     """
 
     kind: str = "ee"
@@ -65,7 +61,6 @@ class EmbedSpec:
     cg_maxiter: int = 100
     kernel_impl: str = "auto"
     kernel_precision: str = "float32"    # storage; accumulation is float32
-    kernel_layout: str | None = None     # sparse CG operator: vmem | hbm
 
     def __post_init__(self):
         validate_kind(self.kind)
@@ -83,9 +78,6 @@ class EmbedSpec:
             raise ValueError(f"unknown kernel_precision "
                              f"{self.kernel_precision!r}; have "
                              f"{STORAGE_DTYPES}")
-        if self.kernel_layout is not None and self.kernel_layout not in LAYOUTS:
-            raise ValueError(f"unknown kernel_layout {self.kernel_layout!r}; "
-                             f"have {LAYOUTS} (or None)")
 
     def kernel_args(self) -> dict:
         """The `kernels.ops` dispatch kwargs this spec selects (empty at the
@@ -95,14 +87,6 @@ class EmbedSpec:
             out["impl"] = self.kernel_impl
         if self.kernel_precision != "float32":
             out["storage_dtype"] = self.kernel_precision
-        return out
-
-    def ell_kernel_args(self) -> dict:
-        """`kernel_args` plus the ELL layout: the dispatch kwargs of the
-        sparse backend's CG operator."""
-        out = self.kernel_args()
-        if self.kernel_layout is not None:
-            out["layout"] = self.kernel_layout
         return out
 
     def resolved_ls(self) -> LSConfig:

@@ -157,12 +157,13 @@ def sparse_attractive_terms(X: torch.Tensor, saff, kind: str
 
 
 def sparse_attractive_lap(X: torch.Tensor, saff, kind: str,
-                          aw: torch.Tensor) -> torch.Tensor:
+                          aw: torch.Tensor, impl: str = "auto"
+                          ) -> torch.Tensor:
     """The attractive Laplacian product la_x = L(a) X over the implicit
     symmetric W+ = (A + A^T)/2, gather-only.  For every kind but t-SNE the
     attractive weights are W+ itself, so this is `sym_lap_matvec` (the ELL
-    kernel, at the dispatcher's defaults: float32); t-SNE's reverse edges
-    recompute their K from their own distance."""
+    kernel dispatcher with the given `impl`, in float32 storage); t-SNE's
+    reverse edges recompute their K from their own distance."""
     g = saff.graph
     rev = saff.rev
     if kind == "tsne":
@@ -174,7 +175,7 @@ def sparse_attractive_lap(X: torch.Tensor, saff, kind: str,
                                     _gathered_sq_dists(X, rev.indices))[1]
         return 0.5 * (directed_lap_apply(aw, X, X[g.indices])
                       + directed_lap_apply(arw, X, X[rev.indices]))
-    return sym_lap_matvec(g, X, rev=rev)
+    return sym_lap_matvec(g, X, rev=rev, impl=impl)
 
 
 def draw_shifts(seed: int, it: int, n: int, m: int,
@@ -194,7 +195,8 @@ def energy_and_grad_sparse(X: torch.Tensor, saff, kind: str, lam, *,
                            shifts: torch.Tensor | None = None,
                            with_grad: bool = True,
                            z_prev: torch.Tensor | None = None,
-                           z_decay=0.9, return_state: bool = False):
+                           z_decay=0.9, return_state: bool = False,
+                           impl: str = "auto"):
     """O(N (k + m) d) energy and gradient for every model family.
 
     Attractive side: exact, over the calibrated ELL graph (the implicit
@@ -216,6 +218,8 @@ def energy_and_grad_sparse(X: torch.Tensor, saff, kind: str, lam, *,
     `n_negatives=None` (or >= N-1) uses all N-1 shifts, every ordered pair
     exactly once: exact, no draw needed, and z = s_hat = Z.
     `with_grad=False` returns (E, None): the line search needs no gradient.
+    `impl` selects the path of the ELL products (`kernels.ops`); their
+    storage stays float32, as the reference's.
     """
     normalized = is_normalized(kind)
     if return_state and not normalized:
@@ -260,7 +264,7 @@ def energy_and_grad_sparse(X: torch.Tensor, saff, kind: str, lam, *,
     if not with_grad:
         return (E, None, z) if return_state else (E, None)
 
-    la_x = sparse_attractive_lap(X, saff, kind, aw)
+    la_x = sparse_attractive_lap(X, saff, kind, aw, impl)
 
     # forward slot j is shift +s_j with weights b[:, j]; the transpose is
     # shift -s_j carrying the same per-edge weight, read at the source row

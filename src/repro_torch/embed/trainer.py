@@ -165,7 +165,8 @@ def _make_direction_solve(strategy: str, matvec, inv_diag, cfg,
 
 def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
                            sharded: bool = False, saff=None, *, device,
-                           shift_source=None, phase_times: dict | None = None):
+                           shift_source=None, phase_times: dict | None = None,
+                           ell_layout: str | None = None):
     """(objective, X0, saff) for the sparse neighbour-graph backend.
 
     A precomputed `saff` (sparse.SparseAffinities) skips the k-NN build.
@@ -173,9 +174,10 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
     (`draw_shifts`).  `phase_times`, when given, receives the set-up
     seconds: the graph build's steps (``knn_s``, ``calibrate_s``,
     ``reverse_s``) and ``spectral_init_s``.  The CG operator runs the ELL
-    kernel with the spec's kernel arguments (impl, layout, bf16 storage);
-    the gradient's ELL products run it at the defaults, as the reference's
-    do."""
+    kernel with the spec's kernel arguments (impl, bf16 storage) and the
+    layout `ell_layout` (None: ``vmem``; ``hbm`` is the staged gather, which
+    no user option selects); the gradient's ELL products take only the
+    spec's impl and stay in float32 storage, as the reference's do."""
     if sharded:
         raise NotImplementedError(
             "the row-sharded sparse backend is not ported to repro_torch yet")
@@ -195,8 +197,9 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
     # the spectral system is model-independent (the paper freezes the
     # attractive Hessian at X = 0), so normalized kinds share the operator
     matvec, inv_diag, _ = make_sd_operator(saff.graph, saff.rev,
-                                           cfg.mu_scale,
-                                           **cfg.ell_kernel_args())
+                                           cfg.mu_scale, layout=ell_layout,
+                                           **cfg.kernel_args())
+    impl = cfg.kernel_impl
     sampled = m is not None and m < n - 1
     if sampled and shift_source is None:
         def shift_source(seed, it):
@@ -208,17 +211,18 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
         def eg(X, shifts, z):
             return energy_and_grad_sparse(
                 X, saff, kind, lam, n_negatives=m, shifts=shifts, z_prev=z,
-                z_decay=cfg.z_ema_decay, return_state=True)
+                z_decay=cfg.z_ema_decay, return_state=True, impl=impl)
         obj_cls = _NormalizedSparseObjective
     else:
         def eg(X, shifts):
             return energy_and_grad_sparse(X, saff, kind, lam, n_negatives=m,
-                                          shifts=shifts)
+                                          shifts=shifts, impl=impl)
         obj_cls = _SparseObjective
 
     def e_only(X, shifts):
         return energy_and_grad_sparse(X, saff, kind, lam, n_negatives=m,
-                                      shifts=shifts, with_grad=False)[0]
+                                      shifts=shifts, with_grad=False,
+                                      impl=impl)[0]
 
     solve = _make_direction_solve(strategy, matvec, inv_diag, cfg, "sparse")
     return obj_cls(eg, e_only, solve, X0, shift_source), X0, saff

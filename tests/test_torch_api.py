@@ -148,10 +148,6 @@ def test_spec_validation_and_unported_options():
         EmbedSpec(strategy="sd-")
     with pytest.raises(ValueError, match="registered backends"):
         EmbedSpec(backend="tree")
-    with pytest.raises(ValueError, match="kernel_layout"):
-        EmbedSpec(kernel_layout="smem")
-    assert EmbedSpec(kernel_layout="hbm").ell_kernel_args() == {
-        "layout": "hbm"}
     with pytest.raises(ValueError, match="kernel_impl"):
         EmbedSpec(kernel_impl="pallas")
     with pytest.raises(ValueError, match="kernel_precision"):

@@ -162,3 +162,40 @@ def test_cuda_ell_kernel_rejects_what_it_cannot_take(cuda_device):
         ell_lap_matvec_cuda(X, wide, torch.zeros(wide.shape,
                                                  device=cuda_device),
                             layout="hbm")
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_fit_launches_follow_impl_and_layout(cuda_device):
+    """The sparse objective's ELL products: kernel_impl="torch" launches no
+    ELL kernel (CG operator and gradient alike); the default launches the
+    vmem layout only; build_sparse_objective(ell_layout="hbm") moves the CG
+    operator to the hbm layout while the gradient stays on vmem."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.embed.trainer import build_sparse_objective
+
+    rng = np.random.default_rng(0)
+    Y = rng.normal(size=(300, 8)).astype(np.float32)
+    spec = EmbedSpec(kind="ee", lam=10.0, backend="sparse", perplexity=5.0,
+                     n_neighbors=15, max_iters=2, tol=0.0)
+    emb = Embedding(spec, device=cuda_device).fit(Y)
+    sparse_attractive.reset_launch_counts()
+    Embedding(spec.replace(kernel_impl="torch"), device=cuda_device).fit(
+        None, X0=emb.X0_, saff=emb.affinities_)
+    assert not any(sparse_attractive.launch_counts.values())
+    sparse_attractive.reset_launch_counts()
+    Embedding(spec, device=cuda_device).fit(None, X0=emb.X0_,
+                                            saff=emb.affinities_)
+    counts = dict(sparse_attractive.launch_counts)
+    assert counts["ell_lap_matvec_vmem"] > 0
+    assert counts["ell_lap_matvec_hbm"] == 0
+    sparse_attractive.reset_launch_counts()
+    obj, X0, _ = build_sparse_objective(
+        spec, None, emb.X0_, saff=emb.affinities_, device=cuda_device,
+        ell_layout="hbm")
+    E, G = obj.energy_and_grad(X0, (spec.seed + 1, 0))
+    assert sparse_attractive.launch_counts == {"ell_lap_matvec_vmem": 2,
+                                               "ell_lap_matvec_hbm": 0}
+    solve, P0 = obj.make_direction_solver()
+    solve(P0, X0, G)
+    assert sparse_attractive.launch_counts["ell_lap_matvec_hbm"] >= 2
+    assert sparse_attractive.launch_counts["ell_lap_matvec_vmem"] == 2
