@@ -25,8 +25,9 @@ Phases, each printing one line (or a few) and failing the run on error:
   5. time   — the pairwise kernel at N = 20000, d = 2, every kind, float32
               and bfloat16, on the fits' own embeddings and affinities (EE's
               for the unnormalized kinds, t-SNE's for the normalized ones),
-              with CUDA events, beside its memory bound and the plain
-              version; each call is held against the plain version.
+              device time by CUDA-graph replay and the time of a call
+              issued eagerly, beside its memory bound and the plain version;
+              each call is held against the plain version.
   6. profile — three dense SD iterations of the t-SNE fit under
               torch.profiler: device time by kernel and the idle share.
   7. fit_sparse — slice 2's main path: `Embedding(EmbedSpec(kind=...,
@@ -43,11 +44,47 @@ Phases, each printing one line (or a few) and failing the run on error:
               (the staged gather; `build_sparse_objective(ell_layout=)`,
               which no user option selects), driven by the same engine.
   8. time_ell — each ELL layout on the fits' forward and reverse graphs,
-              float32 and bfloat16: CUDA-event time, the memory bound, the
-              plain version and torch.sparse.mm on the CSR Laplacian; each
+              float32 and bfloat16: device time by CUDA-graph replay and
+              eager time, the memory bound, the plain version and
+              torch.sparse.mm on the CSR Laplacian (both eager); each
               call held against the float64 plain version.
   9. profile_sparse — three sparse t-SNE SD iterations under
               torch.profiler: device time by kernel and the idle share.
+ 10. check_bh — the Barnes-Hut cell-interaction kernel against its float64
+              plain version: five kinds, float32 and bfloat16, N in {1000,
+              4097}, W in {1, 25, 96, 128}, d in {1, 2, 3}, tables of 16 and
+              65536 rows and the table = X case, with zero-weight slots,
+              all-zero rows (exactly 0) and a repeated index; reruns must be
+              bit-identical.  Then the tree's partition invariant on the
+              card: tree_pairs == N (N - 1) exactly at N = 4000.
+ 11. fit_tree — slice 3's main path at full width: `Embedding(EmbedSpec(
+              kind=..., backend="tree", strategy="sd"))` on the N = 70000
+              fits' affinities (`fit(saff=)`; theta = 0.5, depth 8, cap 16),
+              EE (lambda = 100) and t-SNE (lambda = 1), ten iterations each.
+              The kernel must launch once per chunk of every batch of every
+              evaluation (12 an evaluation), the energies must be finite and
+              must not increase, and a second kernel run of three
+              iterations must be bit-identical; it prints the grid's
+              diagnostics.  The first three iterations must match, at the
+              default mu_scale = 1e-5, a run with only the cell interaction
+              on its plain version at rtol 1e-4, and a kernel_impl="torch"
+              run (which launches no kernel) within 1e-3: there the
+              near-singular SD system lets the order of the ELL products'
+              float32 sums move the EE trajectory by ~2.2e-4 (PERF.md,
+              Findings); at mu_scale = 1e-3 the kernel_impl="torch" run
+              must match at rtol 1e-4.  Then every kernel call of one
+              evaluation on each fit's embedding (EE: the exp
+              instantiation; t-SNE: 1/(1 + t)), float32 and bfloat16,
+              against the float64 plain version.
+ 12. time_bh — the kernel at the tree's batch shapes on the t-SNE tree
+              fit's embedding (far level 8, W = 96; a near chunk, W = 128
+              with table = X; the residual, W = 25), float32 and bfloat16:
+              device time by CUDA-graph replay and the time of a call issued
+              eagerly, beside the byte bound and the plain version, each
+              call held against the float64 plain version; then one whole
+              tree_repulsion against its grid build alone.
+ 13. profile_tree — three tree t-SNE SD iterations under torch.profiler:
+              device time by kernel and the idle share.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -56,6 +93,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -67,6 +105,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 N_FIT = 20000        # MNIST-20k, the paper's large configuration
+KERNEL_SOURCES = ("pairwise", "ell", "farfield")   # csrc/<name>.cu
 
 # NVIDIA H100 SXM data sheet (700 W): HBM3 rate, f32 rate outside the
 # tensor cores
@@ -228,6 +267,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
+    """Device time of one fn() call: `reps` calls captured in one CUDA graph
+    and replayed, so that no host time (Python, ctypes, allocation) enters.
+    Every kernel's time is taken so; `cuda_ms`'s back-to-back eager calls
+    measure the host's issue rate for kernels of tens of microseconds, and
+    time the plain versions and library calls, which are not captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the capture stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * reps)
+    del graph
+    return ms
+
+
 def phase_probe() -> None:
     dev = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -246,9 +315,9 @@ def phase_build() -> None:
     """Build every kernel source (one nvcc each, all started together)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    for name in ("pairwise", "ell"):
+    for name in KERNEL_SOURCES:
         _build.load(name)
-    for name in ("pairwise", "ell"):
+    for name in KERNEL_SOURCES:
         info = _build.BUILD_INFO[name]
         regs = [int(line.split("Used ")[1].split(" registers")[0])
                 for line in info["log"].splitlines() if "registers" in line]
@@ -403,8 +472,10 @@ def phase_time(data: dict) -> dict:
             fit = "tsne" if is_normalized(kind) else "ee"
             X, Wa, Wb = data[fit]
             Xs, Was, Wbs = stored[fit]
-            ms = cuda_ms(lambda: pairwise_terms_cuda(Xs, Was, Wbs, kind),
-                         reps=20)
+            def call():
+                return pairwise_terms_cuda(Xs, Was, Wbs, kind)
+            ms = graph_ms(call, reps=20)
+            eager_ms = cuda_ms(call, reps=20)
             plain_ms = cuda_ms(lambda: ops.pairwise_terms(
                 Xs, Was, Wbs, kind, impl="torch"), reps=3, warmup=1)
             got = pairwise_terms_cuda(Xs, Was, Wbs, kind)
@@ -429,8 +500,9 @@ def phase_time(data: dict) -> dict:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "max_abs_err": lap_err}
             say("time", f"  {kind:4s} {storage} on the {fit} fit: kernel "
-                        f"{ms:.3f} ms "
-                        f"({t_bytes / ms * 100:.0f}% of the memory bound), "
+                        f"{ms:.3f} ms on the device "
+                        f"({t_bytes / ms * 100:.0f}% of the memory bound; "
+                        f"{eager_ms:.3f} ms a call issued eagerly), "
                         f"plain {plain_ms:.3f} ms; la/lb max abs err "
                         f"{lap_err:.3e}, at {ratio:.2f} of its bound "
                         f"(max |la_x|/|lb_x| {sizes}; plain float32 err "
@@ -746,8 +818,11 @@ def phase_time_ell(fits: dict) -> dict:
                 lib_err = float((lib.double() - want).abs().max())
                 del csr, lib
                 for layout in ELL_LAYOUTS:
-                    ms = cuda_ms(lambda: ell_lap_matvec_cuda(
-                        Xs, g.indices, ws, layout=layout), reps=200)
+                    def call():
+                        return ell_lap_matvec_cuda(Xs, g.indices, ws,
+                                                   layout=layout)
+                    ms = graph_ms(call)
+                    eager_ms = cuda_ms(call, reps=200)
                     got = ell_lap_matvec_cuda(Xs, g.indices, ws,
                                               layout=layout)
                     try:
@@ -763,10 +838,12 @@ def phase_time_ell(fits: dict) -> dict:
                         "library_ms": lib_ms, "max_abs_err": err}
                     say("time_ell", f"{kind} {gname} graph (N={n}, k={k}, "
                                     f"d={d}) {storage} {layout}: kernel "
-                                    f"{ms * 1e3:.1f} us "
+                                    f"{ms * 1e3:.1f} us on the device "
                                     f"({bound_ms / ms * 100:.0f}% of the "
                                     f"{nbytes / 1e6:.1f} MB bound "
-                                    f"{bound_ms * 1e3:.1f} us), plain "
+                                    f"{bound_ms * 1e3:.1f} us; "
+                                    f"{eager_ms * 1e3:.1f} us a call issued "
+                                    f"eagerly), plain "
                                     f"{plain_ms * 1e3:.1f} us, "
                                     f"torch.sparse.mm CSR {lib_ms * 1e3:.1f}"
                                     f" us (its err {lib_err:.2e}); max abs "
@@ -824,6 +901,530 @@ def phase_profile_sparse(emb, iters: int = 3) -> None:
                               f"{key[:80]}")
 
 
+# -- slice 3: the tree backend and the cell-interaction kernel ---------------
+
+BH_TABLES = ("16 rows", "65536 rows", "X")
+TREE_CHECK_MU = 1e-3     # mu_scale of the tree fits' kernel-vs-plain check
+# limit of the kernel path against the all-plain path over three tree
+# iterations at the default mu_scale: ~4.5x the EE fit's 2.24e-4 (PERF.md,
+# PR 13), the near-singular SD system's spread under a change in the order
+# of the ELL products' float32 sums
+TREE_DEFAULT_MU_RTOL = 1e-3
+
+
+def bh_problem(n: int, width: int, d: int, table: str, seed: int, device
+               ) -> tuple:
+    """X (n, d), a cell-interaction batch idx (n, W) int32 and w (n, W)
+    float32, and its table: 16 or 65536 rows of centres of mass, or X itself
+    (the near field).  The cases the contract names: ~30% zero-weight slots
+    (for table = X, the slots pointing at the row itself among them), rows 3
+    and 4 all zero, and row 5 one index repeated.  w holds occupancies."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((n, d), generator=g, device=device)
+    if table == "X":
+        tab = X
+    else:
+        m = 16 if table == "16 rows" else 65536
+        tab = 1.5 * torch.randn((m, d), generator=g, device=device)
+    m = tab.shape[0]
+    idx = torch.randint(0, m, (n, width), generator=g, device=device,
+                        dtype=torch.int32)
+    w = torch.randint(1, 17, (n, width), generator=g, device=device
+                      ).to(torch.float32)
+    w = torch.where(torch.rand((n, width), generator=g, device=device) < 0.3,
+                    0.0, w)
+    if table == "X":
+        rows = torch.arange(n, device=device, dtype=torch.int32)[:, None]
+        idx[:, 1::5] = rows
+        w[:, 1::5] = 0.0
+    w[3:5] = 0.0
+    idx[5] = idx[5, :1].clone()
+    return X, idx, w, tab
+
+
+def bh_plain64(X, idx, w, table, kind, storage):
+    """The plain version in float64 on the storage-rounded inputs, the
+    per-entry bounds of s and F, and the float32 underflow floors inside
+    them: (s, F, tol_s, tol_F, floor_s, floor_F).  A bound is 5e-5
+    (max|want| + |want|) plus 5e-5 times the magnitudes of the terms the
+    kernel sums, sum_j |w sp| for s and sum_j |w b (x_n - c_j)| for F (the
+    kernel forms each difference, which is exact for close points, so its
+    error scales with the terms and not with |x_n| + |c_j|); for epan, whose
+    b = [t < 1] jumps at t = 1, F's bound also has the terms w |x_n - c_j|
+    of the slots within EPAN_EDGE of it.  The mass term is above the float32
+    rounding of a W <= 128 term sum (128 * 2^-24 = 7.6e-6 of it).  The floor
+    is what float32 cannot hold: a term whose exp(-t) falls below float32's
+    smallest normal number (a far cell of a spread-out EE embedding) may
+    lose up to FLT_MIN w (1 + |x_n - c_j|)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import bh_interaction_ref, negative_pair_terms
+    X64 = ops.to_storage(X, storage).double()
+    t64 = ops.to_storage(table, storage).double()
+    w64 = w.double()
+    s, F = bh_interaction_ref(X64, idx, w64, t64, kind)
+    g = t64[idx]
+    diff = X64[:, None, :] - g
+    t = torch.sum(diff * diff, dim=-1)
+    sp, b = negative_pair_terms(kind, t)
+    mass_F = torch.einsum("nw,nwd->nd", (w64 * b).abs(), diff.abs())
+    tol_F = TOL_LAP * (F.abs().max() + F.abs() + mass_F)
+    if kind == "epan":
+        near = ((t - 1.0).abs() < EPAN_EDGE) * w64
+        tol_F = tol_F + torch.einsum("nw,nwd->nd", near, diff.abs())
+    tol_s = TOL_LAP * (s.abs().max() + s.abs() + (w64 * sp).abs().sum(-1))
+    tiny = torch.finfo(torch.float32).tiny
+    floor_s = tiny * w64.abs().sum(-1)
+    floor_F = tiny * torch.einsum("nw,nwd->nd", w64.abs(), 1.0 + diff.abs())
+    return s, F, tol_s + floor_s, tol_F + floor_F, floor_s, floor_F
+
+
+def bh_compare(got, want, teeth=True) -> tuple[float, float, list]:
+    """Max abs error of (s, F), its largest ratio to the bound, and the
+    names among s, F whose bound an all-zero output would meet; raises when
+    the error exceeds the bound or, with `teeth`, when a bound would pass
+    zeros.  (bfloat16 storage of the fits' embeddings may merge neighbours,
+    which leaves a near batch with no force to find.)  Entries whose true
+    value lies under the float32 underflow floor are left out of the teeth
+    test: zero is float32's answer there; a name none of whose entries lies
+    above its floor is returned as "s<floor" or "F<floor"."""
+    s64, F64, tol_s, tol_F, floor_s, floor_F = want
+    err, ratio = 0.0, 0.0
+    toothless = []
+    for name, g, w, tol, floor in (("s", got[0], s64, tol_s, floor_s),
+                                   ("F", got[1], F64, tol_F, floor_F)):
+        e = (g.double() - w).abs()
+        if not bool(torch.all(e <= tol)):
+            raise AssertionError(f"{name}: max abs err {float(e.max()):.3e}")
+        held = w.abs() > floor
+        if not bool(held.any()):
+            toothless.append(f"{name}<floor")
+        elif bool(torch.all(w.abs()[held] <= tol[held])):
+            toothless.append(name)
+            if teeth:
+                raise AssertionError(f"{name}: the bound would pass an "
+                                     f"all-zero output")
+        err = max(err, float(e.max()))
+        ratio = max(ratio, float((e / tol).max()))
+    return err, ratio, toothless
+
+
+def phase_check_bh() -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.farfield import bh_interaction_cuda
+    from repro_torch.kernels.ref import KINDS
+    from repro_torch.sparse import make_grid_plan, tree_diagnostics
+    n_ok = 0
+    worst = 0.0
+    for n in (1000, 4097):
+        for width in (1, 25, 96, 128):
+            for d in (1, 2, 3):
+                for ti, table in enumerate(BH_TABLES):
+                    X, idx, w, tab = bh_problem(
+                        n, width, d, table, seed=n + 7 * width + 3 * d + ti,
+                        device="cuda")
+                    for storage in ("float32", "bfloat16"):
+                        Xs = ops.to_storage(X, storage)
+                        tabs = ops.to_storage(tab, storage)
+                        for kind in KINDS:
+                            want = bh_plain64(X, idx, w, tab, kind, storage)
+                            got = bh_interaction_cuda(Xs, idx, w, tabs, kind)
+                            torch.cuda.synchronize()
+                            case = (f"n={n} W={width} d={d} table={table} "
+                                    f"{storage} {kind}")
+                            try:
+                                _, ratio, _ = bh_compare(got, want)
+                            except AssertionError as e:
+                                raise AssertionError(
+                                    f"BH kernel != plain at {case}: {e}"
+                                ) from None
+                            if not (bool(torch.all(got[0][3:5] == 0))
+                                    and bool(torch.all(got[1][3:5] == 0))):
+                                raise AssertionError(f"all-zero rows not 0 "
+                                                     f"at {case}")
+                            again = bh_interaction_cuda(Xs, idx, w, tabs,
+                                                        kind)
+                            if not (torch.equal(got[0], again[0])
+                                    and torch.equal(got[1], again[1])):
+                                raise AssertionError(f"rerun not "
+                                                     f"bit-identical at "
+                                                     f"{case}")
+                            worst = max(worst, ratio)
+                            n_ok += 1
+    say("check_bh", f"{n_ok} cases (N in 1000/4097 x W in 1/25/96/128 x d "
+                    f"in 1/2/3 x tables of 16 rows, 65536 rows and X x "
+                    f"f32/bf16 x five kinds, with zero-weight slots, all-zero "
+                    f"rows and a repeated index) match the float64 plain "
+                    f"version, reruns bit-identical, all-zero rows exactly "
+                    f"0; worst error at {worst:.2f} of its bound")
+    n = 4000
+    g = torch.Generator(device="cuda").manual_seed(n)
+    X = torch.randn((n, 2), generator=g, device="cuda")
+    diag = tree_diagnostics(X, make_grid_plan(n))
+    pairs = float(diag["tree_pairs"])
+    if pairs != n * (n - 1):
+        raise AssertionError(f"tree_pairs {pairs} != n (n - 1) = "
+                             f"{n * (n - 1)} at N={n}")
+    say("check_bh", f"N={n} on the card: tree_pairs {pairs:.0f} = "
+                    f"n (n - 1) exactly; theta ratio "
+                    f"{float(diag['tree_theta_ratio']):.4f} <= 0.5")
+
+
+def phase_check_bh_fits(fits: dict) -> None:
+    """Every kernel call of one evaluation (the far levels, the near batch's
+    chunks, the residual) on each tree fit's embedding, float32 and
+    bfloat16, against the float64 plain version: the EE fit holds the exp
+    instantiation, the t-SNE fit the 1/(1 + t) one, at the shapes and data
+    the main path gives them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.farfield import bh_interaction_cuda
+    from repro_torch.sparse import farfield as ff
+
+    for kind, emb in fits.items():
+        X = emb.embedding_
+        plan = ff.make_grid_plan(X.shape[0], theta=emb.spec.theta)
+        calls, worst, below = 0, 0.0, set()
+        for b in ff._interaction_batches(X, plan):
+            width = b.idx.shape[1]
+            for c0 in range(0, width, plan.chunk):
+                cols = slice(c0, min(c0 + plan.chunk, width))
+                idx, w = b.idx[:, cols], b.w[:, cols]
+                for storage in ("float32", "bfloat16"):
+                    Xs = ops.to_storage(X, storage)
+                    tabs = (Xs if b.table is X
+                            else ops.to_storage(b.table, storage))
+                    got = bh_interaction_cuda(Xs, idx, w, tabs, kind)
+                    try:
+                        _, ratio, toothless = bh_compare(
+                            got, bh_plain64(X, idx, w, b.table, kind,
+                                            storage),
+                            teeth=storage == "float32")
+                    except AssertionError as e:
+                        raise AssertionError(
+                            f"BH kernel != plain on the {kind} tree fit's "
+                            f"{b.tag} batch, columns {c0}..{cols.stop} "
+                            f"{storage}: {e}") from None
+                    below.update(f"{b.tag} {storage} {t}" for t in toothless)
+                    worst = max(worst, ratio)
+                    calls += 1
+        say("check_bh", f"{kind} tree fit (N={X.shape[0]}): the {calls // 2} "
+                        f"kernel calls of an evaluation, float32 and "
+                        f"bfloat16, match the float64 plain version, worst "
+                        f"error at {worst:.2f} of its bound; bounds that "
+                        f"would pass zeros (bfloat16 only) or whose every "
+                        f"entry lies under float32's underflow floor: "
+                        f"{', '.join(sorted(below)) or 'none'}")
+
+
+def _rel_gap(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(b) - a) / np.abs(a)))
+
+
+@contextlib.contextmanager
+def plain_bh_only():
+    """`ops.bh_interaction` on its plain version while every other kernel
+    runs as the spec says: a fit under it differs from the kernel path by
+    the cell-interaction kernel alone."""
+    from repro_torch.kernels import ops
+    kernel = ops.bh_interaction
+
+    def plain(*args, **kwargs):
+        return kernel(*args, **{**kwargs, "impl": "torch"})
+
+    ops.bh_interaction = plain
+    try:
+        yield
+    finally:
+        ops.bh_interaction = kernel
+
+
+def _evals_launches(plan) -> int:
+    """Kernel launches an evaluation of the tree: one per far level, one per
+    chunk of the near batch, one for the residual."""
+    near = (2 * plan.r + 1) ** 2 * plan.cap
+    return (plan.depth - plan.l1 + 1) + (near + plan.chunk - 1) // plan.chunk + 1
+
+
+def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
+    """The slice-3 main path: `Embedding(EmbedSpec(kind=..., backend="tree",
+    strategy="sd"))` on the N = 70000 sparse fits' affinities."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.kernels import farfield, sparse_attractive
+    from repro_torch.sparse import make_grid_plan
+
+    out = {"launches": 0, "fits": {}}
+    for kind, fit in sparse_fits.items():
+        saff = fit.affinities_
+        lam = fit.spec.lam
+        n = saff.graph.n
+        spec = EmbedSpec(kind=kind, lam=lam, perplexity=30.0, backend="tree",
+                         strategy="sd", max_iters=iters, tol=0.0)
+        plan = make_grid_plan(n, theta=spec.theta)
+        per_eval = _evals_launches(plan)
+        farfield.reset_launch_counts()
+        t0 = time.perf_counter()
+        emb = Embedding(spec).fit(None, saff=saff)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = emb.result_
+        launches = farfield.launch_counts["bh_interaction"]
+        evals = int(res.n_fevals[-1])
+        if emb.backend_ != "tree":
+            raise AssertionError(f"{kind}: backend {emb.backend_!r}")
+        if launches < 1 or launches != per_eval * evals:
+            raise AssertionError(f"{kind}: {launches} kernel launches for "
+                                 f"{evals} evaluations of {per_eval} batches "
+                                 f"and chunks")
+        out["launches"] += launches
+        e = res.energies
+        if not np.all(np.isfinite(e)):
+            raise AssertionError(f"{kind}: non-finite energies {e}")
+        if np.any(np.diff(e) > 0):
+            raise AssertionError(f"{kind}: energy increased: {e}")
+        X = emb.embedding_
+        if tuple(X.shape) != (n, 2) or not bool(torch.isfinite(X).all()):
+            raise AssertionError(f"{kind}: bad embedding {tuple(X.shape)}")
+        say("fit_tree", f"{kind}: N={n} plan r={plan.r} l1={plan.l1} depth "
+                        f"{plan.depth} cap {plan.cap}; spectral init (ELL "
+                        f"power iteration) "
+                        f"{res.phase_times['spectral_init_s']:.2f} s; "
+                        f"{res.n_iters} iterations at "
+                        f"{res.times[-1] / res.n_iters * 1e3:.1f} ms each "
+                        f"({evals} evaluations); kernel launches {launches} "
+                        f"(= {per_eval} an evaluation); wall {wall:.1f} s")
+        say("fit_tree", f"{kind}: energies {np.array2string(e, precision=8)}")
+        # the default mu_scale: the kernel path against a run in which only
+        # the cell-interaction kernel is replaced by its plain version (the
+        # ELL kernels run in both), at rtol 1e-4.  Then the all-plain path
+        # (kernel_impl="torch", no kernel at all): the SD system is
+        # near-singular there (its small eigenvalues, ~mu, belong to the
+        # clusters' translations) and PCG stops at its cap, so the order of
+        # the ELL products' float32 sums moves the EE trajectory by ~2.2e-4
+        # (PERF.md, PR 13); it is held to TREE_DEFAULT_MU_RTOL.  The rtol
+        # 1e-4 check of the whole plain path runs at mu_scale = 1e-3, as the
+        # CPU parity tests do (tests/test_torch_farfield.py).
+        mu0 = spec.mu_scale
+        kern = {mu0: e[:4], TREE_CHECK_MU: Embedding(
+            spec.replace(max_iters=3, mu_scale=TREE_CHECK_MU)).fit(
+                None, X0=emb.X0_, saff=saff).result_.energies}
+        farfield.reset_launch_counts()
+        sparse_attractive.reset_launch_counts()
+        with plain_bh_only():
+            bh_plain = Embedding(spec.replace(max_iters=3)).fit(
+                None, X0=emb.X0_, saff=saff).result_.energies
+        if (farfield.launch_counts["bh_interaction"]
+                or not any(sparse_attractive.launch_counts.values())):
+            raise AssertionError(
+                f"{kind}: the run with the plain cell interaction launched "
+                f"{dict(farfield.launch_counts)} "
+                f"{dict(sparse_attractive.launch_counts)}")
+        gaps = {"bh": _rel_gap(kern[mu0], bh_plain)}
+        for mu in (mu0, TREE_CHECK_MU):
+            farfield.reset_launch_counts()
+            sparse_attractive.reset_launch_counts()
+            plain = Embedding(spec.replace(kernel_impl="torch", max_iters=3,
+                                           mu_scale=mu)).fit(
+                None, X0=emb.X0_, saff=saff).result_.energies
+            if (farfield.launch_counts["bh_interaction"]
+                    or any(sparse_attractive.launch_counts.values())):
+                raise AssertionError(
+                    f"{kind}: the kernel_impl='torch' run launched a kernel: "
+                    f"{dict(farfield.launch_counts)} "
+                    f"{dict(sparse_attractive.launch_counts)}")
+            gaps[mu] = _rel_gap(kern[mu], plain)
+            if mu == mu0:
+                gaps["ell"] = _rel_gap(bh_plain, plain)
+        for gap, limit, what in (
+                (gaps["bh"], 1e-4, f"only the cell interaction plain, "
+                                   f"mu_scale={mu0}"),
+                (gaps[mu0], TREE_DEFAULT_MU_RTOL,
+                 f"kernel_impl='torch', mu_scale={mu0}"),
+                (gaps[TREE_CHECK_MU], 1e-4,
+                 f"kernel_impl='torch', mu_scale={TREE_CHECK_MU}")):
+            if gap > limit:
+                raise AssertionError(f"{kind}: first 3 iterations of the "
+                                     f"kernel path against the run with "
+                                     f"{what}: max rel diff {gap:.2e} > "
+                                     f"{limit:.0e}")
+        say("fit_tree", f"{kind}: first 3 iterations of the kernel path, max "
+                        f"rel diff against: the cell interaction alone on its "
+                        f"plain version {gaps['bh']:.2e} (rtol 1e-4; ELL "
+                        f"kernels in both), the all-plain kernel_impl='torch' "
+                        f"run (no kernel launched) {gaps[mu0]:.2e} (limit "
+                        f"{TREE_DEFAULT_MU_RTOL:.0e}), at the default "
+                        f"mu_scale={mu0}; the all-plain run against the "
+                        f"cell-interaction-plain run (the ELL kernels' part) "
+                        f"{gaps['ell']:.2e}; at mu_scale={TREE_CHECK_MU} the "
+                        f"all-plain run {gaps[TREE_CHECK_MU]:.2e} (rtol 1e-4)")
+        # a second kernel run: bit-identical, with the grid's diagnostics
+        diags = []
+        again = Embedding(spec.replace(max_iters=3)).fit(
+            None, X0=emb.X0_, saff=saff,
+            callback=lambda it, X, en, dg: diags.append(dg))
+        ra = again.result_
+        if not (np.array_equal(ra.energies, e[:4])
+                and np.array_equal(ra.grad_norms, res.grad_norms[:4])
+                and np.array_equal(ra.step_sizes, res.step_sizes[:3])):
+            raise AssertionError(f"{kind}: a second kernel run is not "
+                                 f"bit-identical: {ra.energies} vs {e[:4]}")
+        for dg in diags:
+            say("fit_tree", f"{kind}: it {dg['it']}: tree_cells "
+                            f"{dg['tree_cells']:.2f}, tree_theta_ratio "
+                            f"{dg['tree_theta_ratio']:.4f}, tree_overflow "
+                            f"{dg['tree_overflow']:.0f}, tree_pairs rel err "
+                            f"{abs(dg['tree_pairs'] - n * (n - 1)) / (n * (n - 1)):.2e}"
+                            f" (a float32 sum), PCG iterations "
+                            f"{dg['pcg_iters']:.0f}")
+        say("fit_tree", f"{kind}: a second kernel run of 3 iterations is "
+                        f"bit-identical (energies, gradient norms, steps)")
+        out["fits"][kind] = emb
+    return out
+
+
+def phase_time_bh(emb) -> dict:
+    """The kernel at the tree's batch shapes on the t-SNE tree fit's
+    embedding (the batches its next evaluation would run), float32 and
+    bfloat16: CUDA-event time, the byte bound and the plain version, each
+    call held against the float64 plain version.  Then one whole
+    tree_repulsion against its grid build alone and its kernel calls alone.
+    """
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.farfield import bh_interaction_cuda
+    from repro_torch.sparse import farfield as ff
+
+    X = emb.embedding_
+    n, d = X.shape
+    plan = ff.make_grid_plan(n, theta=emb.spec.theta)
+    batches = {b.tag: b for b in ff._interaction_batches(X, plan)}
+    near = batches["near"]
+    # the near chunk that holds the own cell's listed slots (offset (0, 0),
+    # the middle of the window), so that it has live slots however sparse
+    # the neighbouring cells are
+    own = (2 * plan.r + 1) ** 2 // 2 * plan.cap
+    c0 = own // plan.chunk * plan.chunk
+    cols = slice(c0, min(c0 + plan.chunk, near.idx.shape[1]))
+    shapes = {f"far-l{plan.depth}": batches[f"far-l{plan.depth}"],
+              "near chunk": ff._Batch(idx=near.idx[:, cols],
+                                      w=near.w[:, cols], table=near.table,
+                                      h_cell=0.0, tag="near chunk"),
+              "residual": batches["residual"]}
+    kind = emb.spec.kind
+    out = {}
+    for name, b in shapes.items():
+        width = b.idx.shape[1]
+        m = b.table.shape[0]
+        live = float((b.w > 0).float().mean())
+        for storage, size in (("float32", 4), ("bfloat16", 2)):
+            Xs = ops.to_storage(X, storage)
+            # idx and w, X, the table and the outputs once each; the near
+            # batch's table is X itself, read once with it
+            tabs = Xs if b.table is X else ops.to_storage(b.table, storage)
+            tab_bytes = 0 if b.table is X else m * d * size
+            nbytes = (n * width * 8 + n * d * size + tab_bytes + n * 4
+                      + n * d * 4)
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = (3 * d + 4) * n * width / PEAK_F32_FLOPS * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            def call():
+                return bh_interaction_cuda(Xs, b.idx, b.w, tabs, kind)
+            ms = graph_ms(call)
+            eager_ms = cuda_ms(call, reps=200)
+            plain_ms = cuda_ms(lambda: ops.bh_interaction(
+                Xs, b.idx, b.w, tabs, kind, impl="torch"), reps=20)
+            got = bh_interaction_cuda(Xs, b.idx, b.w, tabs, kind)
+            try:
+                err, ratio, toothless = bh_compare(
+                    got, bh_plain64(X, b.idx, b.w, b.table, kind, storage),
+                    teeth=storage == "float32")
+            except AssertionError as e:
+                raise AssertionError(f"BH kernel != plain on the {name} "
+                                     f"batch {storage}: {e}") from None
+            out[name, storage] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "max_abs_err": err}
+            say("time_bh", f"{kind} {name} (N={n}, W={width}, M={m}, d={d}, "
+                           f"{live * 100:.1f}% live slots) {storage}: kernel "
+                           f"{ms * 1e3:.1f} us on the device "
+                           f"({bound_ms / ms * 100:.0f}% of the "
+                           f"{nbytes / 1e6:.1f} MB bound "
+                           f"{bound_ms * 1e3:.1f} us; {eager_ms * 1e3:.1f} "
+                           f"us a call issued eagerly), plain "
+                           f"{plain_ms * 1e3:.1f} us; max abs err "
+                           f"{err:.2e} at {ratio:.2f} of its bound (bounds "
+                           f"that would pass zeros: "
+                           f"{'/'.join(toothless) or 'none'}); no single "
+                           f"PyTorch call computes it (library_ms null)")
+    all_batches = list(batches.values())
+    whole_ms = cuda_ms(lambda: ff.tree_repulsion(X, plan, kind), reps=20)
+    grid_ms = cuda_ms(lambda: ff._interaction_batches(X, plan), reps=20)
+    kern_ms = graph_ms(lambda: [ff._apply_chunked(X, b, kind, plan.chunk, {})
+                                for b in all_batches], reps=5)
+    say("time_bh", f"{kind} one tree_repulsion (N={n}, "
+                   f"{_evals_launches(plan)} kernel calls): "
+                   f"{whole_ms:.3f} ms a call issued eagerly; its grid build "
+                   f"alone (plain PyTorch) {grid_ms:.3f} ms; its kernel calls "
+                   f"and sums alone {kern_ms:.3f} ms on the device (CUDA "
+                   f"graph)")
+    out["evaluation"] = {"tree_repulsion_ms": whole_ms, "grid_ms": grid_ms,
+                         "kernels_ms": kern_ms}
+    return out
+
+
+def phase_profile_tree(emb, iters: int = 3) -> None:
+    """Where a tree SD iteration's time goes: `iters` iterations of the
+    t-SNE tree fit's objective, continued from its embedding, under
+    torch.profiler: device time by kernel and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.embed.engine import LoopConfig, fit_loop
+    from repro_torch.embed.trainer import build_tree_objective
+
+    spec, X = emb.spec, emb.embedding_
+
+    def run(n_iters):
+        obj, X0, _ = build_tree_objective(
+            spec, None, X, strategy=spec.strategy, saff=emb.affinities_,
+            device=X.device)
+        return fit_loop(obj, X0, LoopConfig(max_iters=n_iters, tol=0.0,
+                                            ls=spec.resolved_ls(),
+                                            seed=spec.seed))
+
+    run(1)                                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    if not rows:
+        say("profile_tree", "torch.profiler recorded no device kernels: "
+                            "device time and idle share not measured")
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    say("profile_tree", f"{spec.kind} N={X.shape[0]}: {iters} tree SD "
+                        f"iterations (+ the initial evaluation; "
+                        f"{int(res.n_fevals[-1])} energy evaluations) in "
+                        f"{wall * 1e3:.1f} ms wall; device busy "
+                        f"{busy * 1e3:.1f} ms, idle share "
+                        f"{max(0.0, 1 - busy / wall):.2f}")
+    for dev_us, key, count in rows[:12]:
+        say("profile_tree", f"  {dev_us / 1e3 / iters:8.3f} ms/iteration "
+                            f"{count / iters:7.1f} calls/iteration  "
+                            f"{key[:80]}")
+    bh = [(us, c) for us, key, c in rows if "bh_rows" in key]
+    bh_us, bh_calls = sum(r[0] for r in bh), sum(r[1] for r in bh)
+    say("profile_tree", f"  the cell-interaction kernel (bh_rows, every "
+                        f"shape): {bh_us / 1e3 / iters:.3f} ms/iteration, "
+                        f"{bh_calls / iters:.1f} calls/iteration, "
+                        f"{bh_us / max(bh_calls, 1):.1f} us a call")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -846,6 +1447,11 @@ def main() -> int:
     sparse = phase_fit_sparse()
     timing_ell = phase_time_ell(sparse["fits"])
     phase_profile_sparse(sparse["fits"]["tsne"])
+    phase_check_bh()
+    tree = phase_fit_tree(sparse["fits"])
+    phase_check_bh_fits(tree["fits"])
+    timing_bh = phase_time_bh(tree["fits"]["tsne"])
+    phase_profile_tree(tree["fits"]["tsne"])
     say("done", f"{time.perf_counter() - t_start:.1f} s")
 
     f32 = timing["tsne", "float32"]     # the costlier main-path kind
@@ -877,6 +1483,18 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/ell.cu",
             "replaces": f"src/repro/kernels/sparse_attractive.py:{line}",
             "launches": n_launch, "launches_from": origin, **t})
+    # the cell-interaction kernel at its widest batch: a near chunk
+    # (W = 128, table = X) on the t-SNE tree fit's embedding, float32
+    if tree["launches"] < 1:
+        raise AssertionError("the default tree fits launched no "
+                             "cell-interaction kernel")
+    kernels.append({
+        "name": "bh_interaction", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/farfield.cu",
+        "replaces": "src/repro/kernels/farfield.py:97",
+        "launches": tree["launches"],
+        "launches_from": "the default EE and t-SNE tree fits",
+        **timing_bh["near chunk", "float32"]})
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

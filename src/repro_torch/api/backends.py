@@ -9,12 +9,14 @@ Port of the single-device backends of `repro/api/backends.py`.  Each is
     strategy and the dense objective, and runs the fit engine;
   * `fit_sparse` builds the ELL neighbour graph (skipped for a precomputed
     `saff=`), the spectral start and the sparse objective
-    (embed/trainer.py), and runs the engine's host loop.
+    (embed/trainer.py), and runs the engine's host loop;
+  * `fit_tree` builds the same graph and start and the deterministic
+    Barnes-Hut objective (sparse/farfield.py), and runs the same loop.
 
 Precomputed inputs pin their family: `aff=` (dense `core.Affinities`) is
-dense-only, `saff=` (`sparse.SparseAffinities`) and `shift_source=` (the
-draw of the negatives) sparse-only; each backend rejects the other
-family's with a pointed error.
+dense-only, `saff=` (`sparse.SparseAffinities`) is for the sparse and tree
+backends, and `shift_source=` (the draw of the negatives) sparse-only; each
+backend rejects the other family's with a pointed error.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from repro_torch.core.affinities import Affinities, make_affinities
 from repro_torch.core.minimize import DenseObjective
 from repro_torch.core.spectral_init import laplacian_eigenmaps
 from repro_torch.embed.engine import EngineResult, fit_loop, make_loop_config
-from repro_torch.embed.trainer import build_sparse_objective
+from repro_torch.embed.trainer import (build_sparse_objective,
+                                       build_tree_objective)
 
 from .registries import BACKENDS, strategy_entry
 
@@ -108,5 +111,31 @@ def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device,
     return res, saff, X0
 
 
+def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device,
+             callback=None, shift_source=None
+             ) -> tuple[EngineResult, object, torch.Tensor]:
+    """Single-device deterministic Barnes-Hut backend: exact ELL attractive
+    terms plus grid far-field repulsion, O(N log N), 2-D only, bit-identical
+    across repeated runs.  Returns as `fit_sparse` does."""
+    if aff is not None:
+        raise ValueError("precomputed aff= is dense-backend-only (the tree "
+                         "backend builds its own ELL graph; pass saff= for a "
+                         "precomputed one)")
+    if shift_source is not None:
+        raise ValueError("shift_source= draws the sparse backend's negatives;"
+                         " the tree backend samples nothing")
+    if Y is None and saff is None:
+        raise ValueError("fit needs Y (or a precomputed saff=)")
+    phase_times: dict[str, float] = {}
+    obj, X0, saff = build_tree_objective(
+        spec, Y, X0, strategy=spec.strategy, saff=saff, device=device,
+        phase_times=phase_times)
+    res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                   callback)
+    res.phase_times = phase_times
+    return res, saff, X0
+
+
 BACKENDS["dense"].fit = fit_dense
 BACKENDS["sparse"].fit = fit_sparse
+BACKENDS["tree"].fit = fit_tree

@@ -16,7 +16,7 @@ no device and no CUDA it raises rather than fall back to the CPU.  After
   * `backend_`     — the resolved backend name
   * `affinities_`  — the affinities the fit used (computed or passed):
                      `core.Affinities` (dense) or
-                     `sparse.SparseAffinities` (sparse)
+                     `sparse.SparseAffinities` (sparse, tree)
   * `X0_`          — the starting point the fit used
 """
 from __future__ import annotations
@@ -60,9 +60,10 @@ class Embedding:
             shift_source=None) -> "Embedding":
         """Fit the embedding.  `Y` is the (N, D) data (array or tensor); the
         dense backend alternatively accepts precomputed `aff=`
-        (`core.Affinities`) and the sparse backend `saff=`
+        (`core.Affinities`) and the sparse and tree backends `saff=`
         (`sparse.SparseAffinities`), so that several fits share one
-        calibration.  `X0` replaces the spectral start.  `shift_source(seed,
+        calibration; under ``backend="auto"`` a `saff=` pins the sparse
+        backend.  `X0` replaces the spectral start.  `shift_source(seed,
         it)` replaces the sparse backend's draw of iteration `it`'s
         negative shifts ((n_negatives,) ints in 1..N-1)."""
         if aff is not None and saff is not None:
@@ -79,7 +80,7 @@ class Embedding:
         if aff is not None and self.spec.backend == "auto":
             backend = "dense"   # only the dense path consumes dense aff=
         elif saff is not None and self.spec.backend == "auto":
-            backend = "sparse"  # and only the sparse path an ELL graph
+            backend = "sparse"  # an ELL graph: sparse, unless tree is named
         else:
             backend = registries.resolve_backend(
                 self.spec.backend, n=n, strategy=self.spec.strategy)

@@ -1,10 +1,11 @@
 """Strategy and backend registries behind `repro_torch.api.Embedding`.
 
 Port of `repro/api/registries.py` for the single-device backends: the
-strategies ``gd``, ``fp`` and ``sd`` and the backends ``dense`` and
-``sparse``.  ``backend="auto"`` resolves to ``dense`` up to AUTO_SPARSE_N
+strategies ``gd``, ``fp`` and ``sd`` and the backends ``dense``, ``sparse``
+and ``tree``.  ``backend="auto"`` resolves to ``dense`` up to AUTO_SPARSE_N
 points and to ``sparse`` above, falling back to ``dense`` for a strategy
-the sparse backend lacks.
+the sparse backend lacks; ``tree`` is never picked by ``auto`` (it is 2-D
+only), a spec selects it by name.
 """
 from __future__ import annotations
 
@@ -113,13 +114,16 @@ def resolve_backend(backend: str, *, n: int, strategy: str) -> str:
     return name
 
 
-_BACKENDS = ("dense", "sparse")
+_BACKENDS = ("dense", "sparse", "tree")
 
 register_backend("dense", doc="single device, full affinities, fused step "
                               "(core/minimize.py)")
 register_backend("sparse", doc="single device, ELL neighbour graph + "
                                "negative sampling, Jacobi-PCG "
                                "(embed/trainer.py)")
+register_backend("tree", doc="single device, deterministic Barnes-Hut grid "
+                             "repulsion, O(N log N), 2-D only "
+                             "(sparse/farfield.py)")
 
 register_strategy("gd", backends=_BACKENDS,
                   dense_factory=lambda spec, **o: GD(**o),

@@ -2,9 +2,9 @@
 
 Port of `EmbedSpec` from `repro/api/spec.py`: model `kind`, `strategy`,
 `backend`, the objective and loop settings, the sparse neighbour-graph
-knobs, and kernel dispatch.  The names that select what runs are validated
-at construction.  The knobs of the parts not yet ported (transform,
-Barnes-Hut tree, checkpoint cadence) are absent;
+knobs, the Barnes-Hut tree knobs and kernel dispatch.  The names that select
+what runs are validated at construction.  The knobs of the parts not yet
+ported (out-of-sample transform, checkpoint cadence) are absent;
 `convert.spec_from_jax_fields` drops them when carrying a `repro` spec
 across.
 """
@@ -61,6 +61,10 @@ class EmbedSpec:
     cg_maxiter: int = 100
     kernel_impl: str = "auto"
     kernel_precision: str = "float32"    # storage; accumulation is float32
+    # Barnes-Hut tree backend
+    theta: float = 0.5            # opening criterion; 0 = exact (O(N^2))
+    tree_depth: int = 0           # finest grid level; 0 => auto (log4 N/4)
+    tree_cap: int = 0             # listed near-field slots; 0 => auto
 
     def __post_init__(self):
         validate_kind(self.kind)
@@ -78,6 +82,16 @@ class EmbedSpec:
             raise ValueError(f"unknown kernel_precision "
                              f"{self.kernel_precision!r}; have "
                              f"{STORAGE_DTYPES}")
+        if not 0.0 <= self.theta <= 1.0:
+            raise ValueError(
+                f"theta must be in [0, 1] (the Barnes-Hut opening "
+                f"criterion; 0 = exact), got {self.theta!r}")
+        for name in ("tree_depth", "tree_cap"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 0:
+                raise ValueError(
+                    f"EmbedSpec.{name} must be a non-negative int "
+                    f"(0 = auto), got {v!r}")
 
     def kernel_args(self) -> dict:
         """The `kernels.ops` dispatch kwargs this spec selects (empty at the

@@ -22,12 +22,11 @@ KERNEL_IMPL = {"auto": "auto", "pallas": "kernel", "pallas-interpret": "torch",
                "jnp": "torch"}
 
 #: `repro.api.EmbedSpec` fields of parts this port does not have yet
-#: (out-of-sample transform, Barnes-Hut tree, the checkpoint cadence); they
-#: do not affect a dense or sparse fit and are dropped.  A set
-#: `checkpoint_dir` is not dropped: the port's EmbedSpec refuses it.
+#: (out-of-sample transform, the checkpoint cadence); they do not affect a
+#: fit and are dropped.  A set `checkpoint_dir` is not dropped: the port's
+#: EmbedSpec refuses it.
 UNPORTED_FIELDS = frozenset({
-    "transform_iters", "transform_negatives", "theta", "tree_depth",
-    "tree_cap", "checkpoint_every"})
+    "transform_iters", "transform_negatives", "checkpoint_every"})
 
 
 def affinities_from_numpy(Wp, Wm, device) -> Affinities:

@@ -1,22 +1,26 @@
-"""The sparse neighbour-graph backend of the fit engine.
+"""The sparse neighbour-graph and Barnes-Hut tree backends of the engine.
 
-Port of the single-device half of `build_sparse_objective` and its
-objectives from `repro/embed/trainer.py`: k-NN affinities in ELL storage,
-negative-sampled repulsion and matrix-free direction solves, O(N (k + m) d)
-an iteration with no (N, N) array anywhere.  Normalized models (ssne/tsne)
-run through the sampled ratio estimator of the partition function, with a
-streaming (EMA) estimate threaded through the objective.
+Port of the single-device half of `build_sparse_objective`, of
+`build_tree_objective` and of their objectives from
+`repro/embed/trainer.py`: k-NN affinities in ELL storage and matrix-free
+direction solves, with no (N, N) array anywhere.  The sparse backend's
+repulsion is negative-sampled, O(N (k + m) d) an iteration; normalized
+models (ssne/tsne) run through the sampled ratio estimator of the partition
+function, with a streaming (EMA) estimate threaded through the objective.
+The tree backend's repulsion is the deterministic grid far field of
+sparse/farfield.py, O(N log N) an iteration, 2-D only.
 
 Strategies: the spectral direction ``sd`` (Jacobi-PCG on B = 4 L(W+) + mu I,
 warm-started from the previous direction) and its diagonal degenerations
 ``fp`` (the same system's Jacobi diagonal 4 D+ + mu applied directly) and
 ``gd`` (B = I).
 
-The objectives are stochastic: the engine hands them one draw key (seed,
-it) an iteration, and `shift_source(seed, it)` turns it into that
+The sparse objectives are stochastic: the engine hands them one draw key
+(seed, it) an iteration, and `shift_source(seed, it)` turns it into that
 iteration's negative shifts (by default `core.objectives.draw_shifts`; a
 test passes the reference's draws instead).  A line search reuses its
-iteration's shifts, so it descends one fixed surrogate.
+iteration's shifts, so it descends one fixed surrogate.  The tree objective
+draws nothing: the engine's deterministic path reuses the accepted energy.
 
 The row-sharded variant (``sharded=True``) is not ported yet.
 """
@@ -30,8 +34,10 @@ import torch
 from repro_torch.core.objectives import (draw_shifts, energy_and_grad_sparse,
                                          is_normalized)
 from repro_torch.core.spectral_init import laplacian_eigenmaps
-from repro_torch.sparse import (make_sd_operator, pcg, sparse_affinities,
-                                sparse_laplacian_eigenmaps, to_dense)
+from repro_torch.sparse import (energy_and_grad_tree, make_grid_plan,
+                                make_sd_operator, pcg, sparse_affinities,
+                                sparse_laplacian_eigenmaps, to_dense,
+                                tree_diagnostics)
 
 #: N up to which the sparse spectral start uses the dense eigh
 DENSE_INIT_N = 2048
@@ -111,6 +117,34 @@ class _NormalizedSparseObjective(_SparseObjective):
         return self._host_diag({"z_ema": self._z})
 
 
+class _TreeObjective(_SparseObjective):
+    """Deterministic Barnes-Hut backend (sparse/farfield.py): the sparse
+    objective's closure shape, but nothing is sampled, so the engine's
+    deterministic path applies (no draw key; the accepted energy is reused
+    rather than evaluated again).  `diagnostics()` adds the grid's health
+    (cells visited, realized opening ratio, residual spill, the pair
+    partition invariant) computed from the last evaluated X, batched with
+    the solver's counters in one host transfer; it is paid only when a
+    callback listens."""
+
+    stochastic = False
+
+    def __init__(self, eg, e_only, solve, X0: torch.Tensor, plan):
+        super().__init__(eg, e_only, solve, X0, shift_source=None)
+        self._plan = plan
+        self._last_X = X0
+
+    def energy_and_grad(self, X, key):
+        self._last_X = X
+        return self._eg(X)
+
+    def energy(self, X, key):
+        return self._e_only(X)
+
+    def diagnostics(self) -> dict:
+        return self._host_diag(tree_diagnostics(self._last_X, self._plan))
+
+
 def _sparse_spectral_init(cfg, saff, n: int) -> torch.Tensor:
     """Spectral start: the dense eigh up to DENSE_INIT_N points, block power
     iteration on the ELL graph above that (sparse/linalg.py)."""
@@ -141,6 +175,24 @@ def _resolve_saff(cfg, Y, saff, n: int, device, timings: dict | None = None):
     return sparse_affinities(Yt, k=k, perplexity=cfg.perplexity,
                              model=cfg.kind, method=cfg.knn_method,
                              timings=timings)
+
+
+def _graph_and_start(cfg, Y, X0, saff, device, phase_times: dict | None):
+    """(n, saff, X0, lam) of the sparse and tree backends: the resolved ELL
+    affinities, the starting point (the spectral start unless X0 is given,
+    timed into ``phase_times["spectral_init_s"]``) and lam, on `device`."""
+    n = Y.shape[0] if Y is not None else saff.graph.n
+    saff = _resolve_saff(cfg, Y, saff, n, device, timings=phase_times)
+    if X0 is None:
+        t0 = time.perf_counter()
+        X0 = _sparse_spectral_init(cfg, saff, n)
+        if X0.is_cuda:
+            torch.cuda.synchronize(X0.device)
+        if phase_times is not None:
+            phase_times["spectral_init_s"] = time.perf_counter() - t0
+    X0 = torch.as_tensor(X0, dtype=torch.float32, device=device)
+    lam = torch.tensor(cfg.lam, dtype=torch.float32, device=device)
+    return n, saff, X0, lam
 
 
 def _make_direction_solve(strategy: str, matvec, inv_diag, cfg,
@@ -181,17 +233,8 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
     if sharded:
         raise NotImplementedError(
             "the row-sharded sparse backend is not ported to repro_torch yet")
-    n = Y.shape[0] if Y is not None else saff.graph.n
-    saff = _resolve_saff(cfg, Y, saff, n, device, timings=phase_times)
-    if X0 is None:
-        t0 = time.perf_counter()
-        X0 = _sparse_spectral_init(cfg, saff, n)
-        if X0.is_cuda:
-            torch.cuda.synchronize(X0.device)
-        if phase_times is not None:
-            phase_times["spectral_init_s"] = time.perf_counter() - t0
-    X0 = torch.as_tensor(X0, dtype=torch.float32, device=device)
-    lam = torch.tensor(cfg.lam, dtype=torch.float32, device=device)
+    n, saff, X0, lam = _graph_and_start(cfg, Y, X0, saff, device,
+                                        phase_times)
     kind, m = cfg.kind, cfg.n_negatives
 
     # the spectral system is model-independent (the paper freezes the
@@ -226,3 +269,42 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
 
     solve = _make_direction_solve(strategy, matvec, inv_diag, cfg, "sparse")
     return obj_cls(eg, e_only, solve, X0, shift_source), X0, saff
+
+
+def build_tree_objective(cfg, Y=None, X0=None, strategy: str = "sd",
+                         saff=None, *, device,
+                         phase_times: dict | None = None):
+    """(objective, X0, saff) for the deterministic Barnes-Hut backend: exact
+    ELL attractive terms plus grid far-field repulsion under the
+    `cfg.theta` opening criterion, O(N log N) an iteration, with no random
+    draw or EMA anywhere, so repeated fits are bit-identical.  2-D
+    embeddings only (the grid is a quadtree).  The direction solves are the
+    sparse backend's sd/fp/gd family (the spectral system only sees the
+    attractive graph).
+
+    A precomputed `saff` skips the k-NN build; `phase_times` receives the
+    set-up seconds as `build_sparse_objective` fills them.  The spec's
+    kernel arguments (impl, bf16 storage) reach the cell-interaction kernel
+    and the CG operator; the gradient's ELL products take only the impl."""
+    if cfg.dim != 2:
+        raise ValueError(
+            f"the tree backend is 2-D only (quadtree far field); "
+            f"got dim={cfg.dim} - use the sparse backend for other dims")
+    n, saff, X0, lam = _graph_and_start(cfg, Y, X0, saff, device,
+                                        phase_times)
+    plan = make_grid_plan(n, theta=cfg.theta, depth=cfg.tree_depth,
+                          cap=cfg.tree_cap)
+    kernel_args = cfg.kernel_args()
+
+    def eg(X):
+        return energy_and_grad_tree(X, saff, lam, cfg.kind, plan,
+                                    **kernel_args)
+
+    def e_only(X):
+        return energy_and_grad_tree(X, saff, lam, cfg.kind, plan,
+                                    with_grad=False, **kernel_args)[0]
+
+    matvec, inv_diag, _ = make_sd_operator(saff.graph, saff.rev,
+                                           cfg.mu_scale, **kernel_args)
+    solve = _make_direction_solve(strategy, matvec, inv_diag, cfg, "tree")
+    return _TreeObjective(eg, e_only, solve, X0, plan), X0, saff

@@ -1,9 +1,10 @@
 # The hand-written CUDA kernels for Hopper: the fused O(N^2 d) pairwise
-# terms of the dense path (csrc/pairwise.cu, wrapped in pairwise.py) and the
+# terms of the dense path (csrc/pairwise.cu, wrapped in pairwise.py), the
 # directed ELL Laplacian gather of the sparse path (csrc/ell.cu, wrapped in
-# sparse_attractive.py), their plain PyTorch oracles (ref.py) and the
-# dispatch layer (ops.py).  Nothing is compiled at import; _build.py
-# compiles the CUDA sources at first launch.
+# sparse_attractive.py) and the Barnes-Hut cell interaction of the tree path
+# (csrc/farfield.cu, wrapped in farfield.py), their plain PyTorch oracles
+# (ref.py) and the dispatch layer (ops.py).  Nothing is compiled at
+# import; _build.py compiles the CUDA sources at first launch.
 from . import ops, ref
 from .ops import last_dispatch
 from .ref import KINDS, PairwiseTerms

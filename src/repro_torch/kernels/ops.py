@@ -1,8 +1,8 @@
 """Kernel dispatch: the one entry point for each hand-written kernel.
 
-Port of `repro/kernels/ops.py`: `pairwise_terms` (csrc/pairwise.cu) and
-`ell_lap_matvec` (csrc/ell.cu).  The rest of the port calls these; each
-decides per call:
+Port of `repro/kernels/ops.py`: `pairwise_terms` (csrc/pairwise.cu),
+`ell_lap_matvec` (csrc/ell.cu) and `bh_interaction` (csrc/farfield.cu).
+The rest of the port calls these; each decides per call:
 
   1. **Path**, by the `impl` knob: ``"auto"`` runs the CUDA kernel on CUDA
      tensors and the PyTorch oracle on CPU tensors; ``"kernel"`` runs the
@@ -10,8 +10,10 @@ decides per call:
      device (the yardstick the kernel is measured against).
   2. **Precision**: ``storage_dtype="bfloat16"`` rounds X and the weights
      through bfloat16 (as `repro`'s `_maybe_bf16` does), on both paths, so
-     the kernel and the oracle see the same quantization.  Accumulation is
-     float32 and outputs are float32.
+     the kernel and the oracle see the same quantization; `bh_interaction`
+     rounds X and the target table only, its slot weights stay float32
+     (they carry cell occupancies).  Accumulation is float32 and outputs
+     are float32.
   3. **Layout** (ELL only): ``"vmem"`` (direct gather, the default: on
      Hopper X always sits in device memory, and L2 holds it whole at the
      sizes the sparse backend runs) or ``"hbm"`` (staged gather through a
@@ -20,18 +22,23 @@ decides per call:
 
 The TPU layout steps of the reference (padding d to 128 lanes and N to a
 tile multiple) have no counterpart either: the kernels take any d and mask
-the ragged edge themselves.
+the ragged edge themselves.  Nor does the reference's ``"vmem-cap"`` branch
+of `bh_interaction`, which fell back to jnp when the target table outgrew
+VMEM: on Hopper the table is read from device memory through L2 whatever
+its size, so every CUDA request runs the kernel.
 
-Every decision is recorded: `last_dispatch("pairwise_terms")` and
-`last_dispatch("ell_lap_matvec")` return the most recent one as a dict of
-path, reason, storage (and layout).
+Every decision is recorded: `last_dispatch("pairwise_terms")`,
+`last_dispatch("ell_lap_matvec")` and `last_dispatch("bh_interaction")`
+return the most recent one as a dict of path, reason, storage (and layout).
 """
 from __future__ import annotations
 
 import torch
 
+from .farfield import bh_interaction_cuda
 from .pairwise import pairwise_terms_cuda
-from .ref import KINDS, PairwiseTerms, ell_lap_matvec_ref, pairwise_terms_ref
+from .ref import (KINDS, PairwiseTerms, bh_interaction_ref, ell_lap_matvec_ref,
+                  pairwise_terms_ref)
 from .sparse_attractive import LAYOUTS, ell_lap_matvec_cuda
 
 IMPLS = ("auto", "kernel", "torch")
@@ -115,3 +122,25 @@ def ell_lap_matvec(X: torch.Tensor, indices: torch.Tensor,
     return ell_lap_matvec_cuda(to_storage(X, storage),
                                indices.to(torch.int32).contiguous(),
                                to_storage(weights, storage), layout=lay)
+
+
+def bh_interaction(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                   table: torch.Tensor, kind: str, *, impl: str = "auto",
+                   storage_dtype: str | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Barnes-Hut cell interaction (s_n (N,), F_n (N, d)), float32; see
+    kernels/ref.py for the contract.  `idx` (N, W) indexes rows of `table`
+    (M, d); `w` (N, W) are the slot weights (0 = masked)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    path, reason = _path(impl, X)
+    storage = resolve_storage(storage_dtype)
+    _LAST["bh_interaction"] = {"path": path, "reason": reason,
+                               "storage": storage}
+    if path == "torch":
+        return bh_interaction_ref(to_storage(X, storage).float(), idx,
+                                  w.float(),
+                                  to_storage(table, storage).float(), kind)
+    return bh_interaction_cuda(to_storage(X, storage), idx.to(torch.int32),
+                               w.to(torch.float32), to_storage(table, storage),
+                               kind)

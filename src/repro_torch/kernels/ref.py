@@ -2,8 +2,9 @@
 
 Port of `repro/kernels/ref.py`.  `pairwise_terms_ref` materializes the
 N x N pair matrices and is the plain version beside csrc/pairwise.cu;
-`ell_lap_matvec_ref` is the plain version beside csrc/ell.cu.  Each is the
-CPU path of its `ops` entry point and the yardstick its kernel is held to.
+`ell_lap_matvec_ref` is the plain version beside csrc/ell.cu and
+`bh_interaction_ref` the one beside csrc/farfield.cu.  Each is the CPU path
+of its `ops` entry point and the yardstick its kernel is held to.
 
 Unified contract — for X (N, d), attractive weights Wa, repulsive weights
 Wb (both symmetric, zero diagonal):
@@ -73,6 +74,35 @@ def negative_pair_terms(kind: str, t: torch.Tensor
     if kind == "epan":
         return torch.clamp_min(1.0 - t, 0.0), (t < 1.0).to(t.dtype)
     raise ValueError(f"unknown kind {kind!r}")
+
+
+def bh_interaction_ref(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                       table: torch.Tensor, kind: str
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Barnes-Hut cell interaction (the contract of csrc/farfield.cu).
+
+    Row n interacts with `w[n, j]` weighted targets `table[idx[n, j]]`
+    (cell centres of mass with w = occupancy, or points with w = 1):
+
+        t_nj = ||x_n - table[idx[n, j]]||^2
+        (sp, b) = negative_pair_terms(kind, t)
+        s_n = sum_j w_nj * sp_nj                          (N,)
+        F_n = sum_j w_nj * b_nj * (x_n - table[idx_nj])   (N, d)
+
+    A slot with w = 0 contributes exactly zero, whatever its index.  F is
+    summed over the differences, as the kernel sums it, and not as the
+    reference's oracle forms it, (sum_j w b) x_n - sum_j w b c_j: that form
+    loses digits when x_n is far from the origin and near its targets, and
+    the SD solve of the tree fit amplifies such rounding along its near-null
+    modes (ROADMAP.md, Queue 3)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    diff = X[:, None, :] - table[idx]                  # (N, W, d)
+    t = torch.sum(diff * diff, dim=-1)                 # (N, W)
+    sp, b = negative_pair_terms(kind, t)
+    s_n = torch.sum(w * sp, dim=-1)
+    F = torch.einsum("nw,nwd->nd", w * b, diff)
+    return s_n, F
 
 
 def pairwise_terms_ref(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,

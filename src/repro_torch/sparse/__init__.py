@@ -2,8 +2,17 @@
 # embeddings.  ELL (padded neighbour-list) storage, perplexity calibration
 # over k candidates, sparse Laplacian operators and preconditioned CG; the
 # directed Laplacian gathers run on the CUDA kernel of kernels/csrc/ell.cu.
-# Port of repro.sparse for the single-device backend (the Barnes-Hut far
-# field and the row-sharded backend are not ported yet).
+# The deterministic Barnes-Hut far field (farfield.py) is the repulsive side
+# of the tree backend; its cell interaction runs on kernels/csrc/farfield.cu.
+# Port of repro.sparse for the single-device backends (the row-sharded
+# backend is not ported yet).
+from .farfield import (
+    GridPlan,
+    energy_and_grad_tree,
+    make_grid_plan,
+    tree_diagnostics,
+    tree_repulsion,
+)
 from .graph import (
     NeighborGraph,
     SparseAffinities,
@@ -36,4 +45,6 @@ __all__ = [
     "ell_matvec", "ell_t_matvec", "in_degree", "make_sd_operator",
     "out_degree", "pcg", "sparse_laplacian_eigenmaps", "sym_degree",
     "sym_lap_matvec", "sym_matvec",
+    "GridPlan", "make_grid_plan", "tree_repulsion", "energy_and_grad_tree",
+    "tree_diagnostics",
 ]

@@ -14,13 +14,17 @@ sum(a) x_n - sum(a x_m) cancels digits that the kernel keeps), with the
 Epanechnikov support-edge slack of `_epan_slack`.  The ELL kernels (both
 layouts) are held at the tolerance of tests/test_sparse_kernel.py (rtol
 5e-5, atol 5e-5 max|.|), against the float64 oracle on the same
-storage-rounded inputs.
+storage-rounded inputs.  The Barnes-Hut cell-interaction kernel is held at
+the tolerance of tests/test_farfield.py:192-195 (rtol 5e-5) with an
+absolute part of 5e-5 max|.| plus 5e-5 sum_j |w b (x_n - c_j)| for the
+entries that cancel, against the float64 oracle on the same storage-rounded
+inputs, with the Epanechnikov support-edge slack.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import farfield, ops, ref
 from repro_torch.kernels import sparse_attractive
 from repro_torch.kernels.pairwise import launch_counts
 
@@ -199,3 +203,129 @@ def test_cuda_sparse_fit_launches_follow_impl_and_layout(cuda_device):
     solve(P0, X0, G)
     assert sparse_attractive.launch_counts["ell_lap_matvec_hbm"] >= 2
     assert sparse_attractive.launch_counts["ell_lap_matvec_vmem"] == 2
+
+
+def _bh_batch(seed: int, n: int, width: int, m: int, d: int, device):
+    """A cell-interaction batch with zero-weight slots, an all-zero row (3)
+    and a row of one repeated index (5); w holds occupancies 1..16."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    table = (1.5 * rng.normal(size=(m, d))).astype(np.float32)
+    idx = rng.integers(0, m, size=(n, width)).astype(np.int32)
+    w = np.where(rng.uniform(size=(n, width)) < 0.3, 0.0,
+                 rng.integers(1, 17, size=(n, width))).astype(np.float32)
+    w[3] = 0.0
+    idx[5] = idx[5, 0]
+    return (torch.from_numpy(a).to(device) for a in (X, idx, w, table))
+
+
+def _bh_bound(X, idx, w, table, kind, storage, edge=1e-5):
+    """(s, F) of the float64 oracle on the storage-rounded inputs and their
+    bounds: 5e-5 (max|.| + |.|) plus 5e-5 times the magnitudes of the terms
+    the kernel sums, sum_j |w b (x_n - c_j)| for F and sum_j |w sp| for s,
+    and for epan, whose b = [t < 1] jumps at t = 1, the terms
+    w |x_n - c_j| of the slots within `edge` of it."""
+    X64 = ops.to_storage(X, storage).double()
+    t64 = ops.to_storage(table, storage).double()
+    w64 = w.double()
+    s, F = ref.bh_interaction_ref(X64, idx.long(), w64, t64, kind)
+    g = t64[idx.long()]
+    diff = X64[:, None, :] - g
+    tt = torch.sum(diff * diff, dim=-1)
+    sp, b = ref.negative_pair_terms(kind, tt)
+    mass = torch.einsum("nw,nwd->nd", (w64 * b).abs(), diff.abs())
+    tol_F = TOL * F.abs().max() + TOL * F.abs() + TOL * mass
+    if kind == "epan":
+        near = ((tt - 1.0).abs() < edge) * w64
+        tol_F = tol_F + torch.einsum("nw,nwd->nd", near, diff.abs())
+    tol_s = TOL * s.abs().max() + TOL * s.abs() + TOL * (w64 * sp).abs().sum(-1)
+    return s, F, tol_s, tol_F
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ref.KINDS)
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_bh_kernel_matches_oracle(cuda_device, kind, storage):
+    """Widths of every lane group (1, 25, 96, 128), d = 1..3, a small table
+    and a table of X's size; one launch per call; all-zero rows exactly 0; a
+    column slice of a wider batch (as the tree's chunks are) gives the
+    copy's result; a rerun is bit-identical."""
+    for n, width, m, d in [(300, 1, 16, 2), (301, 25, 64, 1),
+                           (257, 96, 4096, 2), (400, 128, 400, 3)]:
+        X, idx, w, table = _bh_batch(n + width + d, n, width, m, d,
+                                     cuda_device)
+        s64, F64, tol_s, tol_F = _bh_bound(X, idx, w, table, kind, storage)
+        before = farfield.launch_counts["bh_interaction"]
+        s, F = ops.bh_interaction(X, idx, w, table, kind,
+                                  storage_dtype=storage)
+        torch.cuda.synchronize()
+        assert farfield.launch_counts["bh_interaction"] == before + 1
+        assert ops.last_dispatch("bh_interaction")["path"] == "kernel"
+        assert s.dtype == F.dtype == torch.float32
+        assert bool(torch.all((s.double() - s64).abs() <= tol_s)), kind
+        assert bool(torch.all((F.double() - F64).abs() <= tol_F)), kind
+        assert not bool(torch.all(F64.abs() <= tol_F))     # the bound has teeth
+        assert float(s[3]) == 0.0 and bool(torch.all(F[3] == 0))
+        again = ops.bh_interaction(X, idx, w, table, kind,
+                                   storage_dtype=storage)
+        assert torch.equal(s, again[0]) and torch.equal(F, again[1])
+        if width > 1:
+            half = width // 2
+            sl = ops.bh_interaction(X, idx[:, :half], w[:, :half], table,
+                                    kind, storage_dtype=storage)
+            cp = ops.bh_interaction(X, idx[:, :half].contiguous(),
+                                    w[:, :half].contiguous(), table, kind,
+                                    storage_dtype=storage)
+            assert torch.equal(sl[0], cp[0]) and torch.equal(sl[1], cp[1])
+
+
+@pytest.mark.cuda
+def test_cuda_bh_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.farfield import bh_interaction_cuda
+
+    X, idx, w, table = _bh_batch(0, 64, 8, 16, 2, cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        bh_interaction_cuda(X, idx.long(), w, table, "ee")
+    with pytest.raises(TypeError, match="float32 slot weights"):
+        bh_interaction_cuda(X, idx, w.bfloat16(), table, "ee")
+    with pytest.raises(TypeError, match="storage dtype"):
+        bh_interaction_cuda(X, idx, w, table.bfloat16(), "ee")
+    with pytest.raises(ValueError, match="unit column stride"):
+        bh_interaction_cuda(X, idx.T.contiguous().T, w, table, "ee")
+    with pytest.raises(ValueError, match="d <= 4"):
+        X5 = torch.zeros((64, 5), device=cuda_device)
+        bh_interaction_cuda(X5, idx, w, torch.zeros((16, 5),
+                                                    device=cuda_device), "ee")
+
+
+@pytest.mark.cuda
+def test_cuda_tree_fit_launches_follow_impl(cuda_device):
+    """A tree fit launches the cell-interaction kernel once per chunk of
+    every batch of every evaluation; kernel_impl="torch" launches neither it
+    nor an ELL kernel; a rerun is bit-identical."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.sparse import make_grid_plan
+
+    rng = np.random.default_rng(0)
+    Y = rng.normal(size=(300, 8)).astype(np.float32)
+    spec = EmbedSpec(kind="tsne", lam=1.0, backend="tree", perplexity=5.0,
+                     n_neighbors=15, max_iters=3, tol=0.0)
+    farfield.reset_launch_counts()
+    emb = Embedding(spec, device=cuda_device).fit(Y)
+    plan = make_grid_plan(300)
+    near_width = (2 * plan.r + 1) ** 2 * plan.cap
+    near_chunks = (near_width + plan.chunk - 1) // plan.chunk
+    per_eval = (plan.depth - plan.l1 + 1) + near_chunks + 1   # + residual
+    evals = int(emb.result_.n_fevals[-1])
+    assert farfield.launch_counts["bh_interaction"] == per_eval * evals
+    farfield.reset_launch_counts()
+    sparse_attractive.reset_launch_counts()
+    plain = Embedding(spec.replace(kernel_impl="torch"), device=cuda_device
+                      ).fit(None, X0=emb.X0_, saff=emb.affinities_)
+    assert farfield.launch_counts["bh_interaction"] == 0
+    assert not any(sparse_attractive.launch_counts.values())
+    np.testing.assert_allclose(plain.result_.energies, emb.result_.energies,
+                               rtol=1e-4)
+    again = Embedding(spec, device=cuda_device).fit(None, X0=emb.X0_,
+                                                    saff=emb.affinities_)
+    assert torch.equal(again.embedding_, emb.embedding_)
