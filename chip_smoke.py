@@ -85,6 +85,40 @@ Phases, each printing one line (or a few) and failing the run on error:
               tree_repulsion against its grid build alone.
  13. profile_tree — three tree t-SNE SD iterations under torch.profiler:
               device time by kernel and the idle share.
+ 14. check_ell_local — the local-rows ELL kernel of the sharded backend
+              against its float64 plain version on the N = 70000 EE fit's
+              forward (k = 90) and reverse graphs: rows [0, 70000) (one
+              rank), [0, 35000) and [35000, 70000) (two), float32 and
+              bfloat16, d in {1, 2, 3}, phase check_ell's bound (an all-zero
+              output fails it); reruns must be bit-identical.
+ 15. fit_sharded — slice 5's main path: `Embedding(EmbedSpec(kind=...,
+              backend="sparse-sharded"), mesh=...)` in a one-rank NCCL group
+              (this card) started in-process through a file:// store, on
+              phase fit_sparse's data and settings, EE (lambda = 100) and
+              t-SNE (lambda = 1), ten iterations each.  It must launch the
+              local-rows kernel and no other ELL kernel, build the sparse
+              fits' graph and start, stay within 1e-3 of the sparse fits'
+              energies at the default mu_scale, and, over five iterations at
+              mu_scale = 1e-3, within rtol 1e-4 of the single-device sparse
+              fit and of its own kernel_impl="torch" run (which launches no
+              kernel).
+ 16. fit_sharded_2rank — two spawned ranks on this card over gloo (NCCL
+              takes one rank a device), the t-SNE sharded fit, five
+              iterations at mu_scale = 1e-3 from the one-rank fit's graph
+              and start: rank 1 runs the kernel at row0 = 35000; both ranks'
+              results must be bit-identical and within rtol 1e-4 of the
+              one-rank trace; each rank must launch the kernel.
+ 17. time_ell_local — the local-rows kernel at nb = 35000 (row0 = 35000)
+              and nb = 70000 on the EE fit's forward and reverse graphs,
+              float32 and bfloat16: device time by CUDA-graph replay and
+              eager time, the byte bound, the plain version and
+              torch.sparse.mm on the shard's CSR Laplacian rows, each call
+              held against the float64 plain version; then the NCCL
+              all-gather that re-replicates the (N, 2) slab, beside a
+              zero-filled slab's all_reduce.
+ 18. profile_sharded — three one-rank sharded t-SNE SD iterations under
+              torch.profiler: device time by kernel, the idle share and the
+              NCCL collectives' time a CG matvec.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -94,6 +128,8 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import datetime
 import json
 import subprocess
 import sys
@@ -102,6 +138,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 N_FIT = 20000        # MNIST-20k, the paper's large configuration
@@ -682,7 +719,7 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
                            strategy="sd", n_negatives=5, max_iters=iters,
                            tol=0.0)),
     ]
-    out = {"launches": {"vmem": 0}, "fits": {}}
+    out = {"launches": {"vmem": 0}, "fits": {}, "Y": Y}
     for kind, spec in configs:
         sparse_attractive.reset_launch_counts()
         diags = []
@@ -1425,6 +1462,466 @@ def phase_profile_tree(emb, iters: int = 3) -> None:
                         f"{bh_us / max(bh_calls, 1):.1f} us a call")
 
 
+# -- slice 5: the row-sharded sparse backend and the local-rows kernel -------
+
+# (row0, nb) of the checks and timings: the one rank of this card, and the
+# two shards of a 2-rank split of N = 70000
+SHARDS = ((0, N_SPARSE), (0, N_SPARSE // 2), (N_SPARSE // 2, N_SPARSE // 2))
+SHARDED_CHECK_MU = 1e-3   # mu_scale of the sharded fits' rtol 1e-4 checks
+# limit of the sharded fit against the single-device sparse fit at the
+# default mu_scale, where the near-singular SD system moves trajectories by
+# the order of float32 sums (ROADMAP Queue 3), as PR 13 held its tree fits
+SHARDED_DEFAULT_MU_RTOL = 1e-3
+SHARDED_DIR = ROOT / "build" / "chip_smoke_sharded"   # git-ignored
+SPAWN_TIMEOUT_S = 300
+
+
+def phase_check_ell_local(fits: dict) -> None:
+    """The local-rows kernel against its float64 plain version on row
+    slices of the N = 70000 EE fit's forward and reverse graphs: one rank's
+    rows and each half of a 2-rank split, float32 and bfloat16, d in
+    {1, 2, 3}, with phase `check_ell`'s bound (which an all-zero output
+    fails); reruns must be bit-identical."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_local_cuda
+
+    saff = fits["ee"].affinities_
+    n_ok, worst = 0, 0.0
+    for gname, g in (("forward", saff.graph), ("reverse", saff.rev)):
+        n = g.n
+        for d in (1, 2, 3):
+            gen = torch.Generator(device="cuda").manual_seed(d)
+            X = torch.randn((n, d), generator=gen, device="cuda")
+            for storage in ("float32", "bfloat16"):
+                Xs = ops.to_storage(X, storage)
+                ws = ops.to_storage(g.weights, storage)
+                want = ell_plain64(X, g.indices, g.weights, storage)
+                for row0, nb in SHARDS:
+                    rows = slice(row0, row0 + nb)
+                    idx_l, w_l = g.indices[rows].clone(), ws[rows].clone()
+                    got = ell_lap_matvec_local_cuda(Xs, idx_l, w_l, row0)
+                    torch.cuda.synchronize()
+                    case = (f"{gname} graph (k={g.k}) d={d} {storage} "
+                            f"row0={row0} nb={nb}")
+                    try:
+                        _, ratio = ell_compare(got, want[rows])
+                    except AssertionError as e:
+                        raise AssertionError(f"local ELL kernel != plain at "
+                                             f"{case}: {e}") from None
+                    again = ell_lap_matvec_local_cuda(Xs, idx_l, w_l, row0)
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"rerun not bit-identical at "
+                                             f"{case}")
+                    worst = max(worst, ratio)
+                    n_ok += 1
+    say("check_ell_local", f"{n_ok} cases (the N={N_SPARSE} EE fit's forward "
+                           f"and reverse graphs x rows [0, 70000), [0, 35000)"
+                           f" and [35000, 70000) x d in 1/2/3 x f32/bf16) "
+                           f"match the float64 plain version, reruns "
+                           f"bit-identical; worst error at {worst:.2f} of its "
+                           f"bound")
+
+
+def _start_nccl_group() -> None:
+    """A one-rank NCCL group on this card, in this process, through a
+    file:// store under the build directory."""
+    SHARDED_DIR.mkdir(parents=True, exist_ok=True)
+    store = SHARDED_DIR / "nccl-store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def _sharded_run(spec, saff, X0, mesh, iters: int, mu: float, **spec_kw):
+    """The trainer-level sharded fit from a given graph and start (the
+    sharded backend's Embedding takes no saff=, as the reference's)."""
+    from repro_torch.embed.engine import fit_loop, make_loop_config
+    from repro_torch.embed.trainer import build_sparse_objective
+    spec = spec.replace(max_iters=iters, mu_scale=mu, **spec_kw)
+    obj, X0, _ = build_sparse_objective(
+        spec, None, X0, strategy=spec.strategy, sharded=True, saff=saff,
+        device=X0.device, mesh=mesh)
+    return fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()))
+
+
+def phase_fit_sharded(sparse: dict) -> dict:
+    """The slice-5 main path: `Embedding(EmbedSpec(kind=...,
+    backend="sparse-sharded"), mesh=...)` in a one-rank NCCL group on the
+    N = 70000 data of phase `fit_sparse`, EE and t-SNE, ten iterations."""
+    from repro_torch.api import Embedding
+    from repro_torch.kernels import sparse_attractive
+    from repro_torch.launch import make_host_mesh
+
+    _start_nccl_group()
+    mesh = make_host_mesh()
+    say("fit_sharded", f"NCCL process group: {mesh.size} rank(s), mesh "
+                       f"{mesh.shape}")
+    out = {"launches": 0, "fits": {}, "mesh": mesh, "traces": {}}
+    for kind, single in sparse["fits"].items():
+        spec = single.spec.replace(backend="sparse-sharded")
+        sparse_attractive.reset_launch_counts()
+        diags = []
+        t0 = time.perf_counter()
+        emb = Embedding(spec, mesh=mesh).fit(
+            sparse["Y"], callback=lambda it, X, e, dg: diags.append(dg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sparse_attractive.launch_counts)
+        if emb.backend_ != "sparse-sharded":
+            raise AssertionError(f"{kind}: backend {emb.backend_!r}")
+        if (counts["ell_lap_matvec_local"] < 1 or counts["ell_lap_matvec_vmem"]
+                or counts["ell_lap_matvec_hbm"]):
+            raise AssertionError(f"{kind}: the sharded fit's ELL launches "
+                                 f"{counts} (the local-rows kernel only)")
+        out["launches"] += counts["ell_lap_matvec_local"]
+        res = emb.result_
+        e = res.energies
+        if not np.all(np.isfinite(e)) or not e[-1] < e[0]:
+            raise AssertionError(f"{kind}: energies {e}")
+        X = emb.embedding_
+        if tuple(X.shape) != (N_SPARSE, 2) or not bool(
+                torch.isfinite(X).all()):
+            raise AssertionError(f"{kind}: bad embedding {tuple(X.shape)}")
+        saff, ref = emb.affinities_, single.affinities_
+        same_graph = all(torch.equal(a, b) for a, b in zip(
+            (saff.graph.indices, saff.graph.weights, saff.rev.indices,
+             saff.rev.weights),
+            (ref.graph.indices, ref.graph.weights, ref.rev.indices,
+             ref.rev.weights)))
+        if not same_graph or not torch.equal(emb.X0_, single.X0_):
+            raise AssertionError(f"{kind}: the sharded fit's graph or start "
+                                 f"differs from the sparse fit's")
+        pt = res.phase_times
+        say("fit_sharded", f"{kind}: N={N_SPARSE} backend {emb.backend_}; "
+                           f"graph and spectral start equal the sparse fit's;"
+                           f" set-up kNN {pt['knn_s']:.2f} s, calibration "
+                           f"{pt['calibrate_s']:.2f} s, reverse graph "
+                           f"{pt['reverse_s']:.2f} s, spectral init "
+                           f"{pt['spectral_init_s']:.2f} s; {res.n_iters} "
+                           f"iterations at "
+                           f"{res.times[-1] / res.n_iters * 1e3:.1f} ms each; "
+                           f"wall {wall:.1f} s; launches {counts}; PCG "
+                           f"iterations {[dg['pcg_iters'] for dg in diags]}")
+        say("fit_sharded", f"{kind}: energies "
+                           f"{np.array2string(e, precision=8)}")
+        say("fit_sharded", f"{kind}: ms an iteration, sharded "
+                           f"{np.array2string(np.diff(res.times) * 1e3, precision=1)}"
+                           f"; the sparse fit "
+                           f"{np.array2string(np.diff(single.result_.times) * 1e3, precision=1)}")
+        # the default mu_scale against the single-device fit (same draws)
+        gap0 = _rel_gap(e, single.result_.energies)
+        # mu_scale = 1e-3: the single-device fit, and the sharded plain path
+        # (kernel_impl="torch", no kernel launched)
+        mu = SHARDED_CHECK_MU
+        kern = _sharded_run(spec, saff, emb.X0_, mesh, 5, mu).energies
+        one = Embedding(spec.replace(backend="sparse", max_iters=5,
+                                     mu_scale=mu)).fit(
+            None, X0=emb.X0_, saff=saff).result_.energies
+        sparse_attractive.reset_launch_counts()
+        plain = _sharded_run(spec, saff, emb.X0_, mesh, 5, mu,
+                             kernel_impl="torch").energies
+        if any(sparse_attractive.launch_counts.values()):
+            raise AssertionError(f"{kind}: the kernel_impl='torch' sharded "
+                                 f"run launched {sparse_attractive.launch_counts}")
+        gaps = {"single": _rel_gap(kern, one), "plain": _rel_gap(kern, plain)}
+        for gap, limit, what in (
+                (gap0, SHARDED_DEFAULT_MU_RTOL,
+                 f"the single-device sparse fit, 10 iterations, default "
+                 f"mu_scale={spec.mu_scale}"),
+                (gaps["single"], 1e-4, f"the single-device sparse fit, 5 "
+                                       f"iterations, mu_scale={mu}"),
+                (gaps["plain"], 1e-4, f"its kernel_impl='torch' run, 5 "
+                                      f"iterations, mu_scale={mu}")):
+            if gap > limit:
+                raise AssertionError(f"{kind}: the sharded fit against "
+                                     f"{what}: max rel diff {gap:.2e} > "
+                                     f"{limit:.0e}")
+        say("fit_sharded", f"{kind}: max rel energy gap against the "
+                           f"single-device sparse fit {gap0:.2e} over 10 "
+                           f"iterations at the default mu_scale (limit "
+                           f"{SHARDED_DEFAULT_MU_RTOL:.0e}); at mu_scale={mu}"
+                           f" over 5: {gaps['single']:.2e} against the "
+                           f"single-device fit, {gaps['plain']:.2e} against "
+                           f"the sharded kernel_impl='torch' run (no kernel "
+                           f"launched), rtol 1e-4 each")
+        out["fits"][kind] = emb
+        out["traces"][kind] = kern
+    return out
+
+
+def _sharded_rank(rank: int, world: int, store: str, inputs: str,
+            out_dir: str) -> None:
+    """One rank of phase `fit_sharded_2rank`: a gloo group whose ranks share
+    this card, the t-SNE sharded fit from the saved graph and start."""
+    from repro_torch.api import EmbedSpec
+    from repro_torch.kernels import sparse_attractive
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.sparse import SparseAffinities, shard_sparse_affinities
+    from repro_torch.sparse.graph import NeighborGraph
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        data = torch.load(inputs, map_location="cuda:0", weights_only=False)
+        saff = SparseAffinities(NeighborGraph(*data["graph"]),
+                                NeighborGraph(*data["rev"]))
+        mesh = make_host_mesh()
+        spec = EmbedSpec(**data["spec"])
+        row0 = shard_sparse_affinities(mesh, ("data",), saff).row0
+        sparse_attractive.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = _sharded_run(spec, saff, data["X0"], mesh, 5, SHARDED_CHECK_MU)
+        torch.cuda.synchronize()
+        torch.save({"energies": res.energies, "step_sizes": res.step_sizes,
+                    "X": res.X.cpu(), "row0": row0,
+                    "s_per_iter": res.times[-1] / res.n_iters,
+                    "wall": time.perf_counter() - t0,
+                    "launches": sparse_attractive.launch_counts[
+                        "ell_lap_matvec_local"]},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_fit_sharded_2rank(sharded: dict) -> None:
+    """Two spawned ranks on this one card over gloo (NCCL takes one rank a
+    device): the t-SNE sharded fit, five iterations at mu_scale = 1e-3, from
+    the one-rank fit's graph and start.  Rank 1 runs the local-rows kernel
+    at row0 = 35000; the ranks' results must be bit-identical and equal the
+    one-rank trace at rtol 1e-4."""
+    import torch.multiprocessing as mp
+
+    emb = sharded["fits"]["tsne"]
+    saff = emb.affinities_
+    run_dir = SHARDED_DIR / "2rank"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    for f in run_dir.iterdir():
+        f.unlink()
+    inputs = run_dir / "inputs.pt"
+    torch.save({"graph": tuple(saff.graph), "rev": tuple(saff.rev),
+                "X0": emb.X0_, "spec": dataclasses.asdict(emb.spec)}, inputs)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_sharded_rank, args=(2, str(run_dir / "store"), str(inputs),
+                                  str(run_dir)), nprocs=2, join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the 2-rank fit ran past {SPAWN_TIMEOUT_S}"
+                                 f" s (a deadlock?)")
+    wall = time.perf_counter() - t0
+    r0, r1 = (torch.load(run_dir / f"rank{r}.pt", weights_only=False)
+              for r in range(2))
+    half = -(-N_SPARSE // 2)
+    half = -(-half // 8) * 8          # the shard sizing's nb (and rank 1's row0)
+    if (r0["row0"], r1["row0"]) != (0, half):
+        raise AssertionError(f"row0 {r0['row0']}, {r1['row0']} (want 0, "
+                             f"{half})")
+    if min(r0["launches"], r1["launches"]) < 1:
+        raise AssertionError(f"local-rows kernel launches {r0['launches']}, "
+                             f"{r1['launches']}")
+    if not (np.array_equal(r0["energies"], r1["energies"])
+            and np.array_equal(r0["step_sizes"], r1["step_sizes"])
+            and torch.equal(r0["X"], r1["X"])):
+        raise AssertionError("the two ranks' results differ")
+    gap = _rel_gap(r0["energies"], sharded["traces"]["tsne"])
+    if gap > 1e-4:
+        raise AssertionError(f"2 ranks against 1: max rel diff {gap:.2e}")
+    say("fit_sharded_2rank", f"tsne N={N_SPARSE}, 2 gloo ranks on one card "
+                             f"(rows [0, {half}) and [{half}, {N_SPARSE})), 5 "
+                             f"iterations at mu_scale={SHARDED_CHECK_MU}: "
+                             f"results bit-identical on both ranks; energies "
+                             f"within {gap:.2e} of the one-rank fit (rtol "
+                             f"1e-4); local-rows launches {r0['launches']} "
+                             f"and {r1['launches']}; "
+                             f"{r0['s_per_iter'] * 1e3:.1f} ms an iteration "
+                             f"(gloo stages each collective through the "
+                             f"host); spawn to join {wall:.1f} s")
+
+
+def _local_laplacian_csr(g, row0: int, nb: int, ws):
+    """Rows [row0, row0 + nb) of L = diag(sum_j w_nj) - A as one (nb, n)
+    CSR matrix, weights `ws` (the library yardstick)."""
+    idx = g.indices[row0:row0 + nb]
+    w = ws[row0:row0 + nb]
+    k = idx.shape[1]
+    rows = torch.arange(nb, device=idx.device)
+    r = torch.cat([rows.repeat_interleave(k), rows])
+    c = torch.cat([idx.reshape(-1).long(), rows + row0])
+    v = torch.cat([-w.reshape(-1), w.sum(-1)])
+    return torch.sparse_coo_tensor(torch.stack([r, c]), v, (nb, g.n)
+                                   ).coalesce().to_sparse_csr()
+
+
+def phase_time_ell_local(sharded: dict) -> dict:
+    """The local-rows kernel on the EE sharded fit's forward and reverse
+    graphs and embedding, at nb = 35000 (row0 = 35000, a 2-rank shard) and
+    nb = 70000 (the one rank here), float32 and bfloat16: device time by
+    CUDA-graph replay, eager time, the byte bound (idx and w of the nb rows,
+    X once, the output), the plain version and torch.sparse.mm on the
+    shard's CSR Laplacian rows, each call held against the float64 plain
+    version.  Then the NCCL all-gather of the (N, d) slab that follows the
+    products in every CG matvec (`_replicate_rows`), beside an all_reduce
+    of the zero-filled slab, which gives the same bits."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_local_cuda
+
+    emb = sharded["fits"]["ee"]
+    X = emb.embedding_
+    n, d = X.shape
+    out = {}
+    for gname, g in (("forward", emb.affinities_.graph),
+                     ("reverse", emb.affinities_.rev)):
+        k = g.k
+        for row0, nb in ((N_SPARSE // 2, N_SPARSE // 2), (0, N_SPARSE)):
+            rows = slice(row0, row0 + nb)
+            idx = g.indices[rows].clone()
+            want64 = ell_plain64(X, g.indices, g.weights, "float32")[rows]
+            for storage, size in (("float32", 4), ("bfloat16", 2)):
+                Xs = ops.to_storage(X, storage)
+                ws = ops.to_storage(g.weights, storage)
+                w = ws[rows].clone()
+                nbytes = nb * k * (4 + size) + n * d * size + nb * d * 4
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = 3 * nb * k * d / PEAK_F32_FLOPS * 1e3
+                bound_ms = max(t_bytes, t_ops)
+                want = (want64 if storage == "float32" else
+                        ell_plain64(X, g.indices, g.weights, storage)[rows])
+                X64 = Xs.double()
+                w64 = w.double().abs()
+                mass = (w64.sum(-1, keepdim=True) * X64[rows].abs()
+                        + torch.einsum("nk,nkd->nd", w64, X64[idx].abs()))
+                plain_ms = cuda_ms(lambda: ops.ell_lap_matvec_local(
+                    Xs, idx, w, row0, impl="torch"), reps=10)
+                csr = _local_laplacian_csr(g, row0, nb, ws)
+                lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, Xs), reps=50)
+                lib_err = float((torch.sparse.mm(csr, Xs).double()
+                                 - want).abs().max())
+                del csr
+
+                def call():
+                    return ell_lap_matvec_local_cuda(Xs, idx, w, row0)
+                ms = graph_ms(call)
+                eager_ms = cuda_ms(call, reps=200)
+                try:
+                    err, ratio = ell_compare(call(), want, mass)
+                except AssertionError as e:
+                    raise AssertionError(
+                        f"local ELL != plain on the {gname} graph row0="
+                        f"{row0} nb={nb} {storage}: {e}") from None
+                out[gname, nb, storage] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if t_bytes >= t_ops
+                    else "operations",
+                    "library_ms": lib_ms, "max_abs_err": err}
+                say("time_ell_local", f"ee {gname} graph (k={k}, d={d}) rows "
+                                      f"[{row0}, {row0 + nb}) {storage}: "
+                                      f"kernel {ms * 1e3:.1f} us on the "
+                                      f"device ({bound_ms / ms * 100:.0f}% of"
+                                      f" the {nbytes / 1e6:.1f} MB bound "
+                                      f"{bound_ms * 1e3:.1f} us; "
+                                      f"{eager_ms * 1e3:.1f} us a call issued"
+                                      f" eagerly), plain "
+                                      f"{plain_ms * 1e3:.1f} us, "
+                                      f"torch.sparse.mm CSR rows "
+                                      f"{lib_ms * 1e3:.1f} us (its err "
+                                      f"{lib_err:.2e}); max abs err "
+                                      f"{err:.2e} at {ratio:.2f} of its "
+                                      f"bound")
+    from repro_torch.sparse.sharding import (_replicate_rows,
+                                             shard_sparse_affinities)
+
+    mesh = sharded["mesh"]
+    sg = shard_sparse_affinities(mesh, ("data",), emb.affinities_)
+    n_pad = sg.n_pad
+    local = torch.cat([X, X.new_zeros((n_pad - n, d))])[sg.row0:][
+        :sg.indices.shape[0]].contiguous()
+    ag_ms = cuda_ms(lambda: _replicate_rows(mesh, local, n_pad), reps=50)
+
+    def zero_fill_all_reduce():
+        slab = local.new_zeros((n_pad, d))
+        slab[:local.shape[0]] = local
+        dist.all_reduce(slab, group=mesh.group)
+    ar_ms = cuda_ms(zero_fill_all_reduce, reps=50)
+    out["all_gather_ms"], out["all_reduce_ms"] = ag_ms, ar_ms
+    say("time_ell_local", f"re-replicating the ({n_pad}, {d}) float32 slab, "
+                          f"{mesh.size} NCCL rank(s), a call issued eagerly: "
+                          f"all_gather_into_tensor {ag_ms * 1e3:.1f} us; a "
+                          f"zero-filled slab's all_reduce "
+                          f"{ar_ms * 1e3:.1f} us")
+    return out
+
+
+def phase_profile_sharded(emb, mesh, iters: int = 3) -> None:
+    """Where a sharded SD iteration's time goes: `iters` iterations of the
+    one-rank t-SNE sharded fit, continued from its embedding, under
+    torch.profiler: device time by kernel, the idle share, and the NCCL
+    collectives' time a CG matvec."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, X = emb.spec, emb.embedding_
+
+    def run(n_iters):
+        return _sharded_run(spec, emb.affinities_, X, mesh, n_iters,
+                            spec.mu_scale)
+
+    run(1)                                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    if not rows:
+        say("profile_sharded", "torch.profiler recorded no device kernels: "
+                               "device time and idle share not measured")
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    say("profile_sharded", f"{spec.kind} N={X.shape[0]}, {mesh.size} NCCL "
+                           f"rank(s): {iters} sharded SD iterations (+ the "
+                           f"initial evaluation; {int(res.n_fevals[-1])} "
+                           f"energy evaluations) in {wall * 1e3:.1f} ms wall;"
+                           f" device busy {busy * 1e3:.1f} ms, idle share "
+                           f"{max(0.0, 1 - busy / wall):.2f}")
+    for dev_us, key, count in rows[:10]:
+        say("profile_sharded", f"  {dev_us / 1e3 / iters:8.3f} ms/iteration "
+                               f"{count / iters:7.1f} calls/iteration  "
+                               f"{key[:80]}")
+    for label, tag in (("the local-rows kernel (ell_gather_local)",
+                        "ell_gather_local"), ("NCCL", "nccl")):
+        hit = [(us, c) for us, key, c in rows if tag in key.lower()]
+        us, calls = sum(r[0] for r in hit), sum(r[1] for r in hit)
+        say("profile_sharded", f"  {label}: {us / 1e3 / iters:.3f} "
+                               f"ms/iteration, {calls / iters:.1f} "
+                               f"calls/iteration, {us / max(calls, 1):.1f} "
+                               f"us a call")
+    matvecs = sum(c for _, key, c in rows if "ell_gather_local" in key) / 2
+    nccl = sum(us for us, key, _ in rows if "nccl" in key.lower())
+    if nccl:
+        say("profile_sharded", f"  NCCL device time per CG matvec or "
+                               f"gradient (one slab all-gather each, "
+                               f"{matvecs:.0f} of them, plus one 2-scalar "
+                               f"reduction an evaluation): "
+                               f"{nccl / max(matvecs, 1):.1f} us")
+    else:
+        say("profile_sharded", f"  no NCCL kernel recorded over "
+                               f"{matvecs:.0f} CG matvecs and gradients: "
+                               f"with {mesh.size} rank(s) the collectives "
+                               f"launch none; their host time a call is "
+                               f"phase time_ell_local's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -1452,6 +1949,12 @@ def main() -> int:
     phase_check_bh_fits(tree["fits"])
     timing_bh = phase_time_bh(tree["fits"]["tsne"])
     phase_profile_tree(tree["fits"]["tsne"])
+    phase_check_ell_local(sparse["fits"])
+    sharded = phase_fit_sharded(sparse)
+    phase_fit_sharded_2rank(sharded)
+    timing_local = phase_time_ell_local(sharded)
+    phase_profile_sharded(sharded["fits"]["tsne"], sharded["mesh"])
+    dist.destroy_process_group()
     say("done", f"{time.perf_counter() - t_start:.1f} s")
 
     f32 = timing["tsne", "float32"]     # the costlier main-path kind
@@ -1495,6 +1998,18 @@ def main() -> int:
         "launches": tree["launches"],
         "launches_from": "the default EE and t-SNE tree fits",
         **timing_bh["near chunk", "float32"]})
+    # the local-rows kernel at the main path's shape on this one card (one
+    # rank, nb = N) on the EE fit's reverse graph, float32, as rows 2 and 3
+    if sharded["launches"] < 1:
+        raise AssertionError("the sharded fits launched no local-rows "
+                             "kernel")
+    kernels.append({
+        "name": "ell_lap_matvec_local", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ell.cu",
+        "replaces": "src/repro/kernels/sparse_attractive.py:241",
+        "launches": sharded["launches"],
+        "launches_from": "the one-rank EE and t-SNE sparse-sharded fits",
+        **timing_local["reverse", N_SPARSE, "float32"]})
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

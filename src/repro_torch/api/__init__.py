@@ -1,7 +1,7 @@
 # The public entry point for fitting embeddings with the port: a declarative
 # EmbedSpec, the Embedding estimator (fit / fit_transform) and the strategy
-# and backend registries.  Port of repro.api for the single-device dense,
-# sparse and tree backends.
+# and backend registries.  Port of repro.api for the dense, sparse, tree and
+# sparse-sharded backends (not yet dense-mesh).
 from .estimator import Embedding
 from .registries import (
     available_backends,

@@ -1,8 +1,9 @@
 """Backend implementations for the `repro_torch.api` registry.
 
-Port of the single-device backends of `repro/api/backends.py`.  Each is
-`fit(spec, Y, *, X0, aff, saff, device, callback, shift_source) ->
-(EngineResult, affinities, X0)`:
+Port of `repro/api/backends.py` but for ``dense-mesh``.  Each is
+`fit(spec, Y, *, X0, aff, saff, device, mesh, mesh_spec, callback,
+shift_source) -> (EngineResult, affinities, X0)`; only the mesh backends
+read `mesh` and `mesh_spec`:
 
   * `fit_dense` builds the problem (perplexity affinities, then a
     Laplacian-eigenmaps start, each skipped when the caller passes it), the
@@ -10,13 +11,18 @@ Port of the single-device backends of `repro/api/backends.py`.  Each is
   * `fit_sparse` builds the ELL neighbour graph (skipped for a precomputed
     `saff=`), the spectral start and the sparse objective
     (embed/trainer.py), and runs the engine's host loop;
+  * `fit_sparse_sharded` builds the same graph and start on every rank of
+    the mesh and the row-sharded objective (sparse/sharding.py), and runs
+    the same loop on every rank;
   * `fit_tree` builds the same graph and start and the deterministic
     Barnes-Hut objective (sparse/farfield.py), and runs the same loop.
 
 Precomputed inputs pin their family: `aff=` (dense `core.Affinities`) is
 dense-only, `saff=` (`sparse.SparseAffinities`) is for the sparse and tree
-backends, and `shift_source=` (the draw of the negatives) sparse-only; each
-backend rejects the other family's with a pointed error.
+backends (the sharded one cuts its shards from its own build, as the
+reference's does), and `shift_source=` (the draw of the negatives) is for
+the sparse backends; each backend rejects the other family's with a pointed
+error.
 """
 from __future__ import annotations
 
@@ -62,8 +68,8 @@ def _dense_problem(spec, Y, X0, aff, device: torch.device):
     return aff, X0, phase_times
 
 
-def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device,
-              callback=None, shift_source=None
+def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
+              mesh_spec=None, callback=None, shift_source=None
               ) -> tuple[EngineResult, Affinities, torch.Tensor]:
     """Single-device dense backend: full affinities, any registered
     strategy, the fused step of `core/minimize.DenseObjective`.  Returns
@@ -87,8 +93,8 @@ def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device,
     return res, aff, X0
 
 
-def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device,
-               callback=None, shift_source=None
+def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
+               mesh_spec=None, callback=None, shift_source=None
                ) -> tuple[EngineResult, object, torch.Tensor]:
     """Single-device sparse backend: ELL affinities, negative-sampled
     repulsion, matrix-free sd/fp/gd directions.  Returns the engine result,
@@ -111,8 +117,37 @@ def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device,
     return res, saff, X0
 
 
-def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device,
-             callback=None, shift_source=None
+def fit_sparse_sharded(spec, Y, *, X0=None, aff=None, saff=None, device,
+                       mesh=None, mesh_spec=None, callback=None,
+                       shift_source=None
+                       ) -> tuple[EngineResult, object, torch.Tensor]:
+    """The sparse backend with the ELL graph row-sharded over the ranks of
+    `mesh` (a `launch.mesh.Mesh`); every rank calls it with the same
+    arguments and gets the same result.  Returns as `fit_sparse` does."""
+    if aff is not None:
+        raise ValueError("precomputed aff= is dense-backend-only (the "
+                         "sparse backend builds its own ELL graph; pass "
+                         "saff= for a precomputed one)")
+    if saff is not None:
+        raise ValueError(
+            "precomputed saff= is not supported on the sparse-sharded "
+            "backend yet (the shards are cut from the build); use the "
+            "sparse or tree backend")
+    if Y is None:
+        raise ValueError("fit needs Y")
+    phase_times: dict[str, float] = {}
+    obj, X0, saff = build_sparse_objective(
+        spec, Y, X0, strategy=spec.strategy, sharded=True, device=device,
+        mesh=mesh, mspec=mesh_spec, shift_source=shift_source,
+        phase_times=phase_times)
+    res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                   callback)
+    res.phase_times = phase_times
+    return res, saff, X0
+
+
+def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
+             mesh_spec=None, callback=None, shift_source=None
              ) -> tuple[EngineResult, object, torch.Tensor]:
     """Single-device deterministic Barnes-Hut backend: exact ELL attractive
     terms plus grid far-field repulsion, O(N log N), 2-D only, bit-identical
@@ -138,4 +173,5 @@ def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device,
 
 BACKENDS["dense"].fit = fit_dense
 BACKENDS["sparse"].fit = fit_sparse
+BACKENDS["sparse-sharded"].fit = fit_sparse_sharded
 BACKENDS["tree"].fit = fit_tree

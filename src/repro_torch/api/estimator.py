@@ -8,8 +8,17 @@ Port of `Embedding.fit` / `fit_transform` from `repro/api/estimator.py`:
     X = emb.fit_transform(Y)           # on the GPU
 
 The estimator runs on CUDA unless it is built with ``device="cpu"``; with
-no device and no CUDA it raises rather than fall back to the CPU.  After
-`fit`:
+no device and no CUDA it raises rather than fall back to the CPU.  The
+``sparse-sharded`` backend runs under a `torch.distributed` process group,
+one process per rank, each calling `fit` with the same arguments:
+
+    torch.cuda.set_device(local_rank)              # e.g. under torchrun
+    torch.distributed.init_process_group("nccl")
+    emb = Embedding(EmbedSpec(backend="sparse-sharded")).fit(Y)
+
+`mesh=` (a `launch.mesh.Mesh`; by default the whole group on the row axis)
+and `mesh_spec=` (an `embed.distributed.EmbedMeshSpec`) matter to that
+backend only.  After `fit`:
 
   * `embedding_`   — the (N, dim) embedding, a tensor on the device
   * `result_`      — the full `EngineResult` (energies, times, fevals, ...)
@@ -26,18 +35,22 @@ from typing import Callable
 
 import torch
 
+from repro_torch.launch.mesh import make_host_mesh, world_size
+
 from . import registries
 from .spec import EmbedSpec
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` means CUDA, which must then be available."""
+    """``None`` means this process's current CUDA device (under a process
+    group, the rank's: set it with `torch.cuda.set_device`), which must
+    then be available."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on CUDA by default and no CUDA device is "
                 "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
 
 
@@ -47,13 +60,28 @@ class Embedding:
     `Embedding(EmbedSpec(kind="tsne", lam=1.0))`."""
 
     def __init__(self, spec: EmbedSpec | None = None, *, device=None,
-                 **overrides):
+                 mesh=None, mesh_spec=None, **overrides):
         if spec is None:
             spec = EmbedSpec(**overrides)
         elif overrides:
             spec = dataclasses.replace(spec, **overrides)
         self.spec = spec
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_spec = mesh_spec
+
+    def _resolve_backend(self, n: int) -> str:
+        n_devices = self.mesh.size if self.mesh is not None else world_size()
+        return registries.resolve_backend(
+            self.spec.backend, n=n, n_devices=n_devices,
+            strategy=self.spec.strategy)
+
+    def _mesh_for(self, backend: str):
+        """The mesh of a mesh backend: the one given, else the default
+        process group's (which must be started)."""
+        if registries.BACKENDS[backend].needs_mesh and self.mesh is None:
+            self.mesh = make_host_mesh()
+        return self.mesh
 
     def fit(self, Y, X0=None, aff=None,
             callback: Callable[..., None] | None = None, *, saff=None,
@@ -82,12 +110,13 @@ class Embedding:
         elif saff is not None and self.spec.backend == "auto":
             backend = "sparse"  # an ELL graph: sparse, unless tree is named
         else:
-            backend = registries.resolve_backend(
-                self.spec.backend, n=n, strategy=self.spec.strategy)
+            backend = self._resolve_backend(n)
         registries.validate_strategy_backend(self.spec.strategy, backend)
         fit_fn = registries.backend_impl(backend)
         res, aff, X0 = fit_fn(self.spec, Y, X0=X0, aff=aff, saff=saff,
-                              device=self.device, callback=callback,
+                              device=self.device,
+                              mesh=self._mesh_for(backend),
+                              mesh_spec=self.mesh_spec, callback=callback,
                               shift_source=shift_source)
         self.backend_ = backend
         self.result_ = res

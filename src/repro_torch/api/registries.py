@@ -1,11 +1,16 @@
 """Strategy and backend registries behind `repro_torch.api.Embedding`.
 
-Port of `repro/api/registries.py` for the single-device backends: the
-strategies ``gd``, ``fp`` and ``sd`` and the backends ``dense``, ``sparse``
-and ``tree``.  ``backend="auto"`` resolves to ``dense`` up to AUTO_SPARSE_N
-points and to ``sparse`` above, falling back to ``dense`` for a strategy
-the sparse backend lacks; ``tree`` is never picked by ``auto`` (it is 2-D
-only), a spec selects it by name.
+Port of `repro/api/registries.py`: the strategies ``gd``, ``fp`` and ``sd``
+and the backends ``dense``, ``sparse``, ``tree`` and ``sparse-sharded`` (the
+row-sharded sparse backend over a process group; it needs a mesh).
+``backend="auto"`` follows the reference's policy: ``sparse`` above
+AUTO_SPARSE_N points, ``sparse-sharded`` instead when the mesh has more than
+one rank, ``dense`` up to AUTO_SPARSE_N, and ``dense`` for a strategy the
+size-preferred backend lacks.  One deviation: where the reference picks
+``dense-mesh`` (several ranks, N <= AUTO_SPARSE_N and divisible by the rank
+count), the port picks ``dense``, since the 2-D-sharded dense backend is not
+ported yet.  ``tree`` is never picked by ``auto`` (it is 2-D only), a spec
+selects it by name.
 """
 from __future__ import annotations
 
@@ -65,13 +70,16 @@ class BackendEntry:
     name: str
     doc: str = ""
     fit: Callable[..., Any] | None = None
+    needs_mesh: bool = False   # True: the estimator supplies a mesh
 
 
 BACKENDS: dict[str, BackendEntry] = {}
 
 
-def register_backend(name: str, *, doc: str = "", fit=None) -> None:
-    BACKENDS[name] = BackendEntry(name=name, doc=doc, fit=fit)
+def register_backend(name: str, *, doc: str = "", fit=None,
+                     needs_mesh: bool = False) -> None:
+    BACKENDS[name] = BackendEntry(name=name, doc=doc, fit=fit,
+                                  needs_mesh=needs_mesh)
 
 
 def available_backends() -> list[str]:
@@ -102,25 +110,35 @@ def backend_impl(name: str):
     return BACKENDS[name].fit
 
 
-def resolve_backend(backend: str, *, n: int, strategy: str) -> str:
-    """``auto`` policy: ``sparse`` above AUTO_SPARSE_N points, else
-    ``dense``; ``dense`` also when the sparse backend cannot realize the
-    requested strategy."""
+def resolve_backend(backend: str, *, n: int, n_devices: int = 1,
+                    strategy: str) -> str:
+    """``auto`` policy: sparse above AUTO_SPARSE_N points, row-sharded when
+    the mesh has more than one rank (`n_devices`), else ``dense``; ``dense``
+    also when the size-preferred backend cannot realize the requested
+    strategy.  The reference's ``dense-mesh`` pick (several ranks, N up to
+    AUTO_SPARSE_N) is ``dense`` here until that backend is ported."""
     if backend != "auto":
         return validate_backend(backend)
-    name = "sparse" if n > AUTO_SPARSE_N else "dense"
+    if n > AUTO_SPARSE_N:
+        name = "sparse-sharded" if n_devices > 1 else "sparse"
+    else:
+        name = "dense"
     if name not in strategy_entry(strategy).backends:
         name = "dense"               # every registered strategy runs dense
     return name
 
 
-_BACKENDS = ("dense", "sparse", "tree")
+_BACKENDS = ("dense", "sparse", "sparse-sharded", "tree")
 
 register_backend("dense", doc="single device, full affinities, fused step "
                               "(core/minimize.py)")
 register_backend("sparse", doc="single device, ELL neighbour graph + "
                                "negative sampling, Jacobi-PCG "
                                "(embed/trainer.py)")
+register_backend("sparse-sharded", needs_mesh=True,
+                 doc="the sparse backend with the ELL graph row-sharded over "
+                     "the ranks of a torch.distributed process group "
+                     "(sparse/sharding.py)")
 register_backend("tree", doc="single device, deterministic Barnes-Hut grid "
                              "repulsion, O(N log N), 2-D only "
                              "(sparse/farfield.py)")

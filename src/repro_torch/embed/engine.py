@@ -27,6 +27,10 @@ and may provide
     diagnostics()      host floats of the last step's solver diagnostics
                        (e.g. PCG iterations), read only when a callback
                        listens
+    agree_elapsed(s)   the seconds the time budget (`max_seconds`) reads in
+                       place of this process's own `s`: the sharded backend,
+                       whose ranks each run this loop, returns the slowest
+                       rank's, so that all stop on the same iteration
 
 The draw key of iteration `it` is the pair (seed + 1, it), the counterpart
 of the reference's `fold_in(PRNGKey(seed + 1), it)`; the initial evaluation
@@ -153,6 +157,7 @@ def fit_loop(objective: Objective, X0: torch.Tensor,
     if conv not in ("raw", "ema"):
         raise ValueError(f"unknown convergence mode {conv!r}")
     obj_diag = getattr(objective, "diagnostics", None)
+    agree_elapsed = getattr(objective, "agree_elapsed", lambda s: s)
 
     t0 = time.perf_counter()
     solve, state = objective.make_direction_solver()
@@ -231,7 +236,8 @@ def fit_loop(objective: Objective, X0: torch.Tensor,
         if rel < cfg.tol:
             converged = True
             break
-        if cfg.max_seconds is not None and now > cfg.max_seconds:
+        if (cfg.max_seconds is not None
+                and agree_elapsed(now) > cfg.max_seconds):
             break
 
     return EngineResult(

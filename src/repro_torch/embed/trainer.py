@@ -22,7 +22,12 @@ test passes the reference's draws instead).  A line search reuses its
 iteration's shifts, so it descends one fixed surrogate.  The tree objective
 draws nothing: the engine's deterministic path reuses the accepted energy.
 
-The row-sharded variant (``sharded=True``) is not ported yet.
+The row-sharded variant (``sharded=True``, the ``sparse-sharded`` backend)
+splits the graph's rows over the ranks of a `launch.mesh.Mesh`
+(sparse/sharding.py).  Every rank builds the graph and the spectral start
+from the whole data with the same seeds, as the single-device path does, and
+runs the same host loop on replicated vectors; only the energy, gradient and
+CG products are sharded.
 """
 from __future__ import annotations
 
@@ -34,10 +39,14 @@ import torch
 from repro_torch.core.objectives import (draw_shifts, energy_and_grad_sparse,
                                          is_normalized)
 from repro_torch.core.spectral_init import laplacian_eigenmaps
+from repro_torch.embed.distributed import EmbedMeshSpec
 from repro_torch.sparse import (energy_and_grad_tree, make_grid_plan,
-                                make_sd_operator, pcg, sparse_affinities,
+                                make_sd_operator, make_sharded_energy_grad,
+                                make_sharded_sd_operator, pcg,
+                                shard_sparse_affinities, sparse_affinities,
                                 sparse_laplacian_eigenmaps, to_dense,
-                                tree_diagnostics)
+                                tree_diagnostics, validate_sparse_mesh)
+from repro_torch.sparse.sharding import assert_replicated, max_over_ranks
 
 #: N up to which the sparse spectral start uses the dense eigh
 DENSE_INIT_N = 2048
@@ -49,15 +58,18 @@ class _SparseObjective:
     the line-search trials that share the key).  `solve(G, P0) -> (P,
     diag)` may warm-start from the previous direction P0 (PCG does); `diag`
     holds the solver's counters, read back by `diagnostics()` only when a
-    callback listens."""
+    callback listens.  Under a `mesh` (the sharded backend) the engine's time
+    budget reads the slowest rank's clock (`agree_elapsed`)."""
 
     stochastic = True
 
     def __init__(self, eg, e_only, solve, X0: torch.Tensor,
-                 shift_source: Callable[[int, int], torch.Tensor] | None):
+                 shift_source: Callable[[int, int], torch.Tensor] | None,
+                 mesh=None):
         self._eg, self._e_only, self._solve = eg, e_only, solve
         self._X0 = X0
         self.shift_source = shift_source
+        self._mesh = mesh
         self._key = self._shifts = None
         self._solver_diag: dict = {}
 
@@ -83,6 +95,14 @@ class _SparseObjective:
 
         return solve, torch.zeros_like(self._X0)
 
+    def agree_elapsed(self, seconds: float) -> float:
+        """The seconds the engine's time budget reads: this rank's own, or
+        under a mesh of several ranks the slowest rank's, so that every rank
+        stops on the same iteration."""
+        if self._mesh is None or self._mesh.size == 1:
+            return seconds
+        return max_over_ranks(self._mesh, seconds, self._X0.device)
+
     def _host_diag(self, extra: dict) -> dict:
         vals = {**self._solver_diag, **extra}
         tensors = {k: v for k, v in vals.items() if torch.is_tensor(v)}
@@ -103,8 +123,8 @@ class _NormalizedSparseObjective(_SparseObjective):
     (E, G, z_new)`.  The energy uses the instantaneous estimate, so the
     line-search path `e_only` keeps its shape."""
 
-    def __init__(self, eg, e_only, solve, X0, shift_source):
-        super().__init__(eg, e_only, solve, X0, shift_source)
+    def __init__(self, eg, e_only, solve, X0, shift_source, mesh=None):
+        super().__init__(eg, e_only, solve, X0, shift_source, mesh)
         # z <= 0 means uninitialized: the first application uses its own
         # instantaneous estimate (see energy_and_grad_sparse)
         self._z = torch.zeros((), dtype=X0.dtype, device=X0.device)
@@ -215,8 +235,17 @@ def _make_direction_solve(strategy: str, matvec, inv_diag, cfg,
         f"(have 'sd', 'fp', 'gd')")
 
 
+def default_mesh_spec(mesh) -> EmbedMeshSpec:
+    """Row axes = every mesh axis but the last, which is the column axis
+    (a one-axis mesh shards its only axis)."""
+    names = mesh.axis_names
+    return EmbedMeshSpec(row_axes=tuple(names[:-1]) or (names[0],),
+                         col_axis=names[-1])
+
+
 def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
                            sharded: bool = False, saff=None, *, device,
+                           mesh=None, mspec: EmbedMeshSpec | None = None,
                            shift_source=None, phase_times: dict | None = None,
                            ell_layout: str | None = None):
     """(objective, X0, saff) for the sparse neighbour-graph backend.
@@ -229,13 +258,64 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
     kernel with the spec's kernel arguments (impl, bf16 storage) and the
     layout `ell_layout` (None: ``vmem``; ``hbm`` is the staged gather, which
     no user option selects); the gradient's ELL products take only the
-    spec's impl and stay in float32 storage, as the reference's do."""
+    spec's impl and stay in float32 storage, as the reference's do.
+
+    `sharded=True` row-shards the graph over `mesh` (a `launch.mesh.Mesh`;
+    `mspec` names its row axes, by default every axis but the last) and
+    runs the gradient's and the CG operator's Laplacian products on the
+    local-rows kernel with the spec's impl and storage, as the reference's
+    sharded backend does; its layout is ``vmem`` only.  Every rank of the
+    mesh calls this with the same arguments."""
     if sharded:
-        raise NotImplementedError(
-            "the row-sharded sparse backend is not ported to repro_torch yet")
+        if mesh is None:
+            raise ValueError("the sparse-sharded backend needs a mesh")
+        if mspec is None:
+            mspec = default_mesh_spec(mesh)
+        # fail fast on unusable mesh shapes, before the k-NN build
+        validate_sparse_mesh(mesh, mspec.row_axes)
+        if ell_layout not in (None, "vmem"):
+            raise ValueError(f"the sparse-sharded backend runs the vmem "
+                             f"layout only, got ell_layout={ell_layout!r}")
     n, saff, X0, lam = _graph_and_start(cfg, Y, X0, saff, device,
                                         phase_times)
     kind, m = cfg.kind, cfg.n_negatives
+    normalized = is_normalized(kind)
+    sampled = m is not None and m < n - 1
+    if sampled and shift_source is None:
+        def shift_source(seed, it):
+            return draw_shifts(seed, it, n, m, device)
+    if not sampled:
+        shift_source = None
+    obj_cls = (_NormalizedSparseObjective if normalized
+               else _SparseObjective)
+
+    if sharded:
+        rev = saff.rev
+        assert_replicated(mesh, X0, saff.graph.indices, saff.graph.weights,
+                          *((rev.indices, rev.weights) if rev is not None
+                            else ()))
+        sg = shard_sparse_affinities(mesh, mspec.row_axes, saff)
+        knobs = {"kernel_impl": cfg.kernel_impl,
+                 "kernel_precision": cfg.kernel_precision}
+        eg_l, e_l = make_sharded_energy_grad(
+            mesh, mspec.row_axes, sg, kind, n_negatives=m,
+            z_decay=cfg.z_ema_decay, **knobs)
+        if normalized:
+            def eg(X, shifts, z):
+                return eg_l(X, lam, shifts, z)
+        else:
+            def eg(X, shifts):
+                return eg_l(X, lam, shifts)
+
+        def e_only(X, shifts):
+            return e_l(X, lam, shifts)
+
+        matvec, inv_diag, _ = make_sharded_sd_operator(
+            mesh, mspec.row_axes, sg, saff, cfg.mu_scale, **knobs)
+        solve = _make_direction_solve(strategy, matvec, inv_diag, cfg,
+                                      "sparse-sharded")
+        return (obj_cls(eg, e_only, solve, X0, shift_source, mesh=mesh), X0,
+                saff)
 
     # the spectral system is model-independent (the paper freezes the
     # attractive Hessian at X = 0), so normalized kinds share the operator
@@ -243,24 +323,16 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
                                            cfg.mu_scale, layout=ell_layout,
                                            **cfg.kernel_args())
     impl = cfg.kernel_impl
-    sampled = m is not None and m < n - 1
-    if sampled and shift_source is None:
-        def shift_source(seed, it):
-            return draw_shifts(seed, it, n, m, device)
-    if not sampled:
-        shift_source = None
 
-    if is_normalized(kind):
+    if normalized:
         def eg(X, shifts, z):
             return energy_and_grad_sparse(
                 X, saff, kind, lam, n_negatives=m, shifts=shifts, z_prev=z,
                 z_decay=cfg.z_ema_decay, return_state=True, impl=impl)
-        obj_cls = _NormalizedSparseObjective
     else:
         def eg(X, shifts):
             return energy_and_grad_sparse(X, saff, kind, lam, n_negatives=m,
                                           shifts=shifts, impl=impl)
-        obj_cls = _SparseObjective
 
     def e_only(X, shifts):
         return energy_and_grad_sparse(X, saff, kind, lam, n_negatives=m,

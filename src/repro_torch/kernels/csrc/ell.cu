@@ -5,34 +5,46 @@
 //     X is resident in VMEM and neighbour rows are gathered from it;
 //   * layout 1, "hbm": `ell_lap_matvec_pallas_hbm` (body `_ell_hbm_kernel`),
 //     where X stays in HBM and each chunk's neighbour rows are DMA'd into a
-//     double-buffered VMEM scratch.
-// Same contract as the plain PyTorch version
-// `repro_torch/kernels/ref.py::ell_lap_matvec_ref`: for X (n_x, d), an ELL
-// graph idx (n_rows, k) int32 with global column ids and weights w
-// (n_rows, k),
+//     double-buffered VMEM scratch;
+//   * the local-rows kernel `ell_gather_local`: `ell_lap_matvec_local_pallas`
+//     (body `_ell_local_kernel`, which is `_ell_kernel` behind a
+//     scalar-prefetched row offset), the row-sharded backend's product over
+//     one rank's rows against a replicated X.
+// Same contract as the plain PyTorch versions
+// `repro_torch/kernels/ref.py::ell_lap_matvec_ref` and
+// `ell_lap_matvec_local_ref`: for X (n_x, d), an ELL graph idx (n_rows, k)
+// int32 with global column ids and weights w (n_rows, k),
 //
 //     out_r = (sum_j w_rj) x_{row0 + r} - sum_j w_rj x_{idx[r, j]}
 //
-// for the local rows r < n_rows; single-device callers pass row0 = 0 and
-// n_rows = n_x.  The row offset is there for the row-sharded backend, whose
-// local-rows kernel (`ell_lap_matvec_local_pallas`) is this contract over
-// one shard's rows.  X and w are float32 or bfloat16 (widened to f32 after
-// the gather); sums and the output are float32.
+// for the local rows r < n_rows.  The single-device entry point
+// (`ell_lap_matvec_launch`) runs row0 = 0 and n_rows = n_x; the local-rows
+// entry point (`ell_lap_matvec_local_launch`) takes any row0 with
+// row0 + n_rows <= n_x.  The TPU kernel needs row0 to be a multiple of its
+// row tile, because the offset moves a BlockSpec by whole blocks; here a
+// group of lanes reads its own row x_{row0 + r}, so any row0 works.  X and w
+// are float32 or bfloat16 (widened to f32 after the gather); sums and the
+// output are float32.
 //
 // Bound on an H100 SXM (3.35 TB/s; ~3 flops a slot a dimension): memory.
 // The least traffic is the graph streamed once, N k (4 + s_w) bytes, plus X
 // read once and the output written once, N d (s_x + 4) bytes; the gathered
 // rows x_{idx} come from L2, which holds X whole at the sizes the sparse
 // backend runs (N = 70000, d = 2 is 0.56 MB of the 50 MB L2).  At N = 70000,
-// k = 90 in f32 that is 51.5 MB, ~15 us a call.  The design follows:
+// k = 90 in f32 that is 51.5 MB, ~15 us a call; the local-rows kernel over
+// half the rows streams half the graph, ~26 MB, ~7.8 us.  The design
+// follows:
 //
-//   * "vmem" (direct gather).  A group of S lanes owns one row: a whole warp
-//     for k > 16, else 32 / S rows a warp so that short rows keep the lanes
-//     busy.  Lanes stride over the row's slots, so idx and w stream in
-//     coalesced, evict-first loads; each lane gathers x_{idx} through the
-//     read-only path (L1, then L2) and keeps the degree and D gathered sums
-//     in registers.  The group reduces them with a fixed butterfly of
-//     shuffles, and one lane writes the row.
+//   * "vmem" and the local-rows kernel (direct gather).  A group of S lanes
+//     owns one row: a whole warp for k > 16, else 32 / S rows a warp so that
+//     short rows keep the lanes busy.  Lanes stride over the row's slots, so
+//     idx and w stream in coalesced, evict-first loads; each lane gathers
+//     x_{idx} through the read-only path (L1, then L2) and keeps the degree
+//     and D gathered sums in registers.  The group reduces them with a fixed
+//     butterfly of shuffles, and one lane writes the row.  Both kernels run
+//     the one body (`gather_rows`), as the TPU's local kernel runs
+//     `_ell_kernel`; they are separate kernels so that a profile tells the
+//     sharded backend's launches from the single-device ones.
 //   * "hbm" (staged gather).  A block walks its rows in chunks of one row a
 //     group.  The chunk's indices, then its k neighbour rows a row, are
 //     copied into a double-buffered shared-memory ring with cp.async: while
@@ -54,11 +66,13 @@
 //     index, w = 0) adds exactly 0 to both sums; duplicate columns sum.
 //   * No float atomics: every row is summed by one group in a fixed order
 //     (strided slots, then the butterfly), so reruns are bit-identical.
-//   * Indices must lie in [0, n_x); the kernel does not check them.
+//   * Indices must lie in [0, n_x); the kernels do not check them (the
+//     local-rows wrapper checks each index array once).
 //
 // Built by `repro_torch/kernels/_build.py` with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through ctypes (`ell_lap_matvec_launch`, plain C interface).
+// and called through ctypes (`ell_lap_matvec_launch`,
+// `ell_lap_matvec_local_launch`; plain C interface).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,12 +126,14 @@ __device__ __forceinline__ void write_row(const T* __restrict__ X, int d,
     if (c0 + c < d) o[c] = deg * widen(__ldg(xn + c)) - acc[c];
 }
 
-// "vmem": direct gather, one group of S lanes a row.
+// The direct gather, one group of S lanes a row: the body of "vmem" and of
+// the local-rows kernel.
 template <typename T, int D, int S>
-__global__ void __launch_bounds__(kThreads)
-ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
-           const T* __restrict__ w, int d, int k, int row0, int n_rows,
-           float* __restrict__ out) {
+__device__ __forceinline__ void gather_rows(const T* __restrict__ X,
+                                            const int* __restrict__ idx,
+                                            const T* __restrict__ w, int d,
+                                            int k, int row0, int n_rows,
+                                            float* __restrict__ out) {
   const int lane = threadIdx.x % S;
   const int r = (blockIdx.x * kThreads + threadIdx.x) / S;
   const int c0 = blockIdx.y * D;
@@ -141,6 +157,24 @@ ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
   }
   group_reduce<D, S>(deg, acc);
   if (live && lane == 0) write_row<T, D>(X, d, c0, row0 + r, r, deg, acc, out);
+}
+
+// "vmem": every row of the graph (row0 = 0).
+template <typename T, int D, int S>
+__global__ void __launch_bounds__(kThreads)
+ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
+           const T* __restrict__ w, int d, int k, int n_rows,
+           float* __restrict__ out) {
+  gather_rows<T, D, S>(X, idx, w, d, k, 0, n_rows, out);
+}
+
+// The local-rows kernel: rows [row0, row0 + n_rows) of X's graph.
+template <typename T, int D, int S>
+__global__ void __launch_bounds__(kThreads)
+ell_gather_local(const T* __restrict__ X, const int* __restrict__ idx,
+                 const T* __restrict__ w, int d, int k, int row0, int n_rows,
+                 float* __restrict__ out) {
+  gather_rows<T, D, S>(X, idx, w, d, k, row0, n_rows, out);
 }
 
 // "hbm": staged gather through a double-buffered shared-memory ring.
@@ -239,16 +273,23 @@ ell_gather_staged(const T* __restrict__ X, const int* __restrict__ idx,
   }
 }
 
+// layout: 0 "vmem", 1 "hbm", kLocal the local-rows kernel.
+constexpr int kLocal = 2;
+
 template <typename T, int D, int S>
 int launch(int layout, const T* X, const int* idx, const T* w, int d, int k,
            int row0, int n_rows, float* out, cudaStream_t st) {
   const int ychunks = (d + D - 1) / D;
-  if (layout == 0) {
+  if (layout == 0 || layout == kLocal) {
     const dim3 grid(
         static_cast<unsigned>((static_cast<long long>(n_rows) * S + kThreads - 1)
                               / kThreads), ychunks);
-    ell_gather<T, D, S><<<grid, kThreads, 0, st>>>(X, idx, w, d, k, row0,
-                                                   n_rows, out);
+    if (layout == 0)
+      ell_gather<T, D, S><<<grid, kThreads, 0, st>>>(X, idx, w, d, k, n_rows,
+                                                     out);
+    else
+      ell_gather_local<T, D, S><<<grid, kThreads, 0, st>>>(X, idx, w, d, k,
+                                                           row0, n_rows, out);
   } else {
     constexpr int CH = kHbmThreads / S;
     const size_t bytes = 2ull * CH * k * (sizeof(int) + D * sizeof(T));
@@ -291,19 +332,11 @@ int launch_d(int layout, const void* Xv, const int* idx, const void* wv, int d,
   }
 }
 
-}  // namespace
-
-// X (n_x, d), idx (n_rows, k) int32, w (n_rows, k): row-major, contiguous,
-// X and w in the storage type (bf16 != 0: bfloat16, else float32), all
-// 16-byte aligned.  out: (n_rows, d) float32.  Row r of the graph is row
-// row0 + r of X.  layout: 0 "vmem" (direct gather), 1 "hbm" (staged).
-// Enqueues on `stream` and returns the launch status (cudaError_t as int).
-extern "C" int ell_lap_matvec_launch(const void* X, const void* idx,
-                                     const void* w, int n_x, int d, int k,
-                                     int row0, int n_rows, int bf16,
-                                     int layout, void* out, void* stream) {
+int launch_any(int layout, const void* X, const void* idx, const void* w,
+               int n_x, int d, int k, int row0, int n_rows, int bf16,
+               void* out, void* stream) {
   if (n_x < 1 || d < 1 || k < 1 || row0 < 0 || n_rows < 0 ||
-      row0 > n_x - n_rows || (layout != 0 && layout != 1))
+      row0 > n_x - n_rows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -311,4 +344,32 @@ extern "C" int ell_lap_matvec_launch(const void* X, const void* idx,
   float* o = static_cast<float*>(out);
   return bf16 ? launch_d<uint16_t>(layout, X, ip, w, d, k, row0, n_rows, o, st)
               : launch_d<float>(layout, X, ip, w, d, k, row0, n_rows, o, st);
+}
+
+}  // namespace
+
+// X (n, d), idx (n, k) int32, w (n, k): row-major, contiguous, X and w in
+// the storage type (bf16 != 0: bfloat16, else float32), all 16-byte
+// aligned.  out: (n, d) float32.  layout: 0 "vmem" (direct gather), 1 "hbm"
+// (staged).  Enqueues on `stream` and returns the launch status
+// (cudaError_t as int).
+extern "C" int ell_lap_matvec_launch(const void* X, const void* idx,
+                                     const void* w, int n, int d, int k,
+                                     int bf16, int layout, void* out,
+                                     void* stream) {
+  if (layout != 0 && layout != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(layout, X, idx, w, n, d, k, 0, n, bf16, out, stream);
+}
+
+// The local-rows kernel: X (n_x, d) replicated, idx (n_rows, k) int32 with
+// global ids in [0, n_x) and w (n_rows, k) one rank's rows of the graph,
+// whose row r is row row0 + r of X (0 <= row0 <= n_x - n_rows).  out:
+// (n_rows, d) float32.  Otherwise as `ell_lap_matvec_launch`.
+extern "C" int ell_lap_matvec_local_launch(const void* X, const void* idx,
+                                           const void* w, int n_x, int d,
+                                           int k, int row0, int n_rows,
+                                           int bf16, void* out, void* stream) {
+  return launch_any(kLocal, X, idx, w, n_x, d, k, row0, n_rows, bf16, out,
+                    stream);
 }

@@ -1,8 +1,9 @@
 """Kernel dispatch: the one entry point for each hand-written kernel.
 
 Port of `repro/kernels/ops.py`: `pairwise_terms` (csrc/pairwise.cu),
-`ell_lap_matvec` (csrc/ell.cu) and `bh_interaction` (csrc/farfield.cu).
-The rest of the port calls these; each decides per call:
+`ell_lap_matvec` and `ell_lap_matvec_local` (csrc/ell.cu) and
+`bh_interaction` (csrc/farfield.cu).  The rest of the port calls these;
+each decides per call:
 
   1. **Path**, by the `impl` knob: ``"auto"`` runs the CUDA kernel on CUDA
      tensors and the PyTorch oracle on CPU tensors; ``"kernel"`` runs the
@@ -14,10 +15,10 @@ The rest of the port calls these; each decides per call:
      rounds X and the target table only, its slot weights stay float32
      (they carry cell occupancies).  Accumulation is float32 and outputs
      are float32.
-  3. **Layout** (ELL only): ``"vmem"`` (direct gather, the default: on
-     Hopper X always sits in device memory, and L2 holds it whole at the
-     sizes the sparse backend runs) or ``"hbm"`` (staged gather through a
-     double-buffered shared-memory ring).  The reference picks between its
+  3. **Layout** (`ell_lap_matvec` only): ``"vmem"`` (direct gather, the
+     default: on Hopper X always sits in device memory, and L2 holds it
+     whole at the sizes the sparse backend runs) or ``"hbm"`` (staged
+     gather through a double-buffered shared-memory ring).  The reference picks between its
      two layouts by the TPU's VMEM budget; that budget has no counterpart.
 
 The TPU layout steps of the reference (padding d to 128 lanes and N to a
@@ -27,9 +28,18 @@ of `bh_interaction`, which fell back to jnp when the target table outgrew
 VMEM: on Hopper the table is read from device memory through L2 whatever
 its size, so every CUDA request runs the kernel.
 
+The reference's sharded backend resolves its local-rows kernel once, at
+build time (`resolve_local_ell`: autotuned `block_rows` rounded to a divisor
+of the shard, so that the scalar-prefetched row offset moves whole
+blocks).  The CUDA grid has no tile that must divide the shard, so the
+port's `resolve_local_ell` only checks the request, and
+`ell_lap_matvec_local` takes any row offset; its layout is ``"vmem"``
+only, as in the reference.
+
 Every decision is recorded: `last_dispatch("pairwise_terms")`,
-`last_dispatch("ell_lap_matvec")` and `last_dispatch("bh_interaction")`
-return the most recent one as a dict of path, reason, storage (and layout).
+`last_dispatch("ell_lap_matvec")`, `last_dispatch("ell_lap_matvec_local")`
+and `last_dispatch("bh_interaction")` return the most recent one as a dict
+of path, reason, storage (and layout).
 """
 from __future__ import annotations
 
@@ -37,9 +47,11 @@ import torch
 
 from .farfield import bh_interaction_cuda
 from .pairwise import pairwise_terms_cuda
-from .ref import (KINDS, PairwiseTerms, bh_interaction_ref, ell_lap_matvec_ref,
+from .ref import (KINDS, PairwiseTerms, bh_interaction_ref,
+                  ell_lap_matvec_local_ref, ell_lap_matvec_ref,
                   pairwise_terms_ref)
-from .sparse_attractive import LAYOUTS, ell_lap_matvec_cuda
+from .sparse_attractive import (LAYOUTS, ell_lap_matvec_cuda,
+                                ell_lap_matvec_local_cuda)
 
 IMPLS = ("auto", "kernel", "torch")
 STORAGE_DTYPES = ("float32", "bfloat16")
@@ -122,6 +134,43 @@ def ell_lap_matvec(X: torch.Tensor, indices: torch.Tensor,
     return ell_lap_matvec_cuda(to_storage(X, storage),
                                indices.to(torch.int32).contiguous(),
                                to_storage(weights, storage), layout=lay)
+
+
+def resolve_local_ell(nb: int, k: int, d: int, *, impl: str = "auto",
+                      storage_dtype: str | None = None) -> dict:
+    """Build-time check of the row-sharded backend's local-rows ELL requests
+    (sparse/sharding.py): the keyword arguments of `ell_lap_matvec_local`
+    for shards of nb rows, k slots and d columns (0: any).  Raises for an
+    unknown impl or storage or an empty shard, before the fit starts; the
+    path (kernel or oracle) follows each call's tensors, as in every
+    dispatch here."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    if nb < 1 or k < 1 or d < 0:
+        raise ValueError(f"local ELL shards need nb, k >= 1 and d >= 0, got "
+                         f"nb={nb}, k={k}, d={d}")
+    return {"impl": impl, "storage": resolve_storage(storage_dtype)}
+
+
+def ell_lap_matvec_local(X_rep: torch.Tensor, indices: torch.Tensor,
+                         weights: torch.Tensor, row0: int, *,
+                         impl: str = "auto", storage: str | None = None
+                         ) -> torch.Tensor:
+    """Rows [row0, row0 + nb) of L(A) X against a replicated X_rep (n_x, d),
+    float32 (nb, d); see `ref.ell_lap_matvec_local_ref` for the contract.
+    `indices` (nb, k) hold global row ids.  bfloat16 `storage` rounds X_rep
+    and the weights on both paths."""
+    path, reason = _path(impl, X_rep)
+    storage = resolve_storage(storage)
+    _LAST["ell_lap_matvec_local"] = {"path": path, "reason": reason,
+                                     "storage": storage}
+    if path == "torch":
+        return ell_lap_matvec_local_ref(
+            to_storage(X_rep, storage).float(), indices,
+            to_storage(weights, storage).float(), row0)
+    return ell_lap_matvec_local_cuda(to_storage(X_rep, storage),
+                                     indices.to(torch.int32).contiguous(),
+                                     to_storage(weights, storage), row0)
 
 
 def bh_interaction(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,

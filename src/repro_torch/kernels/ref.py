@@ -2,9 +2,10 @@
 
 Port of `repro/kernels/ref.py`.  `pairwise_terms_ref` materializes the
 N x N pair matrices and is the plain version beside csrc/pairwise.cu;
-`ell_lap_matvec_ref` is the plain version beside csrc/ell.cu and
-`bh_interaction_ref` the one beside csrc/farfield.cu.  Each is the CPU path
-of its `ops` entry point and the yardstick its kernel is held to.
+`ell_lap_matvec_ref` and `ell_lap_matvec_local_ref` are the plain versions
+beside csrc/ell.cu and `bh_interaction_ref` the one beside
+csrc/farfield.cu.  Each is the CPU path of its `ops` entry point and the
+yardstick its kernel is held to.
 
 Unified contract — for X (N, d), attractive weights Wa, repulsive weights
 Wb (both symmetric, zero diagonal):
@@ -56,6 +57,33 @@ def ell_lap_matvec_ref(X: torch.Tensor, indices: torch.Tensor,
     n, w = 0) contributes exactly zero; duplicate columns sum."""
     deg = torch.sum(weights, dim=-1, keepdim=True)
     return deg * X - torch.einsum("nk,nkd->nd", weights, X[indices])
+
+
+def check_local_rows(n_x: int, nb: int, row0: int) -> None:
+    """Raise unless rows [row0, row0 + nb) of an (n_x, d) X exist: the row
+    range of the local-rows contract (`ell_lap_matvec_local_ref`)."""
+    if not 1 <= nb <= n_x:
+        raise ValueError(f"the local graph has {nb} rows; it must have 1 to "
+                         f"n_x = {n_x} (the replicated X's rows)")
+    if not 0 <= row0 <= n_x - nb:
+        raise ValueError(f"row0 = {row0} must lie in [0, n_x - nb] = "
+                         f"[0, {n_x - nb}] (n_x = {n_x}, nb = {nb})")
+
+
+def ell_lap_matvec_local_ref(X_rep: torch.Tensor, indices: torch.Tensor,
+                             weights: torch.Tensor, row0: int
+                             ) -> torch.Tensor:
+    """Rows [row0, row0 + nb) of `ell_lap_matvec_ref` (the contract of the
+    local-rows kernel of csrc/ell.cu): for a replicated X_rep (n_x, d) and
+    one shard's graph rows, indices (nb, k) with global column ids and
+    weights (nb, k),
+
+        out_r = (sum_j w_rj) x_{row0 + r} - sum_j w_rj x_{i_rj}."""
+    nb = indices.shape[0]
+    check_local_rows(X_rep.shape[0], nb, row0)
+    deg = torch.sum(weights, dim=-1, keepdim=True)
+    return (deg * X_rep[row0:row0 + nb]
+            - torch.einsum("nk,nkd->nd", weights, X_rep[indices]))
 
 
 def negative_pair_terms(kind: str, t: torch.Tensor

@@ -1,15 +1,17 @@
-"""Wrapper of the CUDA ELL Laplacian kernels (csrc/ell.cu).
+"""Wrappers of the CUDA ELL Laplacian kernels (csrc/ell.cu).
 
 `ell_lap_matvec_cuda` is the port of `repro/kernels/sparse_attractive.py`'s
 `ell_lap_matvec_pallas` (layout ``"vmem"``) and `ell_lap_matvec_pallas_hbm`
 (layout ``"hbm"``): the contract of `ref.ell_lap_matvec_ref`, computed by a
-hand-written Hopper kernel.  It takes CUDA tensors only and launches the
-kernel or raises; the CPU path and the choice between the two live in
-`ops.ell_lap_matvec`.
+hand-written Hopper kernel.  `ell_lap_matvec_local_cuda` is the port of
+`ell_lap_matvec_local_pallas`: the contract of `ref.ell_lap_matvec_local_ref`
+(one shard's rows against a replicated X), the row-sharded backend's
+product.  Both take CUDA tensors only and launch the kernel or raise; the
+CPU path lives in `ops.ell_lap_matvec` and `ops.ell_lap_matvec_local`.
 
-`launch_counts["ell_lap_matvec_vmem"]` and `["ell_lap_matvec_hbm"]` grow by
-one for every launch of that layout, so a run can show that its main path
-went through the kernel.
+`launch_counts["ell_lap_matvec_vmem"]`, `["ell_lap_matvec_hbm"]` and
+`["ell_lap_matvec_local"]` grow by one for every launch of that kernel, so a
+run can show that its main path went through it.
 """
 from __future__ import annotations
 
@@ -18,12 +20,13 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import check_local_rows
 
 LAYOUTS = ("vmem", "hbm")
 
 #: kernel launches in this process, by kernel name
 launch_counts: dict[str, int] = {f"ell_lap_matvec_{lay}": 0
-                                 for lay in LAYOUTS}
+                                 for lay in (*LAYOUTS, "local")}
 
 STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,21 +44,30 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("ell")
         fn = lib.ell_lap_matvec_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.ell_lap_matvec_local_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _check(X: torch.Tensor, indices: torch.Tensor,
-           weights: torch.Tensor) -> None:
+def _check(X: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor,
+           n_rows: int | None = None, fn: str = "ell_lap_matvec") -> None:
+    """Device, layout and type checks; `indices` must have `n_rows` rows
+    (default: X's)."""
+    n_rows = X.shape[0] if n_rows is None else n_rows
     for name, t in (("X", X), ("indices", indices), ("weights", weights)):
         if not t.is_cuda:
             raise ValueError(
-                f"ell_lap_matvec_cuda needs CUDA tensors; {name} is on "
-                f"{t.device} (ops.ell_lap_matvec runs the oracle on CPU)")
+                f"{fn}_cuda needs CUDA tensors; {name} is on {t.device} "
+                f"(ops.{fn} runs the oracle on CPU)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -74,9 +86,9 @@ def _check(X: torch.Tensor, indices: torch.Tensor,
     if X.dim() != 2 or X.shape[0] < 1 or X.shape[1] < 1:
         raise ValueError(f"X must be (N, d) with N, d >= 1, got "
                          f"{tuple(X.shape)}")
-    if (indices.dim() != 2 or indices.shape[0] != X.shape[0]
+    if (indices.dim() != 2 or indices.shape[0] != n_rows
             or indices.shape[1] < 1):
-        raise ValueError(f"indices must be ({X.shape[0]}, k) with k >= 1, "
+        raise ValueError(f"indices must be ({n_rows}, k) with k >= 1, "
                          f"got {tuple(indices.shape)}")
     if tuple(weights.shape) != tuple(indices.shape):
         raise ValueError(f"weights must match indices' shape "
@@ -101,7 +113,7 @@ def ell_lap_matvec_cuda(X: torch.Tensor, indices: torch.Tensor,
     out = torch.empty((n, d), dtype=torch.float32, device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     status = lib.ell_lap_matvec_launch(
-        X.data_ptr(), indices.data_ptr(), weights.data_ptr(), n, d, k, 0, n,
+        X.data_ptr(), indices.data_ptr(), weights.data_ptr(), n, d, k,
         STORAGE[X.dtype], LAYOUTS.index(layout), out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(
@@ -110,4 +122,39 @@ def ell_lap_matvec_cuda(X: torch.Tensor, indices: torch.Tensor,
             f"stages 2 x rows-a-chunk x k neighbour rows in shared memory "
             f"and refuses a k too wide for it)")
     launch_counts[f"ell_lap_matvec_{layout}"] += 1
+    return out
+
+
+def ell_lap_matvec_local_cuda(X_rep: torch.Tensor, indices: torch.Tensor,
+                              weights: torch.Tensor, row0: int
+                              ) -> torch.Tensor:
+    """Rows [row0, row0 + nb) of L(A) X (ref.ell_lap_matvec_local_ref
+    contract) by the local-rows CUDA kernel.
+
+    X_rep (n_x, d), the replicated X, and weights (nb, k): contiguous CUDA
+    tensors of one storage dtype (float32 or bfloat16); indices (nb, k)
+    int32, global ids in [0, n_x), unchecked as in `ell_lap_matvec_cuda`
+    (the sharded backend checks its graph once, in
+    `sparse.sharding.shard_sparse_affinities`); 1 <= nb <= n_x and
+    0 <= row0 <= n_x - nb.  Returns float32 (nb, d), enqueued on the
+    current stream."""
+    if indices.dim() != 2:
+        raise ValueError(f"indices must be (nb, k), got "
+                         f"{tuple(indices.shape)}")
+    nb = indices.shape[0]
+    _check(X_rep, indices, weights, n_rows=nb, fn="ell_lap_matvec_local")
+    n_x, d = X_rep.shape
+    check_local_rows(n_x, nb, row0)
+    k = indices.shape[1]
+    lib = _lib()
+    out = torch.empty((nb, d), dtype=torch.float32, device=X_rep.device)
+    stream = torch.cuda.current_stream(X_rep.device).cuda_stream
+    status = lib.ell_lap_matvec_local_launch(
+        X_rep.data_ptr(), indices.data_ptr(), weights.data_ptr(), n_x, d, k,
+        row0, nb, STORAGE[X_rep.dtype], out.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(
+            f"ell_lap_matvec_local kernel launch failed: CUDA error {status} "
+            f"(n_x={n_x}, nb={nb}, row0={row0}, d={d}, k={k})")
+    launch_counts["ell_lap_matvec_local"] += 1
     return out

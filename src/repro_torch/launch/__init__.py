@@ -1,0 +1,4 @@
+# Process-group meshes for the multi-GPU backends (launch/mesh.py).
+from .mesh import Mesh, linear_row_index, make_host_mesh, world_size
+
+__all__ = ["Mesh", "linear_row_index", "make_host_mesh", "world_size"]

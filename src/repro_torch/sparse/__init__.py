@@ -4,8 +4,9 @@
 # directed Laplacian gathers run on the CUDA kernel of kernels/csrc/ell.cu.
 # The deterministic Barnes-Hut far field (farfield.py) is the repulsive side
 # of the tree backend; its cell interaction runs on kernels/csrc/farfield.cu.
-# Port of repro.sparse for the single-device backends (the row-sharded
-# backend is not ported yet).
+# The row-sharded backend (sharding.py) splits the graph's rows over the
+# ranks of a torch.distributed process group; its local-rows products run on
+# the local-rows kernel of kernels/csrc/ell.cu.  Port of repro.sparse.
 from .farfield import (
     GridPlan,
     energy_and_grad_tree,
@@ -37,6 +38,13 @@ from .linalg import (
     sym_lap_matvec,
     sym_matvec,
 )
+from .sharding import (
+    ShardedSparseGraph,
+    make_sharded_energy_grad,
+    make_sharded_sd_operator,
+    shard_sparse_affinities,
+    validate_sparse_mesh,
+)
 
 __all__ = [
     "NeighborGraph", "SparseAffinities", "calibrated_weights_ell",
@@ -47,4 +55,6 @@ __all__ = [
     "sym_lap_matvec", "sym_matvec",
     "GridPlan", "make_grid_plan", "tree_repulsion", "energy_and_grad_tree",
     "tree_diagnostics",
+    "ShardedSparseGraph", "validate_sparse_mesh", "shard_sparse_affinities",
+    "make_sharded_energy_grad", "make_sharded_sd_operator",
 ]

@@ -147,7 +147,7 @@ def test_spec_validation_and_unported_options():
     with pytest.raises(ValueError, match="registered strategies"):
         EmbedSpec(strategy="sd-")
     with pytest.raises(ValueError, match="registered backends"):
-        EmbedSpec(backend="sparse-sharded")
+        EmbedSpec(backend="dense-mesh")           # not ported yet
     with pytest.raises(ValueError, match="kernel_impl"):
         EmbedSpec(kernel_impl="pallas")
     with pytest.raises(ValueError, match="kernel_precision"):

@@ -1,8 +1,8 @@
 """The port (src/repro_torch) imports neither JAX nor the JAX package.
 
-Checked twice: statically, over every import statement of every module, and
-at run time, by importing every module in a fresh interpreter and looking at
-`sys.modules`.
+Checked twice: statically, over every import statement of every module and
+of `chip_smoke.py` (the port's GPU smoke run), and at run time, by importing
+every module in a fresh interpreter and looking at `sys.modules`.
 """
 import ast
 import os
@@ -12,7 +12,8 @@ from pathlib import Path
 
 import pytest
 
-PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -33,8 +34,10 @@ def _imported_roots(path: Path):
             yield node.lineno, "import_module"
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PORT)))
+@pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")),
+                                  ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(PORT))
+                         if p.is_relative_to(PORT) else p.name)
 def test_module_imports_no_jax_and_no_repro(path):
     bad = [(line, root) for line, root in _imported_roots(path)
            if root in FORBIDDEN or root in ("__import__", "import_module")]

@@ -14,7 +14,9 @@ sum(a) x_n - sum(a x_m) cancels digits that the kernel keeps), with the
 Epanechnikov support-edge slack of `_epan_slack`.  The ELL kernels (both
 layouts) are held at the tolerance of tests/test_sparse_kernel.py (rtol
 5e-5, atol 5e-5 max|.|), against the float64 oracle on the same
-storage-rounded inputs.  The Barnes-Hut cell-interaction kernel is held at
+storage-rounded inputs; the local-rows ELL kernel of the sharded backend
+likewise, against the rows of its plain version.  The Barnes-Hut
+cell-interaction kernel is held at
 the tolerance of tests/test_farfield.py:192-195 (rtol 5e-5) with an
 absolute part of 5e-5 max|.| plus 5e-5 sum_j |w b (x_n - c_j)| for the
 entries that cancel, against the float64 oracle on the same storage-rounded
@@ -198,11 +200,108 @@ def test_cuda_sparse_fit_launches_follow_impl_and_layout(cuda_device):
         ell_layout="hbm")
     E, G = obj.energy_and_grad(X0, (spec.seed + 1, 0))
     assert sparse_attractive.launch_counts == {"ell_lap_matvec_vmem": 2,
-                                               "ell_lap_matvec_hbm": 0}
+                                               "ell_lap_matvec_hbm": 0,
+                                               "ell_lap_matvec_local": 0}
     solve, P0 = obj.make_direction_solver()
     solve(P0, X0, G)
     assert sparse_attractive.launch_counts["ell_lap_matvec_hbm"] >= 2
     assert sparse_attractive.launch_counts["ell_lap_matvec_vmem"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_ell_local_kernel_matches_oracle(cuda_device, storage):
+    """The local-rows kernel on the first, a middle and the last shard of a
+    three-way row split, and a ragged shard (nb not a multiple of 8, row0
+    not a multiple of any tile), d = 1..3: one launch a call, the rows of
+    the float64 plain version, padding rows exactly 0, reruns
+    bit-identical."""
+    name = "ell_lap_matvec_local"
+    for d in (1, 2, 3):
+        X, idx, w = _ell_graph(d, 300, 24, d, cuda_device)
+        want_all = ref.ell_lap_matvec_ref(
+            ops.to_storage(X, storage).double(), idx,
+            ops.to_storage(w, storage).double())
+        for row0, nb in [(0, 100), (100, 100), (200, 100), (3, 77)]:
+            rows = slice(row0, row0 + nb)
+            before = sparse_attractive.launch_counts[name]
+            got = ops.ell_lap_matvec_local(X, idx[rows], w[rows], row0,
+                                           storage=storage)
+            torch.cuda.synchronize()
+            assert sparse_attractive.launch_counts[name] == before + 1
+            assert ops.last_dispatch(name)["path"] == "kernel"
+            want = want_all[rows]
+            err = (got.double() - want).abs()
+            tol = TOL * want.abs().max() + TOL * want.abs()
+            assert bool(torch.all(err <= tol)), (d, row0, float(err.max()))
+            if row0 <= 3 < row0 + nb:
+                assert bool(torch.all(got[3 - row0] == 0))
+            again = ops.ell_lap_matvec_local(X, idx[rows], w[rows], row0,
+                                             storage=storage)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_ell_local_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.sparse_attractive import (
+        ell_lap_matvec_local_cuda)
+
+    X, idx, w = _ell_graph(0, 64, 8, 2, cuda_device)
+    li, lw = idx[:16].clone(), w[:16].clone()
+    with pytest.raises(ValueError, match=r"row0 = 49 must lie in"):
+        ell_lap_matvec_local_cuda(X, li, lw, 49)
+    with pytest.raises(ValueError, match="row0 = -1"):
+        ell_lap_matvec_local_cuda(X, li, lw, -1)
+    with pytest.raises(ValueError, match="1 to n_x = 8"):
+        ell_lap_matvec_local_cuda(X[:8].clone(), li, lw, 0)
+    with pytest.raises(ValueError, match="weights must match"):
+        ell_lap_matvec_local_cuda(X, li, lw[:8].clone(), 0)
+    with pytest.raises(TypeError, match="int32"):
+        ell_lap_matvec_local_cuda(X, li.long(), lw, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_lap_matvec_local_cuda(X.cpu(), li, lw, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_fit_launches_the_local_kernel(cuda_device, tmp_path):
+    """A one-rank NCCL group: the sparse-sharded fit runs its gradient and
+    CG products on the local-rows kernel only, its trace is the
+    single-device sparse fit's at rtol 1e-4 (mu_scale = 1e-3), and
+    kernel_impl="torch" launches no kernel."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.api import Embedding, EmbedSpec
+
+    rng = np.random.default_rng(0)
+    Y = rng.normal(size=(300, 8)).astype(np.float32)
+    spec = EmbedSpec(kind="tsne", lam=1.0, backend="sparse-sharded",
+                     perplexity=5.0, n_neighbors=15, max_iters=3, tol=0.0,
+                     mu_scale=1e-3)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        sparse_attractive.reset_launch_counts()
+        emb = Embedding(spec, device=cuda_device).fit(Y)
+        counts = dict(sparse_attractive.launch_counts)
+        assert emb.backend_ == "sparse-sharded"
+        assert counts["ell_lap_matvec_local"] > 0
+        assert counts["ell_lap_matvec_vmem"] == counts["ell_lap_matvec_hbm"] == 0
+        single = Embedding(spec.replace(backend="sparse"),
+                           device=cuda_device).fit(None, X0=emb.X0_,
+                                                   saff=emb.affinities_)
+        np.testing.assert_allclose(emb.result_.energies,
+                                   single.result_.energies, rtol=1e-4)
+        sparse_attractive.reset_launch_counts()
+        plain = Embedding(spec.replace(kernel_impl="torch"),
+                          device=cuda_device).fit(Y)
+        assert not any(sparse_attractive.launch_counts.values())
+        np.testing.assert_allclose(plain.result_.energies,
+                                   emb.result_.energies, rtol=1e-4)
+    finally:
+        dist.destroy_process_group()
 
 
 def _bh_batch(seed: int, n: int, width: int, m: int, d: int, device):

@@ -392,5 +392,6 @@ def test_sparse_backend_rejects_what_it_cannot_take():
         Embedding(spec.replace(backend="dense"), device="cpu").fit(
             None, saff=ps)
     from repro_torch.embed.trainer import build_sparse_objective
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ValueError, match="sparse-sharded backend needs a "
+                                         "mesh"):
         build_sparse_objective(spec, saff=ps, sharded=True, device="cpu")
