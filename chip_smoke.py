@@ -12,9 +12,11 @@ Phases, each printing one line (or a few) and failing the run on error:
               the pairwise kernel for all five kinds, float32 and bfloat16
               storage, ragged and aligned N (one column tile and several),
               several d; the ELL kernel in both layouts, float32 and
-              bfloat16, N in {1000, 4096, 4097}, k in {1, 24, 90, 386}, d in
-              {1, 2, 3, 8}, with padding slots, all-padding rows and a
-              repeated column.  Reruns must be bit-identical.
+              bfloat16, N in {1000, 4096, 4097}, k in {1, 24, 40, 90, 229,
+              386} (every lane-slot bucket of the direct gather and its
+              passes of 256 slots), d in {1, 2, 3, 4, 8}, with padding
+              slots, all-padding rows and a repeated column.  Reruns must
+              be bit-identical.
   4. fit    — slice 1's main path at full width: `Embedding(EmbedSpec(
               backend="dense", strategy="sd"))` on MNIST-shaped data
               (N = 20000, D = 784, perplexity 30), EE (lambda = 100,
@@ -47,7 +49,12 @@ Phases, each printing one line (or a few) and failing the run on error:
               float32 and bfloat16: device time by CUDA-graph replay and
               eager time, the memory bound, the plain version and
               torch.sparse.mm on the CSR Laplacian (both eager); each
-              call held against the float64 plain version.
+              call held against the float64 plain version.  Beside the
+              vmem time, the gathers N k and their L2 sectors (N k x 32
+              bytes); on the EE forward graph, the vmem kernel again with
+              every index set to its own row (the graph streamed, no
+              scattered gather) and folded into rows [0, 1024) (every
+              gather an L1 hit): what the gathers cost.
   9. profile_sparse — three sparse t-SNE SD iterations under
               torch.profiler: device time by kernel and the idle share.
  10. check_bh — the Barnes-Hut cell-interaction kernel against its float64
@@ -113,9 +120,10 @@ Phases, each printing one line (or a few) and failing the run on error:
               float32 and bfloat16: device time by CUDA-graph replay and
               eager time, the byte bound, the plain version and
               torch.sparse.mm on the shard's CSR Laplacian rows, each call
-              held against the float64 plain version; then the NCCL
-              all-gather that re-replicates the (N, 2) slab, beside a
-              zero-filled slab's all_reduce.
+              held against the float64 plain version, and the gathers nb k
+              with their L2 sectors; then the NCCL all-gather that
+              re-replicates the (N, 2) slab, beside a zero-filled slab's
+              all_reduce.
  18. profile_sharded — three one-rank sharded t-SNE SD iterations under
               torch.profiler: device time by kernel, the idle share and the
               NCCL collectives' time a CG matvec.
@@ -535,7 +543,7 @@ def phase_time(data: dict) -> dict:
             out[kind, storage] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "max_abs_err": lap_err}
+                "library_ms": None, "max_abs_err": lap_err}
             say("time", f"  {kind:4s} {storage} on the {fit} fit: kernel "
                         f"{ms:.3f} ms on the device "
                         f"({t_bytes / ms * 100:.0f}% of the memory bound; "
@@ -658,8 +666,8 @@ def phase_check_ell() -> None:
     n_ok = 0
     worst = 0.0
     for n in (1000, 4096, 4097):
-        for k in (1, 24, 90, 386):
-            for d in (1, 2, 3, 8):
+        for k in (1, 24, 40, 90, 229, 386):
+            for d in (1, 2, 3, 4, 8):
                 X, idx, w = ell_problem(n, k, d, seed=n + 7 * k + d,
                                         device="cuda")
                 for storage in ("float32", "bfloat16"):
@@ -686,7 +694,8 @@ def phase_check_ell() -> None:
                         worst = max(worst, ratio)
                         n_ok += 1
     say("check", f"ELL: {n_ok} cases (N in 1000/4096/4097 x k in "
-                 f"1/24/90/386 x d in 1/2/3/8 x f32/bf16 x vmem/hbm, with "
+                 f"1/24/40/90/229/386 x d in 1/2/3/4/8 x f32/bf16 x "
+                 f"vmem/hbm, with "
                  f"padding slots, all-padding rows and a repeated column) "
                  f"match the float64 plain version, reruns bit-identical, "
                  f"padding rows exactly 0; worst error at {worst:.2f} of its "
@@ -809,6 +818,33 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
     return out
 
 
+SECTOR_BYTES = 32    # L2 to SM: one sector for every gather that misses L1
+
+
+def _gather_line(n_rows: int, k: int, w, ms: float) -> str:
+    """The direct gather's second yardstick beside the byte bound, printed
+    only: one gathered row a slot, N k of them (padding slots of a row,
+    w = 0 and the row's own index, share one line), each a 32-byte L2
+    sector when it misses L1.  A count from the shapes and a model, not a
+    measurement, so it stays out of the `kernels` line."""
+    n_g = n_rows * k
+    sectors = n_g * SECTOR_BYTES
+    real = int((w != 0).sum())
+    return (f"gathers N k = {n_g} ({real} with w != 0), their L2 sectors "
+            f"{sectors / 1e6:.1f} MB: {sectors / (ms * 1e-3) / 1e12:.2f} "
+            f"TB/s if every gather missed L1")
+
+
+#: what a `kernels` entry takes from a timing dict: numbers measured in
+#: this run, and the bound computed from its inputs
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def kernel_numbers(t: dict) -> dict:
+    return {key: t[key] for key in KERNEL_KEYS}
+
+
 def _laplacian_csr(g):
     """L = diag(sum_j w_nj) - A as one CSR matrix (the library yardstick)."""
     n, k = g.indices.shape
@@ -886,6 +922,28 @@ def phase_time_ell(fits: dict) -> dict:
                                     f" us (its err {lib_err:.2e}); max abs "
                                     f"err {err:.2e} at {ratio:.2f} of its "
                                     f"bound")
+                    if layout != "vmem":
+                        continue
+                    say("time_ell", f"  vmem: "
+                                    f"{_gather_line(n, k, g.weights, ms)}")
+                    if (kind, gname) == ("ee", "forward"):
+                        own = torch.arange(n, dtype=torch.int32,
+                                           device=X.device)[:, None].expand(
+                                               n, k).contiguous()
+                        near = g.indices & 1023
+                        own_ms = graph_ms(lambda: ell_lap_matvec_cuda(
+                            Xs, own, ws))
+                        near_ms = graph_ms(lambda: ell_lap_matvec_cuda(
+                            Xs, near, ws))
+                        say("time_ell", f"  vmem, the same weights with "
+                                        f"every index its own row (the "
+                                        f"graph streamed, no scattered "
+                                        f"gather): {own_ms * 1e3:.1f} us "
+                                        f"({bound_ms / own_ms * 100:.0f}% of"
+                                        f" the bound); every index folded "
+                                        f"into rows [0, 1024) (each gather "
+                                        f"an L1 hit): {near_ms * 1e3:.1f} "
+                                        f"us")
     return out
 
 
@@ -1833,6 +1891,7 @@ def phase_time_ell_local(sharded: dict) -> dict:
                                       f"{lib_err:.2e}); max abs err "
                                       f"{err:.2e} at {ratio:.2f} of its "
                                       f"bound")
+                say("time_ell_local", f"  {_gather_line(nb, k, w, ms)}")
     from repro_torch.sparse.sharding import (_replicate_rows,
                                              shard_sparse_affinities)
 
@@ -1964,10 +2023,7 @@ def main() -> int:
         "name": "pairwise_terms", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise.cu",
         "replaces": "src/repro/kernels/pairwise.py:131",
-        "launches": fit_launches,
-        "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": None}]
+        "launches": fit_launches, **kernel_numbers(f32)}]
     # the ELL kernels at the wider of the main path's two graphs: the EE
     # fit's reverse graph, float32.  vmem's launches are the two default
     # fits'; hbm's come from the EE fit with its CG operator on that layout
@@ -1985,7 +2041,8 @@ def main() -> int:
             "name": f"ell_lap_matvec_{layout}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ell.cu",
             "replaces": f"src/repro/kernels/sparse_attractive.py:{line}",
-            "launches": n_launch, "launches_from": origin, **t})
+            "launches": n_launch, "launches_from": origin,
+            **kernel_numbers(t)})
     # the cell-interaction kernel at its widest batch: a near chunk
     # (W = 128, table = X) on the t-SNE tree fit's embedding, float32
     if tree["launches"] < 1:
@@ -1997,7 +2054,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/farfield.py:97",
         "launches": tree["launches"],
         "launches_from": "the default EE and t-SNE tree fits",
-        **timing_bh["near chunk", "float32"]})
+        **kernel_numbers(timing_bh["near chunk", "float32"])})
     # the local-rows kernel at the main path's shape on this one card (one
     # rank, nb = N) on the EE fit's reverse graph, float32, as rows 2 and 3
     if sharded["launches"] < 1:
@@ -2009,7 +2066,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/sparse_attractive.py:241",
         "launches": sharded["launches"],
         "launches_from": "the one-rank EE and t-SNE sparse-sharded fits",
-        **timing_local["reverse", N_SPARSE, "float32"]})
+        **kernel_numbers(timing_local["reverse", N_SPARSE, "float32"])})
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,25 +26,56 @@
 // are float32 or bfloat16 (widened to f32 after the gather); sums and the
 // output are float32.
 //
-// Bound on an H100 SXM (3.35 TB/s; ~3 flops a slot a dimension): memory.
-// The least traffic is the graph streamed once, N k (4 + s_w) bytes, plus X
-// read once and the output written once, N d (s_x + 4) bytes; the gathered
-// rows x_{idx} come from L2, which holds X whole at the sizes the sparse
-// backend runs (N = 70000, d = 2 is 0.56 MB of the 50 MB L2).  At N = 70000,
-// k = 90 in f32 that is 51.5 MB, ~15 us a call; the local-rows kernel over
-// half the rows streams half the graph, ~26 MB, ~7.8 us.  The design
-// follows:
+// Bound on an H100 SXM (3.35 TB/s; ~3 flops a slot a dimension): memory,
+// in two places.
+//   * DRAM bytes.  The least traffic is the graph streamed once, N k
+//     (4 + s_w) bytes, plus X read once and the output written once,
+//     N d (s_x + 4) bytes; X itself stays in the 50 MB L2 at the sizes the
+//     sparse backend runs (N = 70000, d = 2 is 0.56 MB).  At N = 70000,
+//     k = 90 in f32 that is 51.5 MB, ~15 us a call; the local-rows kernel
+//     over half the rows streams half the graph, ~26 MB, ~7.8 us.
+//   * The gathers.  Each slot gathers a row x_m of X at a random m (the
+//     neighbours of a row share few lines with those of the next), so a
+//     warp's gather touches up to 32 distinct 128-byte lines, and every one
+//     that misses L1 moves a 32-byte L2 sector: N k gathers, N k 32 bytes of
+//     L2-to-SM traffic (6.3 M and 202 MB at N = 70000, k = 90), and L1 time
+//     in proportion to the lines a load instruction touches.  Padding slots
+//     (self, w = 0) of one row hit one line.
+// The design follows:
 //
-//   * "vmem" and the local-rows kernel (direct gather).  A group of S lanes
-//     owns one row: a whole warp for k > 16, else 32 / S rows a warp so that
-//     short rows keep the lanes busy.  Lanes stride over the row's slots, so
-//     idx and w stream in coalesced, evict-first loads; each lane gathers
-//     x_{idx} through the read-only path (L1, then L2) and keeps the degree
-//     and D gathered sums in registers.  The group reduces them with a fixed
-//     butterfly of shuffles, and one lane writes the row.  Both kernels run
-//     the one body (`gather_rows`), as the TPU's local kernel runs
-//     `_ell_kernel`; they are separate kernels so that a profile tells the
-//     sharded backend's launches from the single-device ones.
+//   * "vmem" and the local-rows kernel (direct gather, `gather_rows`).  A
+//     group of S lanes owns one row: a whole warp for k > 16, else 32 / S
+//     rows a warp so that short rows keep the lanes busy.  Lane l takes
+//     slots l, l + S, ... and holds P = ceil(k / S) of them a pass (a
+//     template bucket: 1, 2, 4 or 8; rows wider than 256 slots take passes
+//     of 8).  It loads all of a pass's indices and weights first, in
+//     coalesced evict-first loads, then issues all its gathers, then adds:
+//     no gather waits on an index load behind another gather, so each lane
+//     has P index pairs, then P gathers, in flight.  A gathered row of width
+//     2 or 4 is one vector load through the read-only path (a float2 or
+//     float4 in f32, a 4- or 8-byte word in bf16), one load instruction a
+//     gather at the paper's d = 2 where there were two.  The group reduces
+//     the degree and D sums with a fixed butterfly of shuffles and one lane
+//     writes the row.  Both kernels run the one body, as the TPU's local
+//     kernel runs `_ell_kernel`; they are separate kernels so that a
+//     profile tells the sharded backend's launches from the single-device
+//     ones.  On an H100 80GB HBM3 at 700 W, f32, N = 70000, the vector load
+//     alone (a loop of one slot a step) takes the forward graph (k = 90)
+//     from 57.0 to 55.3 us and the reverse (k = 229) not at all (82.5 us);
+//     the buckets take them on to 53.5 and 67.1 us.  Registers (ptxas -v,
+//     -O3, sm_90a; the build log beside the library): at the main path's
+//     d = 2 in f32, 46 for P = 4 (k = 90, 40 warps an SM) and 64 for P = 8
+//     (k = 229, 32 warps); 20-64 over the 140 instantiations, none
+//     spilling.  __launch_bounds__ caps them at 64, so that at least 32
+//     warps an SM stay resident; a lower cap spills at P = 8, and gathering
+//     P = 8 in two register passes of 4 was slower on the card.  What is
+//     left is the gathers that miss L1 and wait on L2 (its latency or its
+//     sector traffic; the card's counters cannot be read to tell which):
+//     the forward graph takes ~53 us in f32, and ~24 us when every gather
+//     hits L1 (indices folded into 1024 rows) or the row's own line,
+//     against its 15.4 us byte bound.  Staging X in the distributed shared
+//     memory of a cluster of 2-8 blocks, gathered with ld.shared::cluster,
+//     was slower still.
 //   * "hbm" (staged gather).  A block walks its rows in chunks of one row a
 //     group.  The chunk's indices, then its k neighbour rows a row, are
 //     copied into a double-buffered shared-memory ring with cp.async: while
@@ -58,14 +89,16 @@
 //     are not word-aligned and are staged with plain loads (no overlap).
 //
 // Shared rules:
-//   * d is a template parameter for d <= 4 (the paper embeds in d = 2), so
-//     nothing is padded to 128 lanes as on the TPU; larger d runs four
-//     output dimensions a block along gridDim.y.
+//   * The direct gather takes d <= 4 as a template parameter (the paper
+//     embeds in d = 2), so nothing is padded to 128 lanes as on the TPU and
+//     no component is guarded; larger d runs four output dimensions a block
+//     along gridDim.y.  "hbm" takes D = min(d, 4) and guards each column.
 //   * The row is formed as the TPU kernel forms it, deg * x_n - acc, so the
 //     kernel and the plain version round alike.  A padding slot (self
 //     index, w = 0) adds exactly 0 to both sums; duplicate columns sum.
 //   * No float atomics: every row is summed by one group in a fixed order
-//     (strided slots, then the butterfly), so reruns are bit-identical.
+//     (slot j on lane j mod S in increasing j, then the butterfly; the
+//     bucket P does not change it), so reruns are bit-identical.
 //   * Indices must lie in [0, n_x); the kernels do not check them (the
 //     local-rows wrapper checks each index array once).
 //
@@ -80,6 +113,7 @@
 namespace {
 
 constexpr int kThreads = 256;          // "vmem": 8 warps a block
+constexpr int kMinBlocks = 4;          // so <= 64 registers a thread
 constexpr int kHbmThreads = 128;       // "hbm": 4 warps a block
 constexpr int kHbmChunks = 8;          // chunks a block walks
 constexpr int kMaxSmem = 232448;       // dynamic shared memory a block may use
@@ -126,17 +160,60 @@ __device__ __forceinline__ void write_row(const T* __restrict__ X, int d,
     if (c0 + c < d) o[c] = deg * widen(__ldg(xn + c)) - acc[c];
 }
 
+// One gathered row x_m (D columns from c0) into v, widened to f32.  kSplit:
+// d > 4, so D = 4 columns from c0 = 4 blockIdx.y, scalar loads behind a
+// guard (v is 0 past d).  Otherwise D is d, c0 is 0, and a row of width 2
+// or 4 is one vector load: a float2 or float4 in f32, a 4- or 8-byte word
+// of bf16 pairs (row m of a 16-byte aligned X is aligned to its width).
+template <typename T, int D, bool kSplit>
+__device__ __forceinline__ void load_row(const T* __restrict__ X, int m,
+                                         int d, int c0, float (&v)[D]) {
+  if constexpr (kSplit) {
+    const T* xm = X + static_cast<size_t>(m) * d + c0;
+#pragma unroll
+    for (int c = 0; c < D; ++c) v[c] = c0 + c < d ? widen(__ldg(xm + c)) : 0.f;
+  } else if constexpr (sizeof(T) == 4 && D == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(X) + m);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else if constexpr (sizeof(T) == 4 && D == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(X) + m);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else if constexpr (sizeof(T) == 2 && D == 2) {
+    const unsigned a = __ldg(reinterpret_cast<const unsigned*>(X) + m);
+    v[0] = __uint_as_float(a << 16);
+    v[1] = __uint_as_float(a & 0xffff0000u);
+  } else if constexpr (sizeof(T) == 2 && D == 4) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(X) + m);
+    v[0] = __uint_as_float(a.x << 16);
+    v[1] = __uint_as_float(a.x & 0xffff0000u);
+    v[2] = __uint_as_float(a.y << 16);
+    v[3] = __uint_as_float(a.y & 0xffff0000u);
+  } else {
+    const T* xm = X + static_cast<size_t>(m) * D;
+#pragma unroll
+    for (int c = 0; c < D; ++c) v[c] = widen(__ldg(xm + c));
+  }
+}
+
 // The direct gather, one group of S lanes a row: the body of "vmem" and of
-// the local-rows kernel.
-template <typename T, int D, int S>
+// the local-rows kernel.  Lane l holds slots j = l + p S, p < P, of each
+// pass of S P slots (one pass unless k > 256): it loads all their indices
+// and weights, then issues their gathers, G at a time (G D <= 16 values in
+// registers), then adds them in increasing j.
+template <typename T, int D, bool kSplit, int S, int P>
 __device__ __forceinline__ void gather_rows(const T* __restrict__ X,
                                             const int* __restrict__ idx,
                                             const T* __restrict__ w, int d,
                                             int k, int row0, int n_rows,
                                             float* __restrict__ out) {
+  constexpr int G = P * D <= 16 ? P : 4;
   const int lane = threadIdx.x % S;
   const int r = (blockIdx.x * kThreads + threadIdx.x) / S;
-  const int c0 = blockIdx.y * D;
+  const int c0 = kSplit ? blockIdx.y * D : 0;
   const bool live = r < n_rows;   // dead lanes still join the shuffles
   float deg = 0.f;
   float acc[D];
@@ -145,14 +222,33 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ X,
   if (live) {
     const int* ir = idx + static_cast<size_t>(r) * k;
     const T* wr = w + static_cast<size_t>(r) * k;
-    for (int j = lane; j < k; j += S) {
-      const int m = __ldcs(ir + j);
-      const float wj = widen(__ldcs(wr + j));
-      const T* xm = X + static_cast<size_t>(m) * d + c0;
-      deg += wj;
+#pragma unroll 1
+    for (int j0 = lane; j0 < k; j0 += S * P) {
+      int m[P];
+      T wv[P];
 #pragma unroll
-      for (int c = 0; c < D; ++c)
-        if (c0 + c < d) acc[c] += wj * widen(__ldg(xm + c));
+      for (int p = 0; p < P; ++p) {
+        const int j = j0 + p * S;
+        m[p] = j < k ? __ldcs(ir + j) : 0;
+        wv[p] = j < k ? __ldcs(wr + j) : T(0);
+      }
+#pragma unroll
+      for (int g = 0; g < P; g += G) {
+        float xv[G][D];
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+          if (j0 + (g + q) * S < k)
+            load_row<T, D, kSplit>(X, m[g + q], d, c0, xv[q]);
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          if (j0 + (g + q) * S < k) {
+            const float wj = widen(wv[g + q]);
+            deg += wj;
+#pragma unroll
+            for (int c = 0; c < D; ++c) acc[c] += wj * xv[q][c];
+          }
+        }
+      }
     }
   }
   group_reduce<D, S>(deg, acc);
@@ -160,21 +256,21 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ X,
 }
 
 // "vmem": every row of the graph (row0 = 0).
-template <typename T, int D, int S>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, bool kSplit, int S, int P>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
            const T* __restrict__ w, int d, int k, int n_rows,
            float* __restrict__ out) {
-  gather_rows<T, D, S>(X, idx, w, d, k, 0, n_rows, out);
+  gather_rows<T, D, kSplit, S, P>(X, idx, w, d, k, 0, n_rows, out);
 }
 
 // The local-rows kernel: rows [row0, row0 + n_rows) of X's graph.
-template <typename T, int D, int S>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, bool kSplit, int S, int P>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 ell_gather_local(const T* __restrict__ X, const int* __restrict__ idx,
                  const T* __restrict__ w, int d, int k, int row0, int n_rows,
                  float* __restrict__ out) {
-  gather_rows<T, D, S>(X, idx, w, d, k, row0, n_rows, out);
+  gather_rows<T, D, kSplit, S, P>(X, idx, w, d, k, row0, n_rows, out);
 }
 
 // "hbm": staged gather through a double-buffered shared-memory ring.
@@ -276,47 +372,70 @@ ell_gather_staged(const T* __restrict__ X, const int* __restrict__ idx,
 // layout: 0 "vmem", 1 "hbm", kLocal the local-rows kernel.
 constexpr int kLocal = 2;
 
-template <typename T, int D, int S>
-int launch(int layout, const T* X, const int* idx, const T* w, int d, int k,
-           int row0, int n_rows, float* out, cudaStream_t st) {
-  const int ychunks = (d + D - 1) / D;
-  if (layout == 0 || layout == kLocal) {
-    const dim3 grid(
-        static_cast<unsigned>((static_cast<long long>(n_rows) * S + kThreads - 1)
-                              / kThreads), ychunks);
-    if (layout == 0)
-      ell_gather<T, D, S><<<grid, kThreads, 0, st>>>(X, idx, w, d, k, n_rows,
-                                                     out);
-    else
-      ell_gather_local<T, D, S><<<grid, kThreads, 0, st>>>(X, idx, w, d, k,
-                                                           row0, n_rows, out);
-  } else {
-    constexpr int CH = kHbmThreads / S;
-    const size_t bytes = 2ull * CH * k * (sizeof(int) + D * sizeof(T));
-    if (bytes > static_cast<size_t>(kMaxSmem))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (bytes > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          ell_gather_staged<T, D, S>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const dim3 grid((n_rows + CH * kHbmChunks - 1) / (CH * kHbmChunks),
-                    ychunks);
-    ell_gather_staged<T, D, S><<<grid, kHbmThreads, bytes, st>>>(
+template <typename T, int D, bool kSplit, int S, int P>
+int launch_direct(int layout, const T* X, const int* idx, const T* w, int d,
+                  int k, int row0, int n_rows, float* out, cudaStream_t st) {
+  const dim3 grid(
+      static_cast<unsigned>((static_cast<long long>(n_rows) * S + kThreads - 1)
+                            / kThreads),
+      kSplit ? (d + D - 1) / D : 1);
+  if (layout == 0)
+    ell_gather<T, D, kSplit, S, P><<<grid, kThreads, 0, st>>>(X, idx, w, d, k,
+                                                              n_rows, out);
+  else
+    ell_gather_local<T, D, kSplit, S, P><<<grid, kThreads, 0, st>>>(
         X, idx, w, d, k, row0, n_rows, out);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// S: the lanes a row; a power of two >= k up to a warp, at least 4.
+// S, the lanes a row: a power of two >= k up to a warp, at least 4 (the
+// sum order of a row follows S, not P).  P, a lane's slots a pass:
+// ceil(k / S) rounded up to 1, 2, 4 or 8; wider rows take passes of 8.
+template <typename T, int D, bool kSplit>
+int launch_direct_k(int layout, const T* X, const int* idx, const T* w,
+                    int d, int k, int row0, int n_rows, float* out,
+                    cudaStream_t st) {
+#define ELL_DIRECT(S, P) \
+  launch_direct<T, D, kSplit, S, P>(layout, X, idx, w, d, k, row0, n_rows, \
+                                    out, st)
+  if (k <= 4) return ELL_DIRECT(4, 1);
+  if (k <= 8) return ELL_DIRECT(8, 1);
+  if (k <= 16) return ELL_DIRECT(16, 1);
+  if (k <= 32) return ELL_DIRECT(32, 1);
+  if (k <= 64) return ELL_DIRECT(32, 2);
+  if (k <= 128) return ELL_DIRECT(32, 4);
+  return ELL_DIRECT(32, 8);
+#undef ELL_DIRECT
+}
+
+template <typename T, int D, int S>
+int launch_staged(const T* X, const int* idx, const T* w, int d, int k,
+                  int row0, int n_rows, float* out, cudaStream_t st) {
+  constexpr int CH = kHbmThreads / S;
+  const size_t bytes = 2ull * CH * k * (sizeof(int) + D * sizeof(T));
+  if (bytes > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ell_gather_staged<T, D, S>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((n_rows + CH * kHbmChunks - 1) / (CH * kHbmChunks),
+                  (d + D - 1) / D);
+  ell_gather_staged<T, D, S><<<grid, kHbmThreads, bytes, st>>>(
+      X, idx, w, d, k, row0, n_rows, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// "hbm": S a power of two >= k up to a warp, at least 4.
 template <typename T, int D>
-int launch_s(int layout, const T* X, const int* idx, const T* w, int d, int k,
-             int row0, int n_rows, float* out, cudaStream_t st) {
-  if (k <= 4) return launch<T, D, 4>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-  if (k <= 8) return launch<T, D, 8>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-  if (k <= 16) return launch<T, D, 16>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-  return launch<T, D, 32>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+int launch_staged_k(const T* X, const int* idx, const T* w, int d, int k,
+                    int row0, int n_rows, float* out, cudaStream_t st) {
+  if (k <= 4) return launch_staged<T, D, 4>(X, idx, w, d, k, row0, n_rows, out, st);
+  if (k <= 8) return launch_staged<T, D, 8>(X, idx, w, d, k, row0, n_rows, out, st);
+  if (k <= 16) return launch_staged<T, D, 16>(X, idx, w, d, k, row0, n_rows, out, st);
+  return launch_staged<T, D, 32>(X, idx, w, d, k, row0, n_rows, out, st);
 }
 
 template <typename T>
@@ -324,11 +443,20 @@ int launch_d(int layout, const void* Xv, const int* idx, const void* wv, int d,
              int k, int row0, int n_rows, float* out, cudaStream_t st) {
   const T* X = static_cast<const T*>(Xv);
   const T* w = static_cast<const T*>(wv);
+  if (layout == 1) {
+    switch (d) {
+      case 1: return launch_staged_k<T, 1>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 2: return launch_staged_k<T, 2>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 3: return launch_staged_k<T, 3>(X, idx, w, d, k, row0, n_rows, out, st);
+      default: return launch_staged_k<T, 4>(X, idx, w, d, k, row0, n_rows, out, st);
+    }
+  }
   switch (d) {
-    case 1: return launch_s<T, 1>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    case 2: return launch_s<T, 2>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    case 3: return launch_s<T, 3>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    default: return launch_s<T, 4>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 1: return launch_direct_k<T, 1, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 2: return launch_direct_k<T, 2, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 3: return launch_direct_k<T, 3, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 4: return launch_direct_k<T, 4, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    default: return launch_direct_k<T, 4, true>(layout, X, idx, w, d, k, row0, n_rows, out, st);
   }
 }
 

@@ -121,15 +121,26 @@ def _ell_graph(seed: int, n: int, k: int, d: int, device):
     return (torch.from_numpy(a).to(device) for a in (X, idx, w))
 
 
+# Row widths that reach every lane-group size S (4, 8, 16, 32 lanes a row),
+# every bucket of slots a lane holds (1, 2, 4, 8) with its edges, and the
+# passes of 256 slots of wider rows (300)
+ELL_KS = (1, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33, 90, 229, 300)
+# d = 1..4 (a template each; 2 and 4 gather one vector a row) and the
+# generic d = 6 (four columns a block along gridDim.y)
+ELL_DS = (1, 2, 3, 4, 6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["vmem", "hbm"])
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 def test_cuda_ell_kernel_matches_oracle(cuda_device, layout, storage):
-    """Short and long rows (one to a warp and several), d = 1..3 and the
-    generic-d path, ragged N; one launch of the layout per call; padding
-    rows exactly 0; a rerun is bit-identical."""
+    """Short and long rows (several to a warp, one, and several passes), every
+    d template and the generic-d path, ragged N; one launch of the layout per
+    call; padding rows exactly 0; a rerun is bit-identical."""
     name = f"ell_lap_matvec_{layout}"
-    for n, k, d in [(300, 3, 2), (301, 24, 1), (257, 90, 3), (200, 40, 6)]:
+    cases = [(300, 3, 2), (301, 24, 1), (257, 90, 3), (200, 40, 6)]
+    cases += [(97 + 2 * k + d, k, d) for k in ELL_KS for d in ELL_DS]
+    for n, k, d in cases:
         X, idx, w = _ell_graph(n + k, n, k, d, cuda_device)
         want = ref.ell_lap_matvec_ref(ops.to_storage(X, storage).double(),
                                       idx,
@@ -142,7 +153,7 @@ def test_cuda_ell_kernel_matches_oracle(cuda_device, layout, storage):
         assert ops.last_dispatch("ell_lap_matvec")["layout"] == layout
         err = (got.double() - want).abs()
         tol = TOL * want.abs().max() + TOL * want.abs()
-        assert bool(torch.all(err <= tol)), float(err.max())
+        assert bool(torch.all(err <= tol)), (n, k, d, float(err.max()))
         assert bool(torch.all(got[3] == 0))
         again = ops.ell_lap_matvec(X, idx, w, layout=layout,
                                    storage_dtype=storage)
@@ -213,19 +224,29 @@ def test_cuda_sparse_fit_launches_follow_impl_and_layout(cuda_device):
 def test_cuda_ell_local_kernel_matches_oracle(cuda_device, storage):
     """The local-rows kernel on the first, a middle and the last shard of a
     three-way row split, and a ragged shard (nb not a multiple of 8, row0
-    not a multiple of any tile), d = 1..3: one launch a call, the rows of
-    the float64 plain version, padding rows exactly 0, reruns
-    bit-identical."""
+    not a multiple of any tile), at k = 24, d = 1..3, then the ragged shard
+    at every row width of `ELL_KS` and every d of `ELL_DS`: one launch a
+    call, the rows of the float64 plain version, padding rows exactly 0,
+    reruns bit-identical."""
     name = "ell_lap_matvec_local"
-    for d in (1, 2, 3):
-        X, idx, w = _ell_graph(d, 300, 24, d, cuda_device)
+    cases = [(d, 24, d, [(0, 100), (100, 100), (200, 100), (3, 77)])
+             for d in (1, 2, 3)]
+    cases += [(d + k, k, d, [(3, 77)]) for k in ELL_KS for d in ELL_DS]
+    for seed, k, d, shards in cases:
+        X, idx, w = _ell_graph(seed, 300, k, d, cuda_device)
         want_all = ref.ell_lap_matvec_ref(
             ops.to_storage(X, storage).double(), idx,
             ops.to_storage(w, storage).double())
-        for row0, nb in [(0, 100), (100, 100), (200, 100), (3, 77)]:
+        for row0, nb in shards:
             rows = slice(row0, row0 + nb)
+            # a row view of the graph where it is 16-byte aligned (k row0 a
+            # multiple of 4), else a shard of its own, as the sharded
+            # backend holds it
+            idx_l, w_l = idx[rows], w[rows]
+            if k * row0 % 4:
+                idx_l, w_l = idx_l.clone(), w_l.clone()
             before = sparse_attractive.launch_counts[name]
-            got = ops.ell_lap_matvec_local(X, idx[rows], w[rows], row0,
+            got = ops.ell_lap_matvec_local(X, idx_l, w_l, row0,
                                            storage=storage)
             torch.cuda.synchronize()
             assert sparse_attractive.launch_counts[name] == before + 1
@@ -233,10 +254,11 @@ def test_cuda_ell_local_kernel_matches_oracle(cuda_device, storage):
             want = want_all[rows]
             err = (got.double() - want).abs()
             tol = TOL * want.abs().max() + TOL * want.abs()
-            assert bool(torch.all(err <= tol)), (d, row0, float(err.max()))
+            assert bool(torch.all(err <= tol)), (k, d, row0,
+                                                 float(err.max()))
             if row0 <= 3 < row0 + nb:
                 assert bool(torch.all(got[3 - row0] == 0))
-            again = ops.ell_lap_matvec_local(X, idx[rows], w[rows], row0,
+            again = ops.ell_lap_matvec_local(X, idx_l, w_l, row0,
                                              storage=storage)
             assert torch.equal(got, again)
 
