@@ -68,30 +68,41 @@ Phases, each printing one line (or a few) and failing the run on error:
               kind=..., backend="tree", strategy="sd"))` on the N = 70000
               fits' affinities (`fit(saff=)`; theta = 0.5, depth 8, cap 16),
               EE (lambda = 100) and t-SNE (lambda = 1), ten iterations each.
-              The kernel must launch once per chunk of every batch of every
-              evaluation (12 an evaluation), the energies must be finite and
-              must not increase, and a second kernel run of three
-              iterations must be bit-identical; it prints the grid's
-              diagnostics.  The first three iterations must match, at the
+              The fused kernel (`bh_tree`) must launch once an evaluation and
+              the per-batch kernel (`bh_interaction`) never, the energies
+              must be finite and must not increase, and a second kernel run
+              of three iterations must be bit-identical; it prints the
+              grid's diagnostics.  A rerun of three iterations through the
+              per-batch kernel path (`_tree_repulsion_batched`, one launch a
+              chunk of every batch, 12 an evaluation) must give the same
+              bits.  The first three iterations must match, at the
               default mu_scale = 1e-5, a run with only the cell interaction
               on its plain version at rtol 1e-4, and a kernel_impl="torch"
               run (which launches no kernel) within 1e-3: there the
               near-singular SD system lets the order of the ELL products'
               float32 sums move the EE trajectory by ~2.2e-4 (PERF.md,
               Findings); at mu_scale = 1e-3 the kernel_impl="torch" run
-              must match at rtol 1e-4.  Then every kernel call of one
-              evaluation on each fit's embedding (EE: the exp
+              must match at rtol 1e-4.  Then every per-batch kernel call of
+              one evaluation on each fit's embedding (EE: the exp
               instantiation; t-SNE: 1/(1 + t)), float32 and bfloat16,
-              against the float64 plain version.
- 12. time_bh — the kernel at the tree's batch shapes on the t-SNE tree
-              fit's embedding (far level 8, W = 96; a near chunk, W = 128
-              with table = X; the residual, W = 25), float32 and bfloat16:
+              against the float64 plain version; and the fused kernel on
+              the same embedding, bit-equal to those calls' sums (every
+              batch's s row and F) and within the sum of their bounds of
+              the float64 plain version.
+ 12. time_bh — the per-batch kernel at the tree's batch shapes on the
+              t-SNE tree fit's embedding (far level 8, W = 96; a near
+              chunk, W = 128 with table = X; the residual, W = 25), and the
+              fused kernel over one whole evaluation, float32 and bfloat16:
               device time by CUDA-graph replay and the time of a call issued
-              eagerly, beside the byte bound and the plain version, each
-              call held against the float64 plain version; then one whole
-              tree_repulsion against its grid build alone.
+              eagerly, beside the bound (the per-batch calls' bytes; the
+              fused kernel's operations, counted from the window tests and
+              live slots this evaluation needs) and the plain version, each call held against the
+              float64 plain version; then one whole tree_repulsion through
+              the per-batch path (before) and the fused path (after),
+              against the grid state alone and the expansion alone.
  13. profile_tree — three tree t-SNE SD iterations under torch.profiler:
-              device time by kernel and the idle share.
+              device time by kernel, the fused kernel's line and the idle
+              share.
  14. check_ell_local — the local-rows ELL kernel of the sharded backend
               against its float64 plain version on the N = 70000 EE fit's
               forward (k = 90) and reverse graphs: rows [0, 70000) (one
@@ -1087,20 +1098,27 @@ def bh_compare(got, want, teeth=True) -> tuple[float, float, list]:
     toothless = []
     for name, g, w, tol, floor in (("s", got[0], s64, tol_s, floor_s),
                                    ("F", got[1], F64, tol_F, floor_F)):
-        e = (g.double() - w).abs()
-        if not bool(torch.all(e <= tol)):
-            raise AssertionError(f"{name}: max abs err {float(e.max()):.3e}")
-        held = w.abs() > floor
-        if not bool(held.any()):
-            toothless.append(f"{name}<floor")
-        elif bool(torch.all(w.abs()[held] <= tol[held])):
-            toothless.append(name)
-            if teeth:
-                raise AssertionError(f"{name}: the bound would pass an "
-                                     f"all-zero output")
-        err = max(err, float(e.max()))
-        ratio = max(ratio, float((e / tol).max()))
+        e, r = bh_held(name, g, w, tol, floor, teeth, toothless)
+        err, ratio = max(err, e), max(ratio, r)
     return err, ratio, toothless
+
+
+def bh_held(name, got, want, tol, floor, teeth, toothless
+            ) -> tuple[float, float]:
+    """One quantity of `bh_compare`: its max abs error and largest ratio to
+    the bound; appends to `toothless` as `bh_compare` says."""
+    e = (got.double() - want).abs()
+    if not bool(torch.all(e <= tol)):
+        raise AssertionError(f"{name}: max abs err {float(e.max()):.3e}")
+    held = want.abs() > floor
+    if not bool(held.any()):
+        toothless.append(f"{name}<floor")
+    elif bool(torch.all(want.abs()[held] <= tol[held])):
+        toothless.append(name)
+        if teeth:
+            raise AssertionError(f"{name}: the bound would pass an all-zero "
+                                 f"output")
+    return float(e.max()), float((e / tol).max())
 
 
 def phase_check_bh() -> None:
@@ -1164,12 +1182,48 @@ def phase_check_bh() -> None:
                     f"{float(diag['tree_theta_ratio']):.4f} <= 0.5")
 
 
+def bh_tree_plain64(X, batches, chunk, kind, storage) -> tuple:
+    """The float64 plain version of one whole evaluation, for the fused
+    kernel: per batch, its chunks' (s, bound, floor) of `bh_plain64` summed;
+    over the batches, F's (F, bound, floor) summed.  The fused kernel adds
+    the chunks' float32 sums as the per-batch path does, so the sum of the
+    chunks' bounds holds it."""
+    rows, F = [], None
+    for b in batches:
+        acc = None
+        for c0 in range(0, b.idx.shape[1], chunk):
+            cols = slice(c0, c0 + chunk)
+            part = bh_plain64(X, b.idx[:, cols], b.w[:, cols], b.table, kind,
+                              storage)
+            acc = part if acc is None else tuple(
+                a + p for a, p in zip(acc, part))
+        rows.append((acc[0], acc[2], acc[4]))
+        F_b = (acc[1], acc[3], acc[5])
+        F = F_b if F is None else tuple(a + p for a, p in zip(F, F_b))
+    return rows, F
+
+
+def bh_tree_compare(got, want, tags, teeth) -> tuple[float, float, list]:
+    """`bh_compare` for a fused evaluation: its s rows (named by the batches'
+    tags) and F against `bh_tree_plain64`."""
+    (s_rows, F), (rows, F64) = got, want
+    err, ratio, toothless = 0.0, 0.0, []
+    for tag, s, (s64, tol, floor) in zip(tags, s_rows, rows):
+        e, r = bh_held(f"{tag} s", s, s64, tol, floor, teeth, toothless)
+        err, ratio = max(err, e), max(ratio, r)
+    e, r = bh_held("F", F, *F64, teeth, toothless)
+    return max(err, e), max(ratio, r), toothless
+
+
 def phase_check_bh_fits(fits: dict) -> None:
-    """Every kernel call of one evaluation (the far levels, the near batch's
-    chunks, the residual) on each tree fit's embedding, float32 and
-    bfloat16, against the float64 plain version: the EE fit holds the exp
-    instantiation, the t-SNE fit the 1/(1 + t) one, at the shapes and data
-    the main path gives them."""
+    """Every per-batch kernel call of one evaluation (the far levels, the
+    near batch's chunks, the residual) on each tree fit's embedding, float32
+    and bfloat16, against the float64 plain version: the EE fit holds the
+    exp instantiation, the t-SNE fit the 1/(1 + t) one, at the shapes and
+    data the main path gives them.  Then the fused kernel on the same
+    embedding: each batch's s row and F bit-equal to the per-batch path's
+    sums of those calls, and within the sums of their bounds of the float64
+    plain version."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.farfield import bh_interaction_cuda
     from repro_torch.sparse import farfield as ff
@@ -1178,7 +1232,8 @@ def phase_check_bh_fits(fits: dict) -> None:
         X = emb.embedding_
         plan = ff.make_grid_plan(X.shape[0], theta=emb.spec.theta)
         calls, worst, below = 0, 0.0, set()
-        for b in ff._interaction_batches(X, plan):
+        batches = ff._interaction_batches(X, plan)
+        for b in batches:
             width = b.idx.shape[1]
             for c0 in range(0, width, plan.chunk):
                 cols = slice(c0, min(c0 + plan.chunk, width))
@@ -1202,12 +1257,47 @@ def phase_check_bh_fits(fits: dict) -> None:
                     worst = max(worst, ratio)
                     calls += 1
         say("check_bh", f"{kind} tree fit (N={X.shape[0]}): the {calls // 2} "
-                        f"kernel calls of an evaluation, float32 and "
-                        f"bfloat16, match the float64 plain version, worst "
-                        f"error at {worst:.2f} of its bound; bounds that "
-                        f"would pass zeros (bfloat16 only) or whose every "
-                        f"entry lies under float32's underflow floor: "
+                        f"per-batch kernel calls of an evaluation, float32 "
+                        f"and bfloat16, match the float64 plain version, "
+                        f"worst error at {worst:.2f} of its bound; bounds "
+                        f"that would pass zeros (bfloat16 only) or whose "
+                        f"every entry lies under float32's underflow floor: "
                         f"{', '.join(sorted(below)) or 'none'}")
+        grid = ff._grid_state(X, plan)
+        worst, below = 0.0, []
+        for storage in ("float32", "bfloat16"):
+            got = ops.bh_tree(grid, kind, impl="kernel",
+                              storage_dtype=storage)
+            F_want = torch.zeros_like(X)
+            for row, b in zip(got[0], batches):
+                s_b, F_b = ff._apply_chunked(X, b, kind, plan.chunk,
+                                             {"storage_dtype": storage})
+                if not torch.equal(row, s_b):
+                    raise AssertionError(f"fused kernel's {b.tag} s row != "
+                                         f"the per-batch kernel path's on "
+                                         f"the {kind} tree fit, {storage}")
+                F_want = F_want + F_b
+            if not torch.equal(got[1], F_want):
+                raise AssertionError(f"fused kernel's F != the per-batch "
+                                     f"kernel path's on the {kind} tree fit, "
+                                     f"{storage}")
+            try:
+                _, ratio, toothless = bh_tree_compare(
+                    got, bh_tree_plain64(X, batches, plan.chunk, kind,
+                                         storage),
+                    [b.tag for b in batches], teeth=storage == "float32")
+            except AssertionError as e:
+                raise AssertionError(f"fused kernel != plain on the {kind} "
+                                     f"tree fit, {storage}: {e}") from None
+            worst = max(worst, ratio)
+            below += [f"{storage} {t}" for t in toothless]
+        say("check_bh", f"{kind} tree fit: the fused kernel (one launch, "
+                        f"{grid.n_batches} s rows and F), float32 and "
+                        f"bfloat16, is bit-equal to the per-batch kernel "
+                        f"path and within the summed bounds of the float64 "
+                        f"plain version, worst at {worst:.2f}; bounds that "
+                        f"would pass zeros (bfloat16 only) or under the "
+                        f"floor: {', '.join(below) or 'none'}")
 
 
 def _rel_gap(a, b) -> float:
@@ -1216,25 +1306,35 @@ def _rel_gap(a, b) -> float:
 
 @contextlib.contextmanager
 def plain_bh_only():
-    """`ops.bh_interaction` on its plain version while every other kernel
-    runs as the spec says: a fit under it differs from the kernel path by
-    the cell-interaction kernel alone."""
+    """`ops.bh_tree` on its plain version while every other kernel runs as
+    the spec says: a fit under it differs from the kernel path by the cell
+    interaction alone."""
     from repro_torch.kernels import ops
-    kernel = ops.bh_interaction
-
-    def plain(*args, **kwargs):
-        return kernel(*args, **{**kwargs, "impl": "torch"})
-
-    ops.bh_interaction = plain
+    kernel = ops.bh_tree
+    ops.bh_tree = lambda *args, **kwargs: kernel(*args,
+                                                 **{**kwargs, "impl": "torch"})
     try:
         yield
     finally:
-        ops.bh_interaction = kernel
+        ops.bh_tree = kernel
+
+
+@contextlib.contextmanager
+def per_batch_tree():
+    """`tree_repulsion` through the materialised batches and the per-batch
+    kernel (`_tree_repulsion_batched`), the path before the fused kernel."""
+    from repro_torch.sparse import farfield as ff
+    fused = ff.tree_repulsion
+    ff.tree_repulsion = ff._tree_repulsion_batched
+    try:
+        yield
+    finally:
+        ff.tree_repulsion = fused
 
 
 def _evals_launches(plan) -> int:
-    """Kernel launches an evaluation of the tree: one per far level, one per
-    chunk of the near batch, one for the residual."""
+    """Per-batch kernel launches an evaluation of the tree: one per far
+    level, one per chunk of the near batch, one for the residual."""
     near = (2 * plan.r + 1) ** 2 * plan.cap
     return (plan.depth - plan.l1 + 1) + (near + plan.chunk - 1) // plan.chunk + 1
 
@@ -1246,7 +1346,8 @@ def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
     from repro_torch.kernels import farfield, sparse_attractive
     from repro_torch.sparse import make_grid_plan
 
-    out = {"launches": 0, "fits": {}}
+    out = {"launches": 0, "launches_main_per_batch": 0,
+           "launches_per_batch": 0, "fits": {}}
     for kind, fit in sparse_fits.items():
         saff = fit.affinities_
         lam = fit.spec.lam
@@ -1261,15 +1362,18 @@ def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         res = emb.result_
-        launches = farfield.launch_counts["bh_interaction"]
+        launches = farfield.launch_counts["bh_tree"]
         evals = int(res.n_fevals[-1])
         if emb.backend_ != "tree":
             raise AssertionError(f"{kind}: backend {emb.backend_!r}")
-        if launches < 1 or launches != per_eval * evals:
-            raise AssertionError(f"{kind}: {launches} kernel launches for "
-                                 f"{evals} evaluations of {per_eval} batches "
-                                 f"and chunks")
+        if launches < 1 or farfield.launch_counts != {"bh_tree": evals,
+                                                      "bh_interaction": 0}:
+            raise AssertionError(f"{kind}: kernel launches "
+                                 f"{dict(farfield.launch_counts)} for {evals} "
+                                 f"evaluations; want one fused launch each")
         out["launches"] += launches
+        out["launches_main_per_batch"] += farfield.launch_counts[
+            "bh_interaction"]
         e = res.energies
         if not np.all(np.isfinite(e)):
             raise AssertionError(f"{kind}: non-finite energies {e}")
@@ -1284,8 +1388,9 @@ def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
                         f"{res.phase_times['spectral_init_s']:.2f} s; "
                         f"{res.n_iters} iterations at "
                         f"{res.times[-1] / res.n_iters * 1e3:.1f} ms each "
-                        f"({evals} evaluations); kernel launches {launches} "
-                        f"(= {per_eval} an evaluation); wall {wall:.1f} s")
+                        f"({evals} evaluations); fused kernel launches "
+                        f"{launches} (one an evaluation), per-batch kernel "
+                        f"launches 0; wall {wall:.1f} s")
         say("fit_tree", f"{kind}: energies {np.array2string(e, precision=8)}")
         # the default mu_scale: the kernel path against a run in which only
         # the cell-interaction kernel is replaced by its plain version (the
@@ -1306,7 +1411,7 @@ def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
         with plain_bh_only():
             bh_plain = Embedding(spec.replace(max_iters=3)).fit(
                 None, X0=emb.X0_, saff=saff).result_.energies
-        if (farfield.launch_counts["bh_interaction"]
+        if (any(farfield.launch_counts.values())
                 or not any(sparse_attractive.launch_counts.values())):
             raise AssertionError(
                 f"{kind}: the run with the plain cell interaction launched "
@@ -1319,7 +1424,7 @@ def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
             plain = Embedding(spec.replace(kernel_impl="torch", max_iters=3,
                                            mu_scale=mu)).fit(
                 None, X0=emb.X0_, saff=saff).result_.energies
-            if (farfield.launch_counts["bh_interaction"]
+            if (any(farfield.launch_counts.values())
                     or any(sparse_attractive.launch_counts.values())):
                 raise AssertionError(
                     f"{kind}: the kernel_impl='torch' run launched a kernel: "
@@ -1371,17 +1476,43 @@ def phase_fit_tree(sparse_fits: dict, iters: int = 10) -> dict:
                             f"{dg['pcg_iters']:.0f}")
         say("fit_tree", f"{kind}: a second kernel run of 3 iterations is "
                         f"bit-identical (energies, gradient norms, steps)")
+        # the same 3 iterations through the per-batch kernel path: the fused
+        # kernel sums in its order, so the trace must not move by a bit
+        farfield.reset_launch_counts()
+        with per_batch_tree():
+            rb = Embedding(spec.replace(max_iters=3)).fit(
+                None, X0=emb.X0_, saff=saff).result_
+        evals_b = int(rb.n_fevals[-1])
+        if farfield.launch_counts != {"bh_tree": 0,
+                                      "bh_interaction": per_eval * evals_b}:
+            raise AssertionError(f"{kind}: the per-batch rerun launched "
+                                 f"{dict(farfield.launch_counts)} for "
+                                 f"{evals_b} evaluations of {per_eval} "
+                                 f"batches and chunks")
+        if not (np.array_equal(rb.energies, e[:4])
+                and np.array_equal(rb.grad_norms, res.grad_norms[:4])
+                and np.array_equal(rb.step_sizes, res.step_sizes[:3])):
+            raise AssertionError(f"{kind}: the per-batch kernel path's 3 "
+                                 f"iterations differ from the fused path's: "
+                                 f"{rb.energies} vs {e[:4]}")
+        out["launches_per_batch"] += farfield.launch_counts["bh_interaction"]
+        say("fit_tree", f"{kind}: 3 iterations through the per-batch kernel "
+                        f"path ({farfield.launch_counts['bh_interaction']} "
+                        f"launches, {per_eval} an evaluation) give the fused "
+                        f"path's bits (energies, gradient norms, steps)")
         out["fits"][kind] = emb
     return out
 
 
 def phase_time_bh(emb) -> dict:
-    """The kernel at the tree's batch shapes on the t-SNE tree fit's
-    embedding (the batches its next evaluation would run), float32 and
+    """The per-batch kernel at the tree's batch shapes on the t-SNE tree
+    fit's embedding (the batches its next evaluation would run), float32 and
     bfloat16: CUDA-event time, the byte bound and the plain version, each
-    call held against the float64 plain version.  Then one whole
-    tree_repulsion against its grid build alone and its kernel calls alone.
-    """
+    call held against the float64 plain version; the fused kernel over the
+    whole evaluation likewise (`_time_bh_tree`).  Then one whole
+    tree_repulsion before (per-batch path) and after (fused), against its
+    grid state alone, the state with its expansion, and the per-batch kernel
+    calls alone."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.farfield import bh_interaction_cuda
     from repro_torch.sparse import farfield as ff
@@ -1449,19 +1580,112 @@ def phase_time_bh(emb) -> dict:
                            f"that would pass zeros: "
                            f"{'/'.join(toothless) or 'none'}); no single "
                            f"PyTorch call computes it (library_ms null)")
+    out.update(_time_bh_tree(X, plan, kind, list(batches.values())))
     all_batches = list(batches.values())
-    whole_ms = cuda_ms(lambda: ff.tree_repulsion(X, plan, kind), reps=20)
+    before_ms = cuda_ms(lambda: ff._tree_repulsion_batched(X, plan, kind),
+                        reps=20)
+    after_ms = cuda_ms(lambda: ff.tree_repulsion(X, plan, kind), reps=20)
+    state_ms = cuda_ms(lambda: ff._grid_state(X, plan), reps=20)
     grid_ms = cuda_ms(lambda: ff._interaction_batches(X, plan), reps=20)
     kern_ms = graph_ms(lambda: [ff._apply_chunked(X, b, kind, plan.chunk, {})
                                 for b in all_batches], reps=5)
-    say("time_bh", f"{kind} one tree_repulsion (N={n}, "
-                   f"{_evals_launches(plan)} kernel calls): "
-                   f"{whole_ms:.3f} ms a call issued eagerly; its grid build "
-                   f"alone (plain PyTorch) {grid_ms:.3f} ms; its kernel calls "
-                   f"and sums alone {kern_ms:.3f} ms on the device (CUDA "
-                   f"graph)")
-    out["evaluation"] = {"tree_repulsion_ms": whole_ms, "grid_ms": grid_ms,
+    say("time_bh", f"{kind} one tree_repulsion (N={n}), a call issued "
+                   f"eagerly: before, through the batches and "
+                   f"{_evals_launches(plan)} per-batch kernel calls, "
+                   f"{before_ms:.3f} ms; after, one fused launch, "
+                   f"{after_ms:.3f} ms.  Parts: the grid state alone "
+                   f"{state_ms:.3f} ms; the state and its expansion into "
+                   f"batches (plain PyTorch) {grid_ms:.3f} ms; the per-batch "
+                   f"kernel calls and sums alone {kern_ms:.3f} ms on the "
+                   f"device (CUDA graph)")
+    out["evaluation"] = {"before_ms": before_ms, "after_ms": after_ms,
+                         "state_ms": state_ms, "grid_ms": grid_ms,
                          "kernels_ms": kern_ms}
+    return out
+
+
+# integer operations the decomposition needs to test one window cell of a
+# row (the reference's batch build, not the kernel's code): a far cell's
+# target coords (2), in-bounds test (4), parent-cell Chebyshev distance and
+# its test (8) and cell id (2); a near cell's coords, bounds and cell id
+# (8), which the residual reuses; and a listed near slot's position and
+# self test (2)
+FAR_TEST_OPS = 16
+NEAR_TEST_OPS = 8
+NEAR_SLOT_OPS = 2
+
+
+def _time_bh_tree(X, plan, kind, batches) -> dict:
+    """The fused kernel over one evaluation, float32 and bfloat16: device
+    time of the launch alone on a packed state (CUDA graph), an eager call
+    with its packing (`bh_tree_cuda`), the plain version (`ops.bh_tree`,
+    impl="torch"), and the bound by the operations these inputs need: one
+    test of each far, near and residual window cell of every row
+    (FAR_TEST_OPS, NEAR_TEST_OPS; the residual shares the near cell's),
+    NEAR_SLOT_OPS a listed near slot, and 3 d + 4 float operations a live
+    slot (as the per-batch bound counts them), all at the f32 rate (the
+    data sheet gives no int32 rate; the card's is half its f32 rate, so
+    this bound is low), against the bytes of the state read once and the
+    outputs written once."""
+    from repro_torch.kernels import farfield, ops
+    from repro_torch.sparse import farfield as ff
+
+    n, d = X.shape
+    grid = ff._grid_state(X, plan)
+    slots = sum(b.w.numel() for b in batches)
+    live = sum(int((b.w > 0).sum()) for b in batches)
+    near = next(b for b in batches if b.tag == "near")
+    listed = int((near.w > 0).sum())
+    far_tests = n * (plan.depth - plan.l1 + 1) * grid.far_offsets.shape[0]
+    near_tests = n * grid.near_offsets.shape[0]
+    tests = far_tests + near_tests
+    n_ops = (FAR_TEST_OPS * far_tests + NEAR_TEST_OPS * near_tests
+             + NEAR_SLOT_OPS * listed + (3 * d + 4) * live)
+    out = {}
+    for storage, size in (("float32", 4), ("bfloat16", 2)):
+        g = dataclasses.replace(
+            grid, Xs=ops.to_storage(grid.Xs, storage),
+            res_com=ops.to_storage(grid.res_com, storage),
+            level_com=tuple(ops.to_storage(c, storage)
+                            for c in grid.level_com))
+        packed = farfield.pack_tree(g)
+        m_lvl = packed.lvl_counts.numel()
+        m_res = packed.res_cnt.numel()
+        nbytes = (n * d * size + 2 * n * 4 + 3 * m_res * 4 + m_lvl * 4
+                  + (m_lvl + m_res) * d * size + grid.n_batches * n * 4
+                  + n * d * 4)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        ms = graph_ms(lambda: farfield.launch_tree(packed, kind))
+        eager_ms = cuda_ms(lambda: farfield.bh_tree_cuda(g, kind), reps=100)
+        plain_ms = cuda_ms(lambda: ops.bh_tree(grid, kind, impl="torch",
+                                               storage_dtype=storage), reps=3)
+        try:
+            err, worst, below = bh_tree_compare(
+                farfield.launch_tree(packed, kind),
+                bh_tree_plain64(X, batches, plan.chunk, kind, storage),
+                [b.tag for b in batches], teeth=storage == "float32")
+        except AssertionError as e:
+            raise AssertionError(f"fused kernel != plain on the {kind} tree "
+                                 f"fit, {storage}: {e}") from None
+        out["fused", storage] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "max_abs_err": err}
+        say("time_bh", f"{kind} fused kernel, one evaluation (N={n}, "
+                       f"{tests / 1e6:.1f} M window tests, {slots / 1e6:.1f} "
+                       f"M slots, {live / slots * 100:.1f}% live) {storage}: "
+                       f"{ms * 1e3:.1f} us on the device "
+                       f"({bound_ms / ms * 100:.0f}% of the bound "
+                       f"{bound_ms * 1e3:.1f} us by {n_ops / 1e9:.2f} G "
+                       f"operations; {nbytes / 1e6:.1f} MB would take "
+                       f"{t_bytes * 1e3:.1f} us); {eager_ms * 1e3:.1f} us a "
+                       f"call with its packing issued eagerly; plain "
+                       f"{plain_ms:.2f} ms; max abs err {err:.2e} at "
+                       f"{worst:.2f} of its bound (bounds that would pass "
+                       f"zeros: {'/'.join(below) or 'none'}); no single "
+                       f"PyTorch call computes it (library_ms null)")
     return out
 
 
@@ -1512,12 +1736,14 @@ def phase_profile_tree(emb, iters: int = 3) -> None:
         say("profile_tree", f"  {dev_us / 1e3 / iters:8.3f} ms/iteration "
                             f"{count / iters:7.1f} calls/iteration  "
                             f"{key[:80]}")
-    bh = [(us, c) for us, key, c in rows if "bh_rows" in key]
-    bh_us, bh_calls = sum(r[0] for r in bh), sum(r[1] for r in bh)
-    say("profile_tree", f"  the cell-interaction kernel (bh_rows, every "
-                        f"shape): {bh_us / 1e3 / iters:.3f} ms/iteration, "
-                        f"{bh_calls / iters:.1f} calls/iteration, "
-                        f"{bh_us / max(bh_calls, 1):.1f} us a call")
+    for name, what in (("bh_tree", "the fused cell interaction"),
+                       ("bh_rows", "the per-batch cell interaction")):
+        bh = [(us, c) for us, key, c in rows if name in key]
+        bh_us, bh_calls = sum(r[0] for r in bh), sum(r[1] for r in bh)
+        say("profile_tree", f"  {what} ({name}): "
+                            f"{bh_us / 1e3 / iters:.3f} ms/iteration, "
+                            f"{bh_calls / iters:.1f} calls/iteration, "
+                            f"{bh_us / max(bh_calls, 1):.1f} us a call")
 
 
 # -- slice 5: the row-sharded sparse backend and the local-rows kernel -------
@@ -2043,18 +2269,38 @@ def main() -> int:
             "replaces": f"src/repro/kernels/sparse_attractive.py:{line}",
             "launches": n_launch, "launches_from": origin,
             **kernel_numbers(t)})
-    # the cell-interaction kernel at its widest batch: a near chunk
-    # (W = 128, table = X) on the t-SNE tree fit's embedding, float32
-    if tree["launches"] < 1:
-        raise AssertionError("the default tree fits launched no "
+    # the per-batch cell-interaction kernel at its widest batch: a near
+    # chunk (W = 128, table = X) on the t-SNE tree fit's embedding, float32.
+    # No default path launches it any more (the tree fits launch the fused
+    # kernel instead, and fit_tree asserts 0 per-batch launches there), so
+    # its main-path count is 0; the tree fits' 3-iteration reruns through
+    # the per-batch path (_tree_repulsion_batched) stand apart
+    if tree["launches_per_batch"] < 1:
+        raise AssertionError("the per-batch tree reruns launched no "
                              "cell-interaction kernel")
     kernels.append({
         "name": "bh_interaction", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/farfield.cu",
         "replaces": "src/repro/kernels/farfield.py:97",
+        "launches": tree["launches_main_per_batch"],
+        "launches_from": "the default EE and t-SNE tree fits",
+        "yardstick_launches": tree["launches_per_batch"],
+        "yardstick_launches_from": "the EE and t-SNE tree fits rerun for 3 "
+                                   "iterations through the per-batch path "
+                                   "(_tree_repulsion_batched)",
+        **kernel_numbers(timing_bh["near chunk", "float32"])})
+    # the fused cell interaction, one launch an evaluation of the default
+    # tree fits, over the t-SNE tree fit's whole evaluation, float32
+    if tree["launches"] < 1:
+        raise AssertionError("the default tree fits launched no fused "
+                             "cell-interaction kernel")
+    kernels.append({
+        "name": "bh_tree", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/farfield.cu",
+        "replaces": "src/repro/kernels/farfield.py:97",
         "launches": tree["launches"],
         "launches_from": "the default EE and t-SNE tree fits",
-        **kernel_numbers(timing_bh["near chunk", "float32"])})
+        **kernel_numbers(timing_bh["fused", "float32"])})
     # the local-rows kernel at the main path's shape on this one card (one
     # rank, nb = N) on the EE fit's reverse graph, float32, as rows 2 and 3
     if sharded["launches"] < 1:

@@ -1,9 +1,9 @@
 """Kernel dispatch: the one entry point for each hand-written kernel.
 
 Port of `repro/kernels/ops.py`: `pairwise_terms` (csrc/pairwise.cu),
-`ell_lap_matvec` and `ell_lap_matvec_local` (csrc/ell.cu) and
-`bh_interaction` (csrc/farfield.cu).  The rest of the port calls these;
-each decides per call:
+`ell_lap_matvec` and `ell_lap_matvec_local` (csrc/ell.cu), and
+`bh_interaction` and `bh_tree` (csrc/farfield.cu).  The rest of the port
+calls these; each decides per call:
 
   1. **Path**, by the `impl` knob: ``"auto"`` runs the CUDA kernel on CUDA
      tensors and the PyTorch oracle on CPU tensors; ``"kernel"`` runs the
@@ -13,7 +13,8 @@ each decides per call:
      through bfloat16 (as `repro`'s `_maybe_bf16` does), on both paths, so
      the kernel and the oracle see the same quantization; `bh_interaction`
      rounds X and the target table only, its slot weights stay float32
-     (they carry cell occupancies).  Accumulation is float32 and outputs
+     (they carry cell occupancies), and `bh_tree` rounds X and the grid's
+     centre-of-mass tables.  Accumulation is float32 and outputs
      are float32.
   3. **Layout** (`ell_lap_matvec` only): ``"vmem"`` (direct gather, the
      default: on Hopper X always sits in device memory, and L2 holds it
@@ -36,19 +37,25 @@ port's `resolve_local_ell` only checks the request, and
 `ell_lap_matvec_local` takes any row offset; its layout is ``"vmem"``
 only, as in the reference.
 
-Every decision is recorded: `last_dispatch("pairwise_terms")`,
-`last_dispatch("ell_lap_matvec")`, `last_dispatch("ell_lap_matvec_local")`
-and `last_dispatch("bh_interaction")` return the most recent one as a dict
-of path, reason, storage (and layout).
+`bh_tree` has no counterpart in the reference: it is one whole Barnes-Hut
+evaluation, every slot of `bh_interaction`'s batches derived from the grid
+state inside one launch (`sparse/farfield.py` calls it for every
+evaluation with theta > 0; its plain version is `ref.bh_tree_ref`).
+
+Every decision is recorded: `last_dispatch(name)` for each entry point
+returns the most recent one as a dict of path, reason, storage (and
+layout).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .farfield import bh_interaction_cuda
+from .farfield import bh_interaction_cuda, bh_tree_cuda
 from .pairwise import pairwise_terms_cuda
-from .ref import (KINDS, PairwiseTerms, bh_interaction_ref,
-                  ell_lap_matvec_local_ref, ell_lap_matvec_ref,
+from .ref import (KINDS, PairwiseTerms, TreeGrid, bh_interaction_ref,
+                  bh_tree_ref, ell_lap_matvec_local_ref, ell_lap_matvec_ref,
                   pairwise_terms_ref)
 from .sparse_attractive import (LAYOUTS, ell_lap_matvec_cuda,
                                 ell_lap_matvec_local_cuda)
@@ -193,3 +200,28 @@ def bh_interaction(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     return bh_interaction_cuda(to_storage(X, storage), idx.to(torch.int32),
                                w.to(torch.float32), to_storage(table, storage),
                                kind)
+
+
+def bh_tree(grid: TreeGrid, kind: str, *, impl: str = "auto",
+            storage_dtype: str | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One whole Barnes-Hut evaluation from the grid state (s_rows
+    (n_batches, N), F (N, d)), float32, in the original point order; see
+    `ref.bh_tree_ref` for the contract.  The kernel path's s rows may be
+    views of a wider buffer (each row contiguous)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    path, reason = _path(impl, grid.Xs)
+    storage = resolve_storage(storage_dtype)
+    _LAST["bh_tree"] = {"path": path, "reason": reason, "storage": storage}
+    if path == "torch":
+        def rounded(t):
+            return to_storage(t, storage).float()
+        return bh_tree_ref(dataclasses.replace(
+            grid, Xs=rounded(grid.Xs), res_com=rounded(grid.res_com),
+            level_com=tuple(rounded(c) for c in grid.level_com)), kind)
+    return bh_tree_cuda(dataclasses.replace(
+        grid, Xs=to_storage(grid.Xs, storage),
+        res_com=to_storage(grid.res_com, storage),
+        level_com=tuple(to_storage(c, storage) for c in grid.level_com)),
+        kind)

@@ -3,9 +3,9 @@
 Port of `repro/kernels/ref.py`.  `pairwise_terms_ref` materializes the
 N x N pair matrices and is the plain version beside csrc/pairwise.cu;
 `ell_lap_matvec_ref` and `ell_lap_matvec_local_ref` are the plain versions
-beside csrc/ell.cu and `bh_interaction_ref` the one beside
-csrc/farfield.cu.  Each is the CPU path of its `ops` entry point and the
-yardstick its kernel is held to.
+beside csrc/ell.cu, and `bh_interaction_ref` and `bh_tree_ref` the ones
+beside csrc/farfield.cu's two kernels.  Each is the CPU path of its `ops`
+entry point and the yardstick its kernel is held to.
 
 Unified contract — for X (N, d), attractive weights Wa, repulsive weights
 Wb (both symmetric, zero diagonal):
@@ -22,6 +22,7 @@ scalars e_plus and s; core/objectives.py combines them into E and grad E.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -162,3 +163,115 @@ def pairwise_terms_ref(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
         s = torch.sum(Wb * torch.clamp_min(1.0 - t, 0.0))
     return PairwiseTerms(la_x=_lap_matmul(a, X), lb_x=_lap_matmul(b, X),
                          e_plus=e_plus, s=s)
+
+
+# -- one whole Barnes-Hut evaluation from the grid state -------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeGrid:
+    """The grid state of one tree evaluation (`sparse/farfield.py`'s
+    `_grid_state`): the contract of `bh_tree_ref` and of the fused kernel
+    of csrc/farfield.cu.  Points are listed in sorted order, ascending by
+    finest cell id; no (N, W) tensor is part of it."""
+
+    Xs: torch.Tensor                      # (N, d) X in sorted order
+    perm: torch.Tensor                    # (N,) int64: sorted position -> point
+    cids: torch.Tensor                    # (N,) int64 finest cell id, ascending
+    starts: torch.Tensor                  # (G^2,) int64 first sorted position
+    counts: torch.Tensor                  # (G^2,) int64 occupancy
+    level_counts: tuple[torch.Tensor, ...]  # (4^l,) int64, l = l1..depth
+    level_com: tuple[torch.Tensor, ...]     # (4^l, d) centres of mass
+    res_cnt: torch.Tensor                 # (G^2,) int64 points past `cap`
+    res_com: torch.Tensor                 # (G^2, d) their centre of mass
+    far_offsets: torch.Tensor             # (Wf, 2) int64 far window
+    near_offsets: torch.Tensor            # (Wn, 2) int64 near window
+    h: torch.Tensor                       # 0-d finest cell width
+    r: int
+    l1: int
+    depth: int
+    cap: int
+    chunk: int
+
+    @property
+    def n_batches(self) -> int:
+        """Far levels l1..depth, the near batch and the residual."""
+        return self.depth - self.l1 + 3
+
+
+def tree_slots(grid: TreeGrid) -> list[tuple[str, torch.Tensor, torch.Tensor,
+                                             torch.Tensor]]:
+    """Every interaction slot of an evaluation, derived from the grid state
+    as the fused kernel derives it, with rows in SORTED order: (tag, idx
+    (N, W) int64, w (N, W) float32, table) per batch, in the batches' order
+    (far levels l1..depth, near, residual).  A point's finest cell coords
+    come from its cell id; far level l tests the window at `coord >>
+    (depth - l)`; near slot `slot` of cell c is sorted position `starts[c] +
+    slot`, listed iff slot < count and self iff it is the row's own
+    position (so the near table is Xs); the own-cell residual drops self
+    iff the row's rank in its cell, `p - starts[cid]`, is >= cap."""
+    n = grid.Xs.shape[0]
+    D, r, cap = grid.depth, grid.r, grid.cap
+    G = 1 << D
+    p = torch.arange(n, dtype=torch.int64, device=grid.Xs.device)
+    cx, cy = grid.cids >> D, grid.cids & (G - 1)
+    far, near = grid.far_offsets, grid.near_offsets
+    out = []
+    for lev, cnt, com in zip(range(grid.l1, D + 1), grid.level_counts,
+                             grid.level_com):
+        Gl = 1 << lev
+        clx, cly = (cx >> (D - lev))[:, None], (cy >> (D - lev))[:, None]
+        tx, ty = clx + far[None, :, 0], cly + far[None, :, 1]
+        inb = (tx >= 0) & (tx < Gl) & (ty >= 0) & (ty < Gl)
+        pd = torch.maximum(torch.abs((tx >> 1) - (clx >> 1)),
+                           torch.abs((ty >> 1) - (cly >> 1)))
+        tcell = torch.clamp(tx, 0, Gl - 1) * Gl + torch.clamp(ty, 0, Gl - 1)
+        w = torch.where(inb & (pd <= r), cnt[tcell], 0).to(torch.float32)
+        out.append((f"far-l{lev}", tcell, w, com))
+    tx, ty = cx[:, None] + near[None, :, 0], cy[:, None] + near[None, :, 1]
+    inb = (tx >= 0) & (tx < G) & (ty >= 0) & (ty < G)
+    tcell = torch.clamp(tx, 0, G - 1) * G + torch.clamp(ty, 0, G - 1)
+    tcount = torch.where(inb, grid.counts[tcell], 0)          # (N, Wn)
+    slot = torch.arange(cap, dtype=torch.int64, device=p.device)
+    pos = grid.starts[tcell][:, :, None] + slot               # (N, Wn, cap)
+    listed = slot < tcount[:, :, None]
+    w = (listed & (pos != p[:, None, None])).to(torch.float32)
+    out.append(("near", torch.clamp(pos, 0, n - 1).reshape(n, -1),
+                w.reshape(n, -1), grid.Xs))
+    own = (near[:, 0] == 0) & (near[:, 1] == 0)               # (Wn,)
+    spill = (p - grid.starts[grid.cids] >= cap)[:, None] & own[None, :]
+    w = torch.where(inb, grid.res_cnt[tcell], 0) - spill.long()
+    out.append(("residual", tcell, torch.clamp_min(w, 0).to(torch.float32),
+                grid.res_com))
+    return out
+
+
+def bh_tree_ref(grid: TreeGrid, kind: str
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One whole tree evaluation (the contract of the fused kernel of
+    csrc/farfield.cu): `bh_interaction_ref` over every batch of
+    `tree_slots`, each in <= chunk-wide column slices, summed in the
+    batches' order.  Returns (s_rows (n_batches, N), one row of s_n a
+    batch, and F (N, d) summed over the batches), both float32 and in the
+    original point order."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    n = grid.Xs.shape[0]
+    F = torch.zeros(grid.Xs.shape, dtype=torch.float32, device=grid.Xs.device)
+    rows = []
+    for _, idx, w, table in tree_slots(grid):
+        s_b = torch.zeros((n,), dtype=torch.float32, device=F.device)
+        F_b = torch.zeros_like(F)
+        for c0 in range(0, idx.shape[1], grid.chunk):
+            sl = slice(c0, c0 + grid.chunk)
+            si, Fi = bh_interaction_ref(grid.Xs, idx[:, sl], w[:, sl], table,
+                                        kind)
+            s_b = s_b + si
+            F_b = F_b + Fi
+        rows.append(s_b)
+        F = F + F_b
+    s_rows = torch.empty((len(rows), n), dtype=torch.float32, device=F.device)
+    s_rows[:, grid.perm] = torch.stack(rows)
+    F_out = torch.empty_like(F)
+    F_out[grid.perm] = F
+    return s_rows, F_out

@@ -6,9 +6,20 @@ of mass stand in for far-away points.  The grid is built without scatters:
 one stable sort of the finest-level cell ids, `searchsorted` for cell
 extents, a cumulative sum for cell sums and 2x2 reshape-pooling for the
 coarser levels.  No random draw, no EMA, no float atomics: repeated runs
-are bit-identical.  Only the cell interaction runs a hand-written kernel
-(`kernels.ops.bh_interaction`, csrc/farfield.cu on CUDA); the grid build is
-plain PyTorch.
+are bit-identical.  The grid build is plain PyTorch; the cell interaction
+runs csrc/farfield.cu on CUDA.
+
+The build is split in two.  `_grid_state` computes what every evaluation
+needs and no more (the sorted order, cell extents, per-level occupancy and
+centre-of-mass tables, residual tables: `kernels.ref.TreeGrid`).  Each
+evaluation with theta > 0 is one call of `kernels.ops.bh_tree` on that
+state: on CUDA one launch that derives every interaction slot in registers
+and sums the whole evaluation.  `_expand` materialises the slots as (N, W)
+index and weight batches, the TPU kernel's contract, by an independent
+derivation; `tree_diagnostics` reads them, and `_tree_repulsion_batched`
+runs them through `kernels.ops.bh_interaction`, one call a chunk, as the
+yardstick of the fused launch (both sum in the same order, so on CUDA they
+give the same bits).  theta = 0 runs its one exhaustive batch that way.
 
 Opening criterion and exactness of the partition
 ------------------------------------------------
@@ -54,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import TreeGrid
 
 # -- plan ----------------------------------------------------------------------
 
@@ -146,8 +158,9 @@ def _finest_aggregates(coords: torch.Tensor, X: torch.Tensor, G: int):
     finest level, scatter-free: stable sort by cell id, then searchsorted
     extents and a cumulative-sum difference.
 
-    Returns (cid (N,), perm (N,), starts (G^2,), counts (G^2,), sums
-    (G^2, d), csum (N+1, d) cumulative sums in sorted order)."""
+    Returns (cs (N,) sorted cell ids, perm (N,), Xs = X[perm], starts (G^2,),
+    counts (G^2,), sums (G^2, d), csum (N+1, d) cumulative sums in sorted
+    order)."""
     cid = coords[:, 0] * G + coords[:, 1]
     perm = torch.argsort(cid, stable=True)
     cs = cid[perm]
@@ -155,10 +168,10 @@ def _finest_aggregates(coords: torch.Tensor, X: torch.Tensor, G: int):
     starts = torch.searchsorted(cs, ids, side="left")
     ends = torch.searchsorted(cs, ids, side="right")
     counts = ends - starts
-    csum = torch.cat([X.new_zeros((1, X.shape[1])),
-                      torch.cumsum(X[perm], dim=0)])
+    Xs = X[perm]
+    csum = torch.cat([X.new_zeros((1, X.shape[1])), torch.cumsum(Xs, dim=0)])
     sums = csum[ends] - csum[starts]
-    return cid, perm, starts, counts, sums, csum
+    return cs, perm, Xs, starts, counts, sums, csum
 
 
 def _pool(counts: torch.Tensor, sums: torch.Tensor, G: int
@@ -168,6 +181,46 @@ def _pool(counts: torch.Tensor, sums: torch.Tensor, G: int
     c = counts.reshape(H, 2, H, 2).sum(dim=(1, 3))
     s = sums.reshape(H, 2, H, 2, -1).sum(dim=(1, 3))
     return c.reshape(H * H), s.reshape(H * H, -1)
+
+
+def _grid_state(X: torch.Tensor, plan: GridPlan) -> TreeGrid:
+    """Everything an evaluation derives its interaction slots from, and no
+    (N, W) tensor: the sorted order, the finest cells' extents, every far
+    level's occupancy and centre-of-mass table, and the residual tables of
+    the cells that spill past `cap` (`kernels.ref.TreeGrid`)."""
+    if plan.exhaustive:
+        raise ValueError("theta = 0 (exhaustive mode) builds no grid")
+    D, cap = plan.depth, plan.cap
+    G = 1 << D
+    coords, h = _grid_coords(X, D)
+    cs, perm, Xs, starts, counts, sums, csum = _finest_aggregates(
+        coords.long(), X, G)
+
+    # per-level stats, finest -> coarsest (index by level l)
+    counts_l = {D: counts}
+    sums_l = {D: sums}
+    for lev in range(D - 1, plan.l1 - 1, -1):
+        counts_l[lev], sums_l[lev] = _pool(counts_l[lev + 1],
+                                           sums_l[lev + 1], 1 << (lev + 1))
+    levels = range(plan.l1, D + 1)
+
+    # residual: cells spilling past `cap` keep one centre-of-mass entry of
+    # their unlisted suffix
+    listed_n = torch.clamp_max(counts, cap)
+    listed_sum = csum[starts + listed_n] - csum[starts]
+    res_cnt = counts - listed_n
+    res_com = (sums - listed_sum) / torch.clamp_min(res_cnt, 1)[:, None]
+    return TreeGrid(
+        Xs=Xs, perm=perm, cids=cs, starts=starts, counts=counts,
+        level_counts=tuple(counts_l[lev] for lev in levels),
+        level_com=tuple(sums_l[lev] / torch.clamp_min(counts_l[lev], 1)[:, None]
+                        for lev in levels),
+        res_cnt=res_cnt, res_com=res_com,
+        far_offsets=torch.as_tensor(_far_offsets(plan.r), dtype=torch.int64,
+                                    device=X.device),
+        near_offsets=torch.as_tensor(_near_offsets(plan.r), dtype=torch.int64,
+                                     device=X.device),
+        h=h, r=plan.r, l1=plan.l1, depth=D, cap=cap, chunk=plan.chunk)
 
 
 # -- interaction batches -------------------------------------------------------
@@ -187,40 +240,27 @@ class _Batch:
     tag: str
 
 
-def _interaction_batches(X: torch.Tensor, plan: GridPlan) -> list[_Batch]:
-    """Decompose all N(N-1) ordered pairs into interaction batches.
-
-    The weights over all batches sum to exactly n(n-1), the partition
-    invariant `tree_diagnostics` reports as `tree_pairs`."""
-    n, d = X.shape
-    dev = X.device
-    if plan.exhaustive:
-        rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-        J = (rows + torch.arange(1, n, dtype=torch.int32, device=dev)[None, :]
-             ) % n
-        return [_Batch(idx=J, w=torch.ones((n, n - 1), dtype=torch.float32,
-                                           device=dev),
-                       table=X, h_cell=0.0, tag="exhaustive")]
-
-    D, r, cap = plan.depth, plan.r, plan.cap
+def _expand(X: torch.Tensor, grid: TreeGrid) -> list[_Batch]:
+    """The interaction batches of a grid state, rows in X's order, by whole
+    (N, W) gathers: a near slot's partner is `perm[pos]`, masked when it is
+    the row's own point id, and the own-cell residual drops self by the
+    row's rank in its cell from an argsort.  This derivation is independent
+    of `kernels.ref.tree_slots`, the per-sorted-position arithmetic of the
+    fused kernel, which the tests hold to it."""
+    n = X.shape[0]
+    D, r, cap = grid.depth, grid.r, grid.cap
     G = 1 << D
-    coords, h = _grid_coords(X, D)
-    coords = coords.long()
-    cid, perm, starts, counts, sums, csum = _finest_aggregates(coords, X, G)
-
-    # per-level stats, finest -> coarsest (index by level l)
-    counts_l = {D: counts}
-    sums_l = {D: sums}
-    for lev in range(D - 1, plan.l1 - 1, -1):
-        counts_l[lev], sums_l[lev] = _pool(counts_l[lev + 1],
-                                           sums_l[lev + 1], 1 << (lev + 1))
-
+    dev = X.device
+    inv_perm = torch.argsort(grid.perm)
+    cid = grid.cids[inv_perm]                                  # (N,) X order
+    coords = torch.stack([cid >> D, cid & (G - 1)], dim=1)
     batches: list[_Batch] = []
 
     # far field: one (N, |offsets|) batch per level against that level's
     # centre-of-mass table
-    offs = torch.as_tensor(_far_offsets(r), dtype=torch.int64, device=dev)
-    for lev in range(plan.l1, D + 1):
+    offs = grid.far_offsets
+    for lev, cnt, com in zip(range(grid.l1, D + 1), grid.level_counts,
+                             grid.level_com):
         Gl = 1 << lev
         cl = coords >> (D - lev)                               # (N, 2)
         tx = cl[:, 0:1] + offs[None, :, 0]                     # (N, Wf)
@@ -233,28 +273,26 @@ def _interaction_batches(X: torch.Tensor, plan: GridPlan) -> list[_Batch]:
         accept = inb & (pd <= r)
         tcell = (torch.clamp(tx, 0, Gl - 1) * Gl
                  + torch.clamp(ty, 0, Gl - 1))
-        w = torch.where(accept, counts_l[lev][tcell], 0).to(torch.float32)
-        com = sums_l[lev] / torch.clamp_min(counts_l[lev], 1)[:, None]
+        w = torch.where(accept, cnt[tcell], 0).to(torch.float32)
         batches.append(_Batch(idx=tcell.to(torch.int32), w=w, table=com,
-                              h_cell=h * (1 << (D - lev)), tag=f"far-l{lev}"))
+                              h_cell=grid.h * (1 << (D - lev)),
+                              tag=f"far-l{lev}"))
 
     # near field: exact listed pairs over the (2r+1)^2 window at the finest
     # level, `cap` sorted-order slots per cell, self masked
-    noffs_np = _near_offsets(r)
-    noffs = torch.as_tensor(noffs_np, dtype=torch.int64, device=dev)
+    noffs = grid.near_offsets
     tx = coords[:, 0:1] + noffs[None, :, 0]                    # (N, Wn)
     ty = coords[:, 1:2] + noffs[None, :, 1]
     inb = (tx >= 0) & (tx < G) & (ty >= 0) & (ty < G)
     tcell = torch.clamp(tx, 0, G - 1) * G + torch.clamp(ty, 0, G - 1)
-    tcount = torch.where(inb, counts[tcell], 0)                # (N, Wn)
-
+    tcount = torch.where(inb, grid.counts[tcell], 0)           # (N, Wn)
     slot = torch.arange(cap, dtype=torch.int64, device=dev)    # (cap,)
-    pos = starts[tcell][:, :, None] + slot[None, None, :]      # (N, Wn, cap)
+    pos = grid.starts[tcell][:, :, None] + slot[None, None, :]  # (N, Wn, cap)
     listed = slot[None, None, :] < tcount[:, :, None]
-    partner = perm[torch.clamp(pos, 0, n - 1)]                 # (N, Wn, cap)
+    partner = grid.perm[torch.clamp(pos, 0, n - 1)]            # (N, Wn, cap)
     self_idx = torch.arange(n, dtype=partner.dtype, device=dev)[:, None, None]
     w_listed = (listed & (partner != self_idx)).to(torch.float32)
-    Wn = noffs_np.shape[0]
+    Wn = noffs.shape[0]
     batches.append(_Batch(idx=partner.reshape(n, Wn * cap).to(torch.int32),
                           w=w_listed.reshape(n, Wn * cap), table=X,
                           h_cell=0.0, tag="near"))
@@ -262,19 +300,34 @@ def _interaction_batches(X: torch.Tensor, plan: GridPlan) -> list[_Batch]:
     # residual: cells spilling past `cap` contribute one COM entry of the
     # unlisted suffix; the own-cell entry drops self when self is in the
     # suffix (rank >= cap)
-    listed_n = torch.clamp_max(counts, cap)
-    listed_sum = csum[starts + listed_n] - csum[starts]
-    res_cnt = counts - listed_n                                # (G^2,)
-    res_com = (sums - listed_sum) / torch.clamp_min(res_cnt, 1)[:, None]
-    inv_perm = torch.argsort(perm)
-    rank = inv_perm - starts[cid]                              # (N,)
+    rank = inv_perm - grid.starts[cid]                         # (N,)
     own = (noffs[:, 0] == 0) & (noffs[:, 1] == 0)              # (Wn,)
     self_spill = (rank >= cap)[:, None] & own[None, :]
-    w_res = torch.where(inb, res_cnt[tcell], 0) - self_spill.long()
+    w_res = torch.where(inb, grid.res_cnt[tcell], 0) - self_spill.long()
     batches.append(_Batch(idx=tcell.to(torch.int32),
                           w=torch.clamp_min(w_res, 0).to(torch.float32),
-                          table=res_com, h_cell=h, tag="residual"))
+                          table=grid.res_com, h_cell=grid.h, tag="residual"))
     return batches
+
+
+def _interaction_batches(X: torch.Tensor, plan: GridPlan) -> list[_Batch]:
+    """Decompose all N(N-1) ordered pairs into interaction batches: far
+    levels l1..D (N, Wf) against each level's centre-of-mass table, the near
+    batch (N, Wn cap) against X and the residual (N, Wn); or, at theta = 0,
+    the one exhaustive batch.
+
+    The weights over all batches sum to exactly n(n-1), the partition
+    invariant `tree_diagnostics` reports as `tree_pairs`."""
+    n = X.shape[0]
+    if plan.exhaustive:
+        dev = X.device
+        rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+        J = (rows + torch.arange(1, n, dtype=torch.int32, device=dev)[None, :]
+             ) % n
+        return [_Batch(idx=J, w=torch.ones((n, n - 1), dtype=torch.float32,
+                                           device=dev),
+                       table=X, h_cell=0.0, tag="exhaustive")]
+    return _expand(X, _grid_state(X, plan))
 
 
 # -- repulsion + diagnostics ---------------------------------------------------
@@ -298,24 +351,43 @@ def _apply_chunked(X: torch.Tensor, batch: _Batch, kind: str, chunk: int,
     return s, F
 
 
+def _tree_repulsion_batched(X: torch.Tensor, plan: GridPlan, kind: str,
+                            **kernel_args
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`tree_repulsion` through the materialised batches, one
+    `ops.bh_interaction` call a chunk: theta = 0's path, and the yardstick
+    the fused kernel is held to bit for bit."""
+    s = torch.zeros((), dtype=torch.float32, device=X.device)
+    F = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+    for b in _interaction_batches(X, plan):
+        si, Fi = _apply_chunked(X, b, kind, plan.chunk, kernel_args)
+        s = s + torch.sum(si)
+        F = F + Fi
+    return s, F
+
+
 def tree_repulsion(X: torch.Tensor, plan: GridPlan, kind: str,
                    **kernel_args) -> tuple[torch.Tensor, torch.Tensor]:
     """Deterministic repulsive terms from the grid decomposition: ``s`` (0-d,
     the full ordered-pair repulsive sum; for normalized kinds the partition
     function Z, exact up to cell aggregation) and ``F = L(b) X`` (N, d).
     The grid is rebuilt from X every call (X moves every iteration).
-    `kernel_args` forward to `kernels.ops.bh_interaction` (impl,
-    storage_dtype)."""
+    `kernel_args` forward to `kernels.ops` (impl, storage_dtype).
+
+    With theta > 0 one call of `ops.bh_tree` computes the whole evaluation
+    from the grid state: on CUDA (impl "auto" or "kernel") one launch of the
+    fused kernel, which gives the per-batch path's bits; on the CPU or
+    under impl "torch" its plain version.  theta = 0 materialises the one
+    exhaustive batch and runs it through `ops.bh_interaction`."""
     if X.dim() != 2 or X.shape[1] != 2:
         raise ValueError(
             f"the tree backend is 2-D only (quadtree), got d={X.shape[-1]}")
-    batches = _interaction_batches(X, plan)
+    if plan.exhaustive:
+        return _tree_repulsion_batched(X, plan, kind, **kernel_args)
+    s_rows, F = ops.bh_tree(_grid_state(X, plan), kind, **kernel_args)
     s = torch.zeros((), dtype=torch.float32, device=X.device)
-    F = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
-    for b in batches:
-        si, Fi = _apply_chunked(X, b, kind, plan.chunk, kernel_args)
-        s = s + torch.sum(si)
-        F = F + Fi
+    for s_b in s_rows:
+        s = s + torch.sum(s_b)
     return s, F
 
 
@@ -328,8 +400,8 @@ def energy_and_grad_tree(X: torch.Tensor, saff, lam, kind: str,
     grid far-field repulsion.  No random draw and no EMA: the partition
     function of the normalized kinds is the tree sum itself, and the 1/Z
     gradient factor uses it directly.  `kernel_args` forward to
-    `kernels.ops.bh_interaction`; the gradient's ELL products take their
-    `impl` (in float32 storage, as the sparse objective's)."""
+    `tree_repulsion`; the gradient's ELL products take their `impl` (in
+    float32 storage, as the sparse objective's)."""
     from repro_torch.core.objectives import (is_normalized,
                                              sparse_attractive_lap,
                                              sparse_attractive_terms)

@@ -45,7 +45,7 @@ from repro.sparse import farfield as jfar
 from repro.sparse import sparse_affinities as jsparse_affinities
 from repro_torch import convert
 from repro_torch.api import Embedding, EmbedSpec
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import (KINDS, bh_interaction_ref,
                                      negative_pair_terms)
 from repro_torch.sparse import (GridPlan, energy_and_grad_tree,
@@ -294,6 +294,185 @@ def test_self_spill_drops_the_point_itself():
         assert vals.tolist() == [count - plan.cap - 1, count - plan.cap]
         assert freq.tolist() == [count - plan.cap, plan.cap]
     assert spilled >= 3
+
+
+# -- the grid state and its expansion ------------------------------------------
+
+
+def _lattice(depth):
+    """(2^depth + 1)^2 points on the lines of a 2^depth grid over [0, 19]^2,
+    in float32: each coordinate k 19 / 2^depth lies within rounding of a
+    cell boundary (the box is widened by 1e-6), so float32 decides its
+    cell."""
+    G = 1 << depth
+    k = np.arange(G + 1, dtype=np.float32) * np.float32(19.0 / G)
+    return np.stack(np.meshgrid(k, k, indexing="ij"), -1).reshape(-1, 2)
+
+
+def _state_case(case, theta):
+    """(X, plan kwargs): a clustered cloud at the default cap, the same with
+    cap = 2 (most cells spill into the residual), and the lattice."""
+    if case == "lattice":
+        n = 289                       # the default plan: depth 4 at theta
+        depth = make_grid_plan(n, theta=theta).depth
+        X = _lattice(depth)
+        assert X.shape[0] == (2 ** depth + 1) ** 2
+        return X, {"theta": theta}
+    X = _cloud(600, seed=5)
+    return X, {"theta": theta, **({"cap": 2} if case == "small-cap" else {})}
+
+
+STATE_CASES = [(theta, case) for theta in (0.5, 1.0, 0.34)
+               for case in ("cloud", "small-cap", "lattice")]
+
+
+@pytest.mark.parametrize("theta,case", STATE_CASES)
+def test_grid_state_expansion_matches_jax(theta, case):
+    """`_interaction_batches` = the expansion of `_grid_state`: every batch's
+    idx and w equal the reference's exactly (tables to the cumsum rounding),
+    over opening angles, residual spill and points on cell boundaries; the
+    state itself holds no (N, W) tensor."""
+    X, kw = _state_case(case, theta)
+    n = X.shape[0]
+    plan = make_grid_plan(n, **kw)
+    grid = pfar._grid_state(_t(X), plan)
+    for f in dataclasses.fields(grid):
+        for t in (getattr(grid, f.name) if f.name.startswith("level_")
+                  else [getattr(grid, f.name)]):
+            if isinstance(t, torch.Tensor):
+                assert t.dim() <= 1 or t.shape[1] == 2, (f.name, t.shape)
+    assert grid.n_batches == plan.depth - plan.l1 + 3
+    jb = jfar._interaction_batches(jnp.asarray(X), jfar.make_grid_plan(n, **kw))
+    pb = pfar._interaction_batches(_t(X), plan)
+    assert [b.tag for b in pb] == [b.tag for b in jb]
+    atol = _table_atol(X, plan)
+    for got, want in zip(pb, jb):
+        np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx),
+                                      err_msg=got.tag)
+        np.testing.assert_array_equal(got.w.numpy(), np.asarray(want.w),
+                                      err_msg=got.tag)
+        np.testing.assert_allclose(got.table.numpy(), np.asarray(want.table),
+                                   rtol=0, atol=atol, err_msg=got.tag)
+        np.testing.assert_allclose(float(got.h_cell), float(want.h_cell),
+                                   rtol=0)
+    assert float(tree_diagnostics(_t(X), plan)["tree_pairs"]) == n * (n - 1)
+    if case == "small-cap":
+        assert float(pb[-1].w.sum()) > 0
+
+
+@pytest.mark.parametrize("theta,case", STATE_CASES)
+def test_tree_slots_are_the_batches_in_sorted_order(theta, case):
+    """The fused kernel's slot arithmetic, written out in torch per sorted
+    position p (`ref.tree_slots`: the far test from the cell id's shifted
+    coords, the near self mask pos == p, the residual self-spill from
+    p - starts[cid]), equals the reference's batches row for row: far and
+    residual idx and w at row perm[p], near w likewise and near idx through
+    perm."""
+    X, kw = _state_case(case, theta)
+    n = X.shape[0]
+    plan = make_grid_plan(n, **kw)
+    grid = pfar._grid_state(_t(X), plan)
+    perm = grid.perm.numpy()
+    assert np.all(np.diff(grid.cids.numpy()) >= 0)
+    jb = jfar._interaction_batches(jnp.asarray(X), jfar.make_grid_plan(n, **kw))
+    slots = ref.tree_slots(grid)
+    assert len(slots) == grid.n_batches == len(jb)
+    for (tag, idx, w, table), want in zip(slots, jb):
+        assert tag == want.tag
+        got_idx = perm[idx.numpy()] if tag == "near" else idx.numpy()
+        np.testing.assert_array_equal(got_idx, np.asarray(want.idx)[perm],
+                                      err_msg=tag)
+        np.testing.assert_array_equal(w.numpy(), np.asarray(want.w)[perm],
+                                      err_msg=tag)
+        if tag == "near":
+            assert table is grid.Xs
+            # no listed slot of a row is its own sorted position
+            rows = np.arange(n)[:, None]
+            assert not np.any((idx.numpy() == rows) & (w.numpy() > 0))
+
+
+def _spilling_cloud(n, seed):
+    """`_cloud(n)` and three points repeated 40 times each: at the default
+    cap (16) their cells spill 24 points into the residual, self included."""
+    rng = np.random.default_rng(seed)
+    dup = np.repeat(rng.normal(size=(3, 2)).astype(np.float32), 40, axis=0)
+    return np.concatenate([_cloud(n, seed=seed), dup])
+
+
+@pytest.mark.parametrize("theta,depth", [(0.5, 7), (0.5, 8), (0.34, 8)])
+def test_batches_and_slots_match_jax_at_depth(theta, depth):
+    """At the main path's depth (N = 70000 plans depth 8; 7 and 8 here, at
+    the default cap, with cells that spill), both derivations of the slots
+    equal the reference's batches exactly: `_interaction_batches` (whole
+    (N, W) gathers, rows in X's order) and `ref.tree_slots` (the fused
+    kernel's per-sorted-position arithmetic, rows at perm[p], near idx
+    through perm)."""
+    X = _spilling_cloud(3000, seed=8)
+    n = X.shape[0]
+    kw = {"theta": theta, "depth": depth}
+    plan = make_grid_plan(n, **kw)
+    assert plan.depth == depth and plan.cap == 16
+    jb = jfar._interaction_batches(jnp.asarray(X), jfar.make_grid_plan(n, **kw))
+    pb = pfar._interaction_batches(_t(X), plan)
+    grid = pfar._grid_state(_t(X), plan)
+    perm = grid.perm.numpy()
+    slots = ref.tree_slots(grid)
+    assert [b.tag for b in pb] == [b.tag for b in jb] == [t[0] for t in slots]
+    assert float(np.asarray(jb[-1].w).sum()) >= 3 * 24
+    for got, (tag, idx, w, _), want in zip(pb, slots, jb):
+        want_idx, want_w = np.asarray(want.idx), np.asarray(want.w)
+        np.testing.assert_array_equal(got.idx.numpy(), want_idx, err_msg=tag)
+        np.testing.assert_array_equal(got.w.numpy(), want_w, err_msg=tag)
+        slot_idx = perm[idx.numpy()] if tag == "near" else idx.numpy()
+        np.testing.assert_array_equal(slot_idx, want_idx[perm], err_msg=tag)
+        np.testing.assert_array_equal(w.numpy(), want_w[perm], err_msg=tag)
+    assert float(sum(b.w.double().sum() for b in pb)) == n * (n - 1)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("theta", [0.5, 1.0, 0.34])
+@pytest.mark.parametrize("kind", KINDS)
+def test_bh_tree_plain_matches_batched_path(kind, theta, storage):
+    """`ops.bh_tree` on CPU tensors (its plain version, `ref.bh_tree_ref`)
+    gives each batch's s row and the summed F of the per-batch path
+    (`_apply_chunked` over the materialised batches, the same slices in the
+    same order), at rtol 1e-6: the same float32 terms, summed alike.
+    `tree_repulsion` on CPU takes it: its F and s are those of the call."""
+    X = _t(_cloud(600, seed=6))
+    plan = make_grid_plan(600, theta=theta, cap=3)
+    s_rows, F = ops.bh_tree(pfar._grid_state(X, plan), kind,
+                            storage_dtype=storage)
+    assert ops.last_dispatch("bh_tree") == {
+        "path": "torch", "reason": "cpu-tensor", "storage": storage}
+    batches = pfar._interaction_batches(X, plan)
+    assert s_rows.shape == (len(batches), 600) and F.shape == (600, 2)
+    F_want = torch.zeros_like(F)
+    for row, b in zip(s_rows, batches):
+        s_b, F_b = pfar._apply_chunked(X, b, kind, plan.chunk,
+                                       {"storage_dtype": storage})
+        _close(row.numpy(), s_b.numpy(), rtol=1e-6, floor=1e-7)
+        F_want = F_want + F_b
+    _close(F.numpy(), F_want.numpy(), rtol=1e-6, floor=1e-7)
+    s, F_tree = tree_repulsion(X, plan, kind, storage_dtype=storage)
+    assert ops.last_dispatch("bh_tree")["path"] == "torch"
+    assert torch.equal(F_tree, F)
+    s_want = torch.zeros((), dtype=torch.float32)
+    for row in s_rows:
+        s_want = s_want + torch.sum(row)
+    assert torch.equal(s, s_want)
+
+
+def test_bh_tree_rejects_what_it_cannot_take():
+    X = _t(_cloud(64, seed=7))
+    grid = pfar._grid_state(X, make_grid_plan(64))
+    with pytest.raises(ValueError, match="kind"):
+        ops.bh_tree(grid, "nope")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.bh_tree(grid, "ee", impl="kernel")
+    with pytest.raises(ValueError, match="storage_dtype"):
+        ops.bh_tree(grid, "ee", storage_dtype="float16")
+    with pytest.raises(ValueError, match="exhaustive"):
+        pfar._grid_state(X, make_grid_plan(64, theta=0.0))
 
 
 def test_tree_repulsion_rejects_non_2d():

@@ -20,7 +20,9 @@ cell-interaction kernel is held at
 the tolerance of tests/test_farfield.py:192-195 (rtol 5e-5) with an
 absolute part of 5e-5 max|.| plus 5e-5 sum_j |w b (x_n - c_j)| for the
 entries that cancel, against the float64 oracle on the same storage-rounded
-inputs, with the Epanechnikov support-edge slack.
+inputs, with the Epanechnikov support-edge slack.  The fused tree
+evaluation (`bh_tree`) is held bit for bit to the per-batch kernel path
+(the same sums in the same order), and to its plain version at rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -419,12 +421,101 @@ def test_cuda_bh_kernel_rejects_what_it_cannot_take(cuda_device):
                                                     device=cuda_device), "ee")
 
 
+def _tree_cloud(n, seed):
+    """Four clusters of uneven occupancy, float32 (as the CPU tests'
+    `_cloud`)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(4, 2)) * 2.0
+    return (centers[np.arange(n) % 4]
+            + rng.normal(size=(n, 2)) * 0.4).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", [0.5, 1.0, 0.34])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ref.KINDS)
+def test_cuda_bh_tree_matches_per_batch_kernel(cuda_device, kind, storage,
+                                               theta):
+    """One launch of the fused kernel gives every batch's s row and the
+    summed F of the per-batch kernel path (`bh_rows` over the materialised
+    batches, chunk by chunk) bit for bit, at the default cap and at cap = 2
+    (most cells spill into the residual); `tree_repulsion` takes it and
+    equals `_tree_repulsion_batched` bit for bit; it is within rtol 1e-4 of
+    its plain version."""
+    from repro_torch.sparse import farfield as ff
+
+    X = torch.from_numpy(_tree_cloud(3000, seed=11)).to(cuda_device)
+    for cap in (0, 2):
+        plan = ff.make_grid_plan(3000, theta=theta, cap=cap)
+        grid = ff._grid_state(X, plan)
+        before = dict(farfield.launch_counts)
+        s_rows, F = ops.bh_tree(grid, kind, storage_dtype=storage)
+        torch.cuda.synchronize()
+        assert farfield.launch_counts["bh_tree"] == before["bh_tree"] + 1
+        assert farfield.launch_counts["bh_interaction"] == before[
+            "bh_interaction"]
+        assert ops.last_dispatch("bh_tree")["path"] == "kernel"
+        batches = ff._interaction_batches(X, plan)
+        assert s_rows.shape == (len(batches), 3000)
+        F_want = torch.zeros_like(F)
+        for row, b in zip(s_rows, batches):
+            s_b, F_b = ff._apply_chunked(X, b, kind, plan.chunk,
+                                         {"storage_dtype": storage})
+            assert torch.equal(row, s_b), (b.tag, cap)
+            F_want = F_want + F_b
+        assert torch.equal(F, F_want), cap
+        if cap == 2:
+            assert float(batches[-1].w.sum()) > 0
+        s, F_tree = ff.tree_repulsion(X, plan, kind, storage_dtype=storage)
+        s_b, F_b = ff._tree_repulsion_batched(X, plan, kind,
+                                              storage_dtype=storage)
+        assert torch.equal(s, s_b) and torch.equal(F_tree, F_b)
+        ps, pF = ops.bh_tree(grid, kind, storage_dtype=storage, impl="torch")
+        np.testing.assert_allclose(s_rows.sum(1).cpu().numpy(),
+                                   ps.sum(1).cpu().numpy(), rtol=1e-4,
+                                   atol=1e-30)
+        if kind != "epan":   # epan's b = [t < 1] may flip at t = 1 +- ulp
+            scale = float(pF.abs().max())
+            np.testing.assert_allclose(F.cpu().numpy(), pF.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5 * scale)
+        again = ops.bh_tree(grid, kind, storage_dtype=storage)
+        assert torch.equal(again[0], s_rows) and torch.equal(again[1], F)
+
+
+@pytest.mark.cuda
+def test_cuda_bh_tree_rejects_what_it_cannot_take(cuda_device):
+    import dataclasses
+
+    from repro_torch.kernels.farfield import bh_tree_cuda
+    from repro_torch.sparse import farfield as ff
+
+    X = torch.from_numpy(_tree_cloud(256, seed=12)).to(cuda_device)
+    grid = ff._grid_state(X, ff.make_grid_plan(256))
+    with pytest.raises(ValueError, match="d = 2 only"):
+        bh_tree_cuda(dataclasses.replace(
+            grid, Xs=torch.zeros((256, 3), device=cuda_device)), "ee")
+    with pytest.raises(TypeError, match="storage dtype"):
+        bh_tree_cuda(dataclasses.replace(grid, res_com=grid.res_com.bfloat16()),
+                     "ee")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bh_tree_cuda(ff._grid_state(X.cpu(), ff.make_grid_plan(256)), "ee")
+    with pytest.raises(ValueError, match="exhaustive"):
+        bh_tree_cuda(dataclasses.replace(grid, r=0), "ee")
+    with pytest.raises(ValueError, match="kind"):
+        bh_tree_cuda(grid, "nope")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.bh_tree(ff._grid_state(X.cpu(), ff.make_grid_plan(256)), "ee",
+                    impl="kernel")
+
+
 @pytest.mark.cuda
 def test_cuda_tree_fit_launches_follow_impl(cuda_device):
-    """A tree fit launches the cell-interaction kernel once per chunk of
-    every batch of every evaluation; kernel_impl="torch" launches neither it
-    nor an ELL kernel; a rerun is bit-identical."""
+    """A tree fit launches the fused kernel once an evaluation and the
+    per-batch kernel never; kernel_impl="torch" launches no kernel at all;
+    a rerun is bit-identical, and so is a rerun through the per-batch kernel
+    path (`_tree_repulsion_batched`, one launch a chunk)."""
     from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.sparse import farfield as ff
     from repro_torch.sparse import make_grid_plan
 
     rng = np.random.default_rng(0)
@@ -433,20 +524,32 @@ def test_cuda_tree_fit_launches_follow_impl(cuda_device):
                      n_neighbors=15, max_iters=3, tol=0.0)
     farfield.reset_launch_counts()
     emb = Embedding(spec, device=cuda_device).fit(Y)
-    plan = make_grid_plan(300)
-    near_width = (2 * plan.r + 1) ** 2 * plan.cap
-    near_chunks = (near_width + plan.chunk - 1) // plan.chunk
-    per_eval = (plan.depth - plan.l1 + 1) + near_chunks + 1   # + residual
     evals = int(emb.result_.n_fevals[-1])
-    assert farfield.launch_counts["bh_interaction"] == per_eval * evals
+    assert farfield.launch_counts == {"bh_interaction": 0, "bh_tree": evals}
     farfield.reset_launch_counts()
     sparse_attractive.reset_launch_counts()
     plain = Embedding(spec.replace(kernel_impl="torch"), device=cuda_device
                       ).fit(None, X0=emb.X0_, saff=emb.affinities_)
-    assert farfield.launch_counts["bh_interaction"] == 0
+    assert not any(farfield.launch_counts.values())
     assert not any(sparse_attractive.launch_counts.values())
     np.testing.assert_allclose(plain.result_.energies, emb.result_.energies,
                                rtol=1e-4)
     again = Embedding(spec, device=cuda_device).fit(None, X0=emb.X0_,
                                                     saff=emb.affinities_)
     assert torch.equal(again.embedding_, emb.embedding_)
+    fused = ff.tree_repulsion
+    ff.tree_repulsion = ff._tree_repulsion_batched
+    try:
+        farfield.reset_launch_counts()
+        batched = Embedding(spec, device=cuda_device).fit(
+            None, X0=emb.X0_, saff=emb.affinities_)
+    finally:
+        ff.tree_repulsion = fused
+    plan = make_grid_plan(300)
+    near_width = (2 * plan.r + 1) ** 2 * plan.cap
+    near_chunks = (near_width + plan.chunk - 1) // plan.chunk
+    per_eval = (plan.depth - plan.l1 + 1) + near_chunks + 1   # + residual
+    assert farfield.launch_counts == {"bh_interaction": per_eval * evals,
+                                      "bh_tree": 0}
+    assert np.array_equal(batched.result_.energies, emb.result_.energies)
+    assert torch.equal(batched.embedding_, emb.embedding_)
