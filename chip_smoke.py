@@ -15,8 +15,9 @@ Phases, each printing one line (or a few) and failing the run on error:
               bfloat16, N in {1000, 4096, 4097}, k in {1, 24, 40, 90, 229,
               386} (every lane-slot bucket of the direct gather and its
               passes of 256 slots), d in {1, 2, 3, 4, 8}, with padding
-              slots, all-padding rows and a repeated column.  Reruns must
-              be bit-identical.
+              slots, all-padding rows, a repeated column and self loops.
+              Reruns must be bit-identical, and the staged gather (hbm)
+              must give the direct gather's (vmem) bits.
   4. fit    — slice 1's main path at full width: `Embedding(EmbedSpec(
               backend="dense", strategy="sd"))` on MNIST-shaped data
               (N = 20000, D = 784, perplexity 30), EE (lambda = 100,
@@ -41,10 +42,12 @@ Phases, each printing one line (or a few) and failing the run on error:
               counter must grow, the energies must be finite with the last
               surrogate below the first, and the first three iterations
               must match a kernel_impl="torch" run with the same draws at
-              rtol 1e-4; that run must launch no ELL kernel.  Then the EE
-              fit's objective again with the CG operator on the hbm layout
-              (the staged gather; `build_sparse_objective(ell_layout=)`,
-              which no user option selects), driven by the same engine.
+              rtol 1e-4; that run must launch no ELL kernel.  The default
+              fits launch the default layout (`ops.ELL_DEFAULT_LAYOUT`)
+              only.  Then the EE fit's objective again with the CG operator
+              on the other layout (`build_sparse_objective(ell_layout=)`,
+              which no user option selects), driven by the same engine:
+              its energies must be the default fit's, bit for bit.
   8. time_ell — each ELL layout on the fits' forward and reverse graphs,
               float32 and bfloat16: device time by CUDA-graph replay and
               eager time, the memory bound, the plain version and
@@ -54,7 +57,13 @@ Phases, each printing one line (or a few) and failing the run on error:
               bytes); on the EE forward graph, the vmem kernel again with
               every index set to its own row (the graph streamed, no
               scattered gather) and folded into rows [0, 1024) (every
-              gather an L1 hit): what the gathers cost.
+              gather an L1 hit): what the gathers cost.  Beside the hbm
+              time, its gathers (the slots not of the row's own index),
+              its share of the bound and the staged gather's first
+              design's time; then the layout that the rule "the staged
+              gather wins on every graph and storage" picks, beside the
+              default (`ops.ELL_DEFAULT_LAYOUT`, set by hand; the closing
+              summary warns when the two differ).
   9. profile_sparse — three sparse t-SNE SD iterations under
               torch.profiler: device time by kernel and the idle share.
  10. check_bh — the Barnes-Hut cell-interaction kernel against its float64
@@ -628,7 +637,9 @@ ELL_LAYOUTS = ("vmem", "hbm")
 def ell_problem(n: int, k: int, d: int, seed: int, device) -> tuple:
     """X (n, d), an ELL graph idx (n, k) int32 and weights (n, k) >= 0 with
     the cases the contract names: every 7th slot a padding slot (self, 0),
-    rows 3 and 4 all padding, and row 5 one column repeated."""
+    rows 3 and 4 all padding, row 5 one column repeated, and self loops
+    (the row's own index with a non-zero weight) at every 11th slot from 2
+    and in every slot of row 6."""
     g = torch.Generator(device=device).manual_seed(seed)
     X = torch.randn((n, d), generator=g, device=device)
     idx = torch.randint(0, n, (n, k), generator=g, device=device,
@@ -638,8 +649,11 @@ def ell_problem(n: int, k: int, d: int, seed: int, device) -> tuple:
     pad = torch.zeros((n, k), dtype=torch.bool, device=device)
     pad[:, 3::7] = True
     pad[3:5] = True
-    idx = torch.where(pad, rows, idx)
-    w = torch.where(pad, 0.0, w)
+    loop = torch.zeros_like(pad)
+    loop[:, 2::11] = True
+    loop[6] = True
+    idx = torch.where(pad | loop, rows, idx)
+    w = torch.where(pad, 0.0, torch.where(loop, w + 0.5, w))
     idx[5] = (5 + 1) % n
     return X, idx, w
 
@@ -685,9 +699,11 @@ def phase_check_ell() -> None:
                     Xs, ws = ops.to_storage(X, storage), ops.to_storage(
                         w, storage)
                     want = ell_plain64(X, idx, w, storage)
+                    outs = {}
                     for layout in ELL_LAYOUTS:
                         got = ell_lap_matvec_cuda(Xs, idx, ws, layout=layout)
                         torch.cuda.synchronize()
+                        outs[layout] = got
                         case = f"n={n} k={k} d={d} {storage} {layout}"
                         try:
                             _, ratio = ell_compare(got, want)
@@ -704,13 +720,18 @@ def phase_check_ell() -> None:
                                                  f"at {case}")
                         worst = max(worst, ratio)
                         n_ok += 1
+                    if not torch.equal(outs["hbm"], outs["vmem"]):
+                        raise AssertionError(
+                            f"staged != direct gather at n={n} k={k} d={d} "
+                            f"{storage}: max diff {float((outs['hbm'] - outs['vmem']).abs().max()):.3e}")
     say("check", f"ELL: {n_ok} cases (N in 1000/4096/4097 x k in "
                  f"1/24/40/90/229/386 x d in 1/2/3/4/8 x f32/bf16 x "
                  f"vmem/hbm, with "
                  f"padding slots, all-padding rows and a repeated column) "
                  f"match the float64 plain version, reruns bit-identical, "
-                 f"padding rows exactly 0; worst error at {worst:.2f} of its "
-                 f"bound")
+                 f"padding rows exactly 0, the staged gather (hbm) equal to "
+                 f"the direct gather (vmem) bit for bit; worst error at "
+                 f"{worst:.2f} of its bound")
 
 
 def _graph_stats(g) -> str:
@@ -725,7 +746,7 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
     from repro_torch.data import mnist_like
     from repro_torch.embed.engine import fit_loop, make_loop_config
     from repro_torch.embed.trainer import build_sparse_objective
-    from repro_torch.kernels import sparse_attractive
+    from repro_torch.kernels import ops, sparse_attractive
 
     t0 = time.perf_counter()
     Y, _ = mnist_like(n=n, dim=784, seed=0)
@@ -739,7 +760,10 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
                            strategy="sd", n_negatives=5, max_iters=iters,
                            tol=0.0)),
     ]
-    out = {"launches": {"vmem": 0}, "fits": {}, "Y": Y}
+    default = ops.ELL_DEFAULT_LAYOUT
+    other, = (lay for lay in ELL_LAYOUTS if lay != default)
+    out = {"launches": {default: 0}, "fits": {}, "Y": Y, "default": default,
+           "other": other}
     for kind, spec in configs:
         sparse_attractive.reset_launch_counts()
         diags = []
@@ -752,10 +776,11 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
         if emb.backend_ != "sparse":
             raise AssertionError(f"{kind}: backend='auto' resolved to "
                                  f"{emb.backend_!r} at N={n}")
-        if counts["ell_lap_matvec_vmem"] < 1 or counts["ell_lap_matvec_hbm"]:
+        if (counts[f"ell_lap_matvec_{default}"] < 1
+                or counts[f"ell_lap_matvec_{other}"]):
             raise AssertionError(f"{kind}: the default fit's ELL launches "
-                                 f"{counts} (vmem only, at least one)")
-        out["launches"]["vmem"] += counts["ell_lap_matvec_vmem"]
+                                 f"{counts} ({default} only, at least one)")
+        out["launches"][default] += counts[f"ell_lap_matvec_{default}"]
         res = emb.result_
         e = res.energies
         if not np.all(np.isfinite(e)):
@@ -798,34 +823,34 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
                           f"kernel_impl='torch' run (same draws), max rel "
                           f"diff {rel:.2e}")
         out["fits"][kind] = emb
-    # the staged-gather layout on the CG path of the same fit, from the EE
-    # fit's graph and start, through the engine loop that fit_sparse runs;
-    # its launches are reported apart from the default fits'
+    # the other layout on the CG path of the same fit, from the EE fit's
+    # graph and start, through the engine loop that fit_sparse runs; its
+    # launches are reported apart from the default fits'.  Both layouts sum
+    # a row in the same order, so the energies must be the same bits
     emb = out["fits"]["ee"]
     spec = emb.spec
     sparse_attractive.reset_launch_counts()
     t0 = time.perf_counter()
     obj, X0, _ = build_sparse_objective(
         spec, None, emb.X0_, strategy=spec.strategy, saff=emb.affinities_,
-        device=emb.X0_.device, ell_layout="hbm")
-    hbm = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()))
+        device=emb.X0_.device, ell_layout=other)
+    rerun = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(sparse_attractive.launch_counts)
-    if counts["ell_lap_matvec_hbm"] < 1:
-        raise AssertionError(f"ell_layout='hbm': launches {counts}")
-    out["launches_hbm_fit"] = counts
-    eh, ev = hbm.energies, emb.result_.energies
-    rel = float(np.max(np.abs(eh - ev) / np.abs(ev)))
-    if rel > 1e-4:
-        raise AssertionError(f"ell_layout='hbm' {eh} vs vmem {ev} "
-                             f"(rel {rel:.2e})")
-    say("fit_sparse", f"ee with the CG operator on ell_layout='hbm': "
-                      f"{hbm.n_iters} iterations at "
-                      f"{hbm.times[-1] / hbm.n_iters * 1e3:.1f} ms each, wall "
-                      f"{wall:.1f} s; launches {counts} (the gradient's stay "
-                      f"on vmem); energies match the vmem fit, max rel diff "
-                      f"{rel:.2e}")
+    if counts[f"ell_lap_matvec_{other}"] < 1:
+        raise AssertionError(f"ell_layout={other!r}: launches {counts}")
+    out["launches_other_fit"] = counts
+    eo, ed = rerun.energies, emb.result_.energies
+    if not np.array_equal(eo, ed):
+        raise AssertionError(f"ell_layout={other!r} {eo} vs {default} {ed}: "
+                             f"not bit-identical")
+    say("fit_sparse", f"ee with the CG operator on ell_layout={other!r}: "
+                      f"{rerun.n_iters} iterations at "
+                      f"{rerun.times[-1] / rerun.n_iters * 1e3:.1f} ms each, "
+                      f"wall {wall:.1f} s; launches {counts} (the gradient's "
+                      f"stay on the default, {default}); energies "
+                      f"bit-identical to the default fit's")
     return out
 
 
@@ -844,6 +869,26 @@ def _gather_line(n_rows: int, k: int, w, ms: float) -> str:
     return (f"gathers N k = {n_g} ({real} with w != 0), their L2 sectors "
             f"{sectors / 1e6:.1f} MB: {sectors / (ms * 1e-3) / 1e12:.2f} "
             f"TB/s if every gather missed L1")
+
+
+#: the staged gather's first design (one double-buffered chunk of rows a
+#: block, two block barriers a chunk), device time a call by this script's
+#: phase time_ell on the EE fit's graphs, NVIDIA H100 80GB HBM3 at 700 W
+STAGED_BEFORE_US = {("forward", "float32"): 68.3,
+                    ("reverse", "float32"): 171.9,
+                    ("forward", "bfloat16"): 64.4,
+                    ("reverse", "bfloat16"): 117.9}
+
+
+def _staged_line(g, ms: float) -> str:
+    """The staged gather's count beside its time, printed only: it copies
+    the live slots' rows, those whose index is not the row's own."""
+    n, k = g.indices.shape
+    rows = torch.arange(n, device=g.indices.device, dtype=torch.int32)
+    live = int((g.indices != rows[:, None]).sum())
+    return (f"{live} gathers of {n * k} slots (those not of the row's own "
+            f"index), {live * SECTOR_BYTES / (ms * 1e-3) / 1e12:.2f} TB/s of "
+            f"L2 sectors if every one missed L1")
 
 
 #: what a `kernels` entry takes from a timing dict: numbers measured in
@@ -867,7 +912,7 @@ def _laplacian_csr(g):
                                    ).coalesce().to_sparse_csr()
 
 
-def phase_time_ell(fits: dict) -> dict:
+def phase_time_ell(fits: dict) -> tuple[dict, str]:
     """Each ELL layout on the fits' own forward and reverse graphs at
     N = 70000, float32 and bfloat16, with the embedding of the same fit:
     kernel, plain version and torch.sparse.mm on the CSR Laplacian, each
@@ -933,7 +978,13 @@ def phase_time_ell(fits: dict) -> dict:
                                     f" us (its err {lib_err:.2e}); max abs "
                                     f"err {err:.2e} at {ratio:.2f} of its "
                                     f"bound")
-                    if layout != "vmem":
+                    if layout == "hbm":
+                        before = STAGED_BEFORE_US[gname, storage]
+                        say("time_ell", f"  hbm: {_staged_line(g, ms)}; "
+                                        f"{bound_ms / ms * 100:.0f}% of the "
+                                        f"bound; the first design "
+                                        f"{before:.1f} us ("
+                                        f"{before * 1e-3 / ms:.2f}x this)")
                         continue
                     say("time_ell", f"  vmem: "
                                     f"{_gather_line(n, k, g.weights, ms)}")
@@ -955,7 +1006,14 @@ def phase_time_ell(fits: dict) -> dict:
                                         f"into rows [0, 1024) (each gather "
                                         f"an L1 hit): {near_ms * 1e3:.1f} "
                                         f"us")
-    return out
+    wins = [key for key in out if key[3] == "hbm"
+            and out[key]["ms"] < out[(*key[:3], "vmem")]["ms"]]
+    rule = "hbm" if len(wins) == len(out) // 2 else "vmem"
+    say("time_ell", f"the staged gather beat the direct one on {len(wins)} "
+                    f"of the {len(out) // 2} graphs and storages, so the "
+                    f"rule (faster on all) picks {rule!r}; the default is "
+                    f"{ops.ELL_DEFAULT_LAYOUT!r}")
+    return out, rule
 
 
 def phase_profile_sparse(emb, iters: int = 3) -> None:
@@ -2227,7 +2285,7 @@ def main() -> int:
     del fit
     torch.cuda.empty_cache()
     sparse = phase_fit_sparse()
-    timing_ell = phase_time_ell(sparse["fits"])
+    timing_ell, ell_rule = phase_time_ell(sparse["fits"])
     phase_profile_sparse(sparse["fits"]["tsne"])
     phase_check_bh()
     tree = phase_fit_tree(sparse["fits"])
@@ -2241,6 +2299,13 @@ def main() -> int:
     phase_profile_sharded(sharded["fits"]["tsne"], sharded["mesh"])
     dist.destroy_process_group()
     say("done", f"{time.perf_counter() - t_start:.1f} s")
+    from repro_torch.kernels.ops import ELL_DEFAULT_LAYOUT
+    if ell_rule != ELL_DEFAULT_LAYOUT:
+        # the constant is set by hand from a run's numbers, so a run that
+        # reads the other way says so here, where the summary is read
+        say("done", f"WARNING: time_ell's rule (staged faster on all eight "
+                    f"graphs and storages) picks {ell_rule!r}, but "
+                    f"ops.ELL_DEFAULT_LAYOUT is {ELL_DEFAULT_LAYOUT!r}")
 
     f32 = timing["tsne", "float32"]     # the costlier main-path kind
     if fit_launches < 1:
@@ -2251,13 +2316,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/pairwise.py:131",
         "launches": fit_launches, **kernel_numbers(f32)}]
     # the ELL kernels at the wider of the main path's two graphs: the EE
-    # fit's reverse graph, float32.  vmem's launches are the two default
-    # fits'; hbm's come from the EE fit with its CG operator on that layout
-    # (the default path selects vmem)
-    launches = {"vmem": (sparse["launches"]["vmem"],
-                         "the default EE and t-SNE sparse fits"),
-                 "hbm": (sparse["launches_hbm_fit"]["ell_lap_matvec_hbm"],
-                         "the EE sparse fit with ell_layout='hbm'")}
+    # fit's reverse graph, float32.  The default layout's launches are the
+    # two default fits'; the other's come from the EE fit run again with its
+    # CG operator on that layout
+    default, other = sparse["default"], sparse["other"]
+    launches = {default: (sparse["launches"][default],
+                          "the default EE and t-SNE sparse fits"),
+                other: (sparse["launches_other_fit"][
+                    f"ell_lap_matvec_{other}"],
+                        f"the EE sparse fit with ell_layout={other!r}")}
     for layout, line in (("vmem", 96), ("hbm", 186)):
         t = timing_ell["ee", "reverse", "float32", layout]
         n_launch, origin = launches[layout]

@@ -256,9 +256,11 @@ def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",
     seconds: the graph build's steps (``knn_s``, ``calibrate_s``,
     ``reverse_s``) and ``spectral_init_s``.  The CG operator runs the ELL
     kernel with the spec's kernel arguments (impl, bf16 storage) and the
-    layout `ell_layout` (None: ``vmem``; ``hbm`` is the staged gather, which
-    no user option selects); the gradient's ELL products take only the
-    spec's impl and stay in float32 storage, as the reference's do.
+    layout `ell_layout` (None: `kernels.ops.ELL_DEFAULT_LAYOUT`, ``vmem``;
+    ``hbm`` is the staged gather, the same bits, which no user option
+    selects); the gradient's ELL products take only the spec's impl and
+    the default layout, and stay in float32 storage, as the reference's
+    do.
 
     `sharded=True` row-shards the graph over `mesh` (a `launch.mesh.Mesh`;
     `mspec` names its row axes, by default every axis but the last) and

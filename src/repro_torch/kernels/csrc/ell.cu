@@ -76,29 +76,54 @@
 //     against its 15.4 us byte bound.  Staging X in the distributed shared
 //     memory of a cluster of 2-8 blocks, gathered with ld.shared::cluster,
 //     was slower still.
-//   * "hbm" (staged gather).  A block walks its rows in chunks of one row a
-//     group.  The chunk's indices, then its k neighbour rows a row, are
-//     copied into a double-buffered shared-memory ring with cp.async: while
-//     chunk c is reduced from shared memory, chunk c + 1's rows and chunk
-//     c + 2's indices are in flight, which is what the TPU kernel's DMA
-//     double buffer does.  On Hopper X never has to leave device memory for
-//     capacity, so this layout pays only if the asynchronous copies hide
-//     the gather latency better than the direct loads do; it is kept, checked
-//     and timed beside "vmem".  cp.async moves 4-byte words: one element in
-//     float32, a pair in bfloat16 when d is even.  bfloat16 rows of odd d
-//     are not word-aligned and are staged with plain loads (no overlap).
+//   * "hbm" (staged gather, `ell_gather_staged`).  Hopper's way to keep
+//     many gathers in flight without spending registers on them: a lane
+//     copies its slots' rows into shared memory with cp.async and adds them
+//     later.  A warp walks a span of 8 row groups (8 rows at k > 16) as
+//     rounds of one slot a lane, the slots the direct gather gives its
+//     lanes.  Each lane runs its own ring of NS = 3 stages of B = 2 rounds:
+//     a stage's rows are copied NS - 1 stages before they are added, and
+//     its indices and weights are loaded into registers (coalesced,
+//     evict-first) two stages before that; cp.async.wait_group NS - 1 is the
+//     only synchronization, since the lane that copies a cell is the lane
+//     that reads it.  A row is one cp.async of its width (8 bytes in f32 at
+//     d = 2, 4 in bf16), and a slot of the row's own index copies nothing
+//     (its x_n is the row's own, loaded once a row), so the reverse graph
+//     copies its 6.3 M live rows, not its 16.0 M slots.  bf16 rows of odd d
+//     are not 4-byte aligned and are loaded plainly when they are added.
+//     The rings hold a fixed number of slots a lane whatever k is, so any
+//     row width runs.  The slots are added by `add_slot` in the direct
+//     gather's order and reduced by the same butterfly, so the two layouts
+//     give the same bits.  The kernel asks for a 15% shared-memory carveout
+//     (9216 bytes a block at d = 2 in f32, 4608 in bf16), leaving L1 its
+//     room for X.  On an H100 80GB HBM3 at 700 W, N = 70000, d = 2
+//     (`ell_ab.py` at the repo's root, mean of two turns): 61.0 / 79.6 us
+//     on the forward (k = 90) / reverse (k = 229) graph in f32 and
+//     54.8 / 77.2 us in bf16, against the direct gather's 53.4 / 67.3 and
+//     40.8 / 53.8 us, so "vmem" stays the default.  L1 holds it back: the
+//     rings take shared memory from the L1 that caches X, and the larger
+//     first ring (4 stages of 4 rounds, one index stage ahead, one wave of
+//     warps, no carveout) took 77.4 / 104.9 us; the runtime's own carveout
+//     costs 2.2 us forward, 4 rounds a stage 5.6 us; indices one stage
+//     ahead cost 3.8 us on the reverse graph; copying the self slots too
+//     takes the reverse graph to 97.8 us.
+//     ptxas -v: 55 registers at d = 2 in f32 for k > 16, 54 in bf16; 43-70
+//     over the 40 instantiations; four (f32, d = 3 at S = 8, 16 and 32,
+//     d = 4 at S = 8) spill 4-8 bytes; no static shared memory (the rings
+//     are dynamic: 9216 bytes a block at d = 2 in f32, 4608 in bf16).
 //
 // Shared rules:
 //   * The direct gather takes d <= 4 as a template parameter (the paper
 //     embeds in d = 2), so nothing is padded to 128 lanes as on the TPU and
 //     no component is guarded; larger d runs four output dimensions a block
-//     along gridDim.y.  "hbm" takes D = min(d, 4) and guards each column.
+//     along gridDim.y.  "hbm" takes d the same way.
 //   * The row is formed as the TPU kernel forms it, deg * x_n - acc, so the
 //     kernel and the plain version round alike.  A padding slot (self
 //     index, w = 0) adds exactly 0 to both sums; duplicate columns sum.
 //   * No float atomics: every row is summed by one group in a fixed order
-//     (slot j on lane j mod S in increasing j, then the butterfly; the
-//     bucket P does not change it), so reruns are bit-identical.
+//     (slot j on lane j mod S in increasing j, then the butterfly; neither
+//     the bucket P nor the staging changes it), so reruns are bit-identical
+//     and both layouts give the same bits.
 //   * Indices must lie in [0, n_x); the kernels do not check them (the
 //     local-rows wrapper checks each index array once).
 //
@@ -114,9 +139,18 @@ namespace {
 
 constexpr int kThreads = 256;          // "vmem": 8 warps a block
 constexpr int kMinBlocks = 4;          // so <= 64 registers a thread
-constexpr int kHbmThreads = 128;       // "hbm": 4 warps a block
-constexpr int kHbmChunks = 8;          // chunks a block walks
 constexpr int kMaxSmem = 232448;       // dynamic shared memory a block may use
+
+// "hbm".  The ring's shape, the grid and the carveout, fixed by measurement
+// on an H100 (the header above).
+constexpr int kStagedThreads = 128;    // 4 warps a block, a ring each
+constexpr int kStages = 3;             // stages in a lane's ring
+constexpr int kRounds = 2;             // rounds (one slot a lane) in a stage
+constexpr int kAhead = 2;              // stages of indices and weights ahead
+constexpr int kSpan = 8;               // row groups a warp walks
+constexpr int kCarveout = 15;          // percent of L1 asked for shared memory
+static_assert(kStages >= 2 && kRounds >= 1 && kStages * kRounds <= 32,
+              "a lane's ring keeps a bit a round in one word");
 
 // bf16 is carried as its raw 16 bits; widening to f32 is exact.
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -124,16 +158,22 @@ __device__ __forceinline__ float widen(uint16_t h) {
   return __uint_as_float(static_cast<uint32_t>(h) << 16);
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+// cp.async of N bytes (4, 8 or 16), through L1; of the N bytes only
+// src_bytes are read and the rest are zero-filled.
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int src_bytes = N) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(gmem), "n"(N), "r"(src_bytes)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Sum (deg, acc[0..D)) over the S lanes of a group, in a fixed order.
@@ -146,6 +186,16 @@ __device__ __forceinline__ void group_reduce(float& deg, float (&acc)[D]) {
     for (int c = 0; c < D; ++c)
       acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
   }
+}
+
+// One slot's update of a lane's sums.  Both gathers call it, so that the
+// compiler contracts it into the same FMA in each and they round alike.
+template <int D>
+__device__ __forceinline__ void add_slot(float& deg, float (&acc)[D],
+                                         float wj, const float (&v)[D]) {
+  deg += wj;
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] += wj * v[c];
 }
 
 template <typename T, int D>
@@ -241,12 +291,8 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ X,
             load_row<T, D, kSplit>(X, m[g + q], d, c0, xv[q]);
 #pragma unroll
         for (int q = 0; q < G; ++q) {
-          if (j0 + (g + q) * S < k) {
-            const float wj = widen(wv[g + q]);
-            deg += wj;
-#pragma unroll
-            for (int c = 0; c < D; ++c) acc[c] += wj * xv[q][c];
-          }
+          if (j0 + (g + q) * S < k)
+            add_slot<D>(deg, acc, widen(wv[g + q]), xv[q]);
         }
       }
     }
@@ -273,99 +319,215 @@ ell_gather_local(const T* __restrict__ X, const int* __restrict__ idx,
   gather_rows<T, D, kSplit, S, P>(X, idx, w, d, k, row0, n_rows, out);
 }
 
-// "hbm": staged gather through a double-buffered shared-memory ring.
-// Shared memory: sidx[2][CH k] int32, then sx[2][CH k D] in the storage type.
-template <typename T, int D, int S>
-__global__ void __launch_bounds__(kHbmThreads)
+// A staged cell: the gathered row's D values in the storage type, or the
+// row's index where rows are loaded plainly (bf16 at odd d: a row there is
+// not 4-byte aligned, the least cp.async moves).
+template <typename T, int D, bool kSplit>
+constexpr bool kMayCopy = sizeof(T) == 4 || kSplit || D % 2 == 0;
+template <typename T, int D, bool kSplit>
+constexpr int kCellBytes =
+    !kMayCopy<T, D, kSplit> || D * sizeof(T) < 4 ? 4 : D * sizeof(T);
+
+// Copy row x_m (D columns from c0) into `cell`: one cp.async of the row's
+// width (4, 8 or 16 bytes) where the row is that wide, else one a column
+// (f32 at d = 3 or d > 4) or a column pair (bf16 at even d > 4), columns
+// past d zero-filled, not read.
+template <typename T, int D, bool kSplit>
+__device__ __forceinline__ void copy_row(unsigned char* cell,
+                                         const T* __restrict__ X, int m,
+                                         int d, int c0) {
+  if constexpr (kSplit) {
+    constexpr int E = 4 / sizeof(T);     // elements a 4-byte copy moves
+    const T* src = X + static_cast<size_t>(m) * d + c0;
+#pragma unroll
+    for (int c = 0; c < D; c += E) {
+      const bool in = c0 + c < d;
+      cp_async<4>(cell + c * sizeof(T), in ? src + c : X, in ? 4 : 0);
+    }
+  } else if constexpr (D * sizeof(T) == 12) {
+    const T* src = X + static_cast<size_t>(m) * D;
+#pragma unroll
+    for (int c = 0; c < D; ++c) cp_async<4>(cell + 4 * c, src + c);
+  } else if constexpr (kMayCopy<T, D, kSplit>) {
+    cp_async<D * sizeof(T)>(cell, X + static_cast<size_t>(m) * D);
+  }
+}
+
+// A staged row, widened to f32 as `load_row` widens it.
+template <typename T, int D>
+__device__ __forceinline__ void read_cell(const unsigned char* cell,
+                                          float (&v)[D]) {
+  if constexpr (sizeof(T) == 4 && D == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(cell);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else if constexpr (sizeof(T) == 4 && D == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(cell);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else if constexpr (sizeof(T) == 2 && D == 2) {
+    const unsigned a = *reinterpret_cast<const unsigned*>(cell);
+    v[0] = __uint_as_float(a << 16);
+    v[1] = __uint_as_float(a & 0xffff0000u);
+  } else if constexpr (sizeof(T) == 2 && D == 4) {
+    const uint2 a = *reinterpret_cast<const uint2*>(cell);
+    v[0] = __uint_as_float(a.x << 16);
+    v[1] = __uint_as_float(a.x & 0xffff0000u);
+    v[2] = __uint_as_float(a.y << 16);
+    v[3] = __uint_as_float(a.y & 0xffff0000u);
+  } else {
+    const T* e = reinterpret_cast<const T*>(cell);
+#pragma unroll
+    for (int c = 0; c < D; ++c) v[c] = widen(e[c]);
+  }
+}
+
+// A position in a warp's stream of rounds: row group rg, round jr of its row.
+struct Round {
+  int rg = 0, jr = 0;
+  __device__ __forceinline__ void next(int R) {
+    if (++jr == R) {
+      jr = 0;
+      ++rg;
+    }
+  }
+};
+
+// "hbm": the staged gather.  A warp walks a span of rows as a stream of
+// rounds.  In a round each lane holds one slot: slot j = jr S + l % S of row
+// r_begin + rg G + l / S (G = 32 / S groups a warp, R = ceil(k / S) rounds a
+// row), the slot the direct gather gives lane l % S of that row's group.  B
+// rounds make a stage, and each lane runs a ring of NS stages in shared
+// memory: its own cells, one a round, each holding the gathered row (or, for
+// rows loaded plainly, the row's index) and the slot's weight.  Iteration s
+// issues stage s + NS - 1 (the copies of the rows whose indices were loaded
+// L = kAhead iterations before), loads the indices and weights of stage
+// s + NS - 1 + L into the registers that freed, waits until stage s has
+// landed (cp.async.wait_group NS - 1) and adds it.  The lane that copies a
+// cell is the lane that reads it, so the ring needs no barrier.
+template <typename T, int D, bool kSplit, int S>
+__global__ void __launch_bounds__(kStagedThreads)
 ell_gather_staged(const T* __restrict__ X, const int* __restrict__ idx,
                   const T* __restrict__ w, int d, int k, int row0, int n_rows,
                   float* __restrict__ out) {
-  constexpr int CH = kHbmThreads / S;            // rows a chunk, one a group
+  constexpr int G = 32 / S, B = kRounds, NS = kStages, span = kSpan * G;
+  constexpr int CB = kCellBytes<T, D, kSplit>;
+  constexpr int kRing = NS * B * 32;           // cells of a warp's ring
   extern __shared__ __align__(16) unsigned char smem[];
-  int* sidx = reinterpret_cast<int*>(smem);
-  T* sx = reinterpret_cast<T*>(sidx + 2 * CH * k);
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.y * D;
-  const int first = blockIdx.x * CH * kHbmChunks;
-  const int n_chunks = min(kHbmChunks, (n_rows - first + CH - 1) / CH);
-  // the rows of chunk c that exist
-  auto rows_of = [&](int c) { return min(CH, n_rows - first - c * CH); };
+  const int lane = threadIdx.x % 32, grp = lane / S, sl = lane % S;
+  const int warp = threadIdx.x / 32;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * (kStagedThreads / 32) + warp) *
+      span;
+  if (first >= n_rows) return;                 // the whole warp leaves
+  const int r_begin = static_cast<int>(first);
+  const int r_end = static_cast<int>(min(static_cast<long long>(n_rows),
+                                         first + span));
+  const int R = (k + S - 1) / S;
+  const int n_rounds = (r_end - r_begin + G - 1) / G * R;
+  const int n_stages = (n_rounds + B - 1) / B;
+  const int c0 = kSplit ? blockIdx.y * D : 0;
+  const bool copies = kMayCopy<T, D, kSplit> && (sizeof(T) == 4 || d % 2 == 0);
+  unsigned char* xs = smem + warp * kRing * (CB + sizeof(T));
+  T* ws = reinterpret_cast<T*>(xs + kRing * CB);
 
-  auto stage_idx = [&](int c) {
-    const int n = rows_of(c) * k;
-    const int* src = idx + static_cast<size_t>(first + c * CH) * k;
-    int* dst = sidx + (c & 1) * CH * k;
-    for (int e = tid; e < n; e += kHbmThreads) cp_async4(dst + e, src + e);
+  constexpr int L = kAhead;
+  int m[L][B];              // the next L stages' indices (-1: no slot) ...
+  T wv[L][B];               // ... and weights; stage t in set t % L
+  Round ld, is, cs;         // where the loads, the copies and the adds are
+  auto load = [&](int (&mm)[B], T (&ww)[B]) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int r = r_begin + ld.rg * G + grp;
+      const int j = ld.jr * S + sl;
+      const bool live = r < r_end && j < k;
+      const size_t at = static_cast<size_t>(r) * k + j;
+      mm[b] = live ? __ldcs(idx + at) : -1;
+      ww[b] = live ? __ldcs(w + at) : T(0);
+      ld.next(R);
+    }
   };
-  auto stage_x = [&](int c) {
-    const int n = rows_of(c) * k;
-    const int* si = sidx + (c & 1) * CH * k;
-    T* dst = sx + (c & 1) * CH * k * D;
-    for (int s = tid; s < n; s += kHbmThreads) {
-      const T* src = X + static_cast<size_t>(si[s]) * d + c0;
-      T* row = dst + s * D;
-      if constexpr (sizeof(T) == 4) {
+  unsigned self = 0;        // a bit a round in the ring: the row's own slot
+  auto issue = [&](int slot, int pos, const int (&mm)[B],
+                   const T (&ww)[B]) {
 #pragma unroll
-        for (int c = 0; c < D; ++c)
-          if (c0 + c < d) cp_async4(row + c, src + c);
-      } else {
-        // bf16 pairs are word-aligned when d (hence D) is even; odd d takes
-        // plain loads
-        bool pairs = false;
-        if constexpr (D % 2 == 0) pairs = (d & 1) == 0;
-        if (pairs) {
+    for (int b = 0; b < B; ++b) {
+      const int r = r_begin + is.rg * G + grp;
+      const int cell = (slot * B + b) * 32 + lane;
+      unsigned char* xc = xs + cell * CB;
+      ws[cell] = ww[b];
+      if (!copies)
+        *reinterpret_cast<int*>(xc) = mm[b];
+      else if (mm[b] == row0 + r)
+        self |= 1u << (pos + b);
+      else if (mm[b] >= 0)
+        copy_row<T, D, kSplit>(xc, X, mm[b], d, c0);
+      is.next(R);
+    }
+    cp_async_commit();
+  };
+
 #pragma unroll
-          for (int c = 0; c < D; c += 2)
-            if (c0 + c < d) cp_async4(row + c, src + c);
-        } else {
+  for (int u = 0; u < L; ++u) load(m[u], wv[u]);
 #pragma unroll
-          for (int c = 0; c < D; ++c)
-            if (c0 + c < d) row[c] = __ldg(src + c);
+  for (int t = 0; t < NS - 1; ++t) {
+    issue(t, t * B, m[t % L], wv[t % L]);
+    load(m[t % L], wv[t % L]);
+  }
+  float deg = 0.f;
+  float acc[D], xn[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] = xn[c] = 0.f;
+  int xn_row = -1;          // the row whose x_n is in xn
+#pragma unroll 1
+  for (int s0 = 0; s0 < n_stages; s0 += L) {
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      const int s = s0 + u;   // the stage added; s0 % L == 0 keeps sets static
+      if (s >= n_stages) break;
+      issue((s + NS - 1) % NS, (NS - 1) * B, m[(u + NS - 1) % L],
+            wv[(u + NS - 1) % L]);
+      load(m[(u + NS - 1) % L], wv[(u + NS - 1) % L]);
+      cp_async_wait<NS - 1>();
+      const int slot = s % NS;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if (s * B + b >= n_rounds) break;
+        const int r = r_begin + cs.rg * G + grp;
+        const bool live = r < r_end;           // dead lanes still shuffle
+        if (live && cs.jr * S + sl < k) {
+          const int cell = (slot * B + b) * 32 + lane;
+          const unsigned char* xc = xs + cell * CB;
+          float v[D];
+          if (!copies) {
+            load_row<T, D, kSplit>(X, *reinterpret_cast<const int*>(xc), d,
+                                   c0, v);
+          } else if (self >> b & 1) {
+            if (xn_row != r) {
+              load_row<T, D, kSplit>(X, row0 + r, d, c0, xn);
+              xn_row = r;
+            }
+#pragma unroll
+            for (int c = 0; c < D; ++c) v[c] = xn[c];
+          } else {
+            read_cell<T, D>(xc, v);
+          }
+          add_slot<D>(deg, acc, widen(ws[cell]), v);
         }
-      }
-    }
-  };
-
-  if (n_chunks <= 0) return;
-  stage_idx(0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  stage_x(0);
-  if (n_chunks > 1) stage_idx(1);
-  cp_async_commit();
-
-  const int g = tid / S;
-  const int lane = tid % S;
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait_all();   // chunk c's rows and chunk c + 1's indices
-    __syncthreads();
-    if (c + 1 < n_chunks) {
-      stage_x(c + 1);
-      if (c + 2 < n_chunks) stage_idx(c + 2);   // into chunk c's idx slot
-      cp_async_commit();
-    }
-    const int r = first + c * CH + g;
-    const bool live = g < rows_of(c);
-    float deg = 0.f;
-    float acc[D];
+        if (cs.jr == R - 1) {                  // the row's last round
+          group_reduce<D, S>(deg, acc);
+          if (live && sl == 0)
+            write_row<T, D>(X, d, c0, row0 + r, r, deg, acc, out);
+          deg = 0.f;
 #pragma unroll
-    for (int cc = 0; cc < D; ++cc) acc[cc] = 0.f;
-    if (live) {
-      const T* wr = w + static_cast<size_t>(r) * k;
-      const T* xs = sx + (c & 1) * CH * k * D + g * k * D;
-      for (int j = lane; j < k; j += S) {
-        const float wj = widen(__ldcs(wr + j));
-        deg += wj;
-#pragma unroll
-        for (int cc = 0; cc < D; ++cc)
-          if (c0 + cc < d) acc[cc] += wj * widen(xs[j * D + cc]);
+          for (int c = 0; c < D; ++c) acc[c] = 0.f;
+        }
+        cs.next(R);
       }
+      self >>= B;
     }
-    group_reduce<D, S>(deg, acc);
-    if (live && lane == 0)
-      write_row<T, D>(X, d, c0, row0 + r, r, deg, acc, out);
-    __syncthreads();       // chunk c's slot is free for chunk c + 2
   }
 }
 
@@ -408,34 +570,47 @@ int launch_direct_k(int layout, const T* X, const int* idx, const T* w,
 #undef ELL_DIRECT
 }
 
-template <typename T, int D, int S>
+// "hbm": four warps a block, each walking kSpan row groups.
+template <typename T, int D, bool kSplit, int S>
 int launch_staged(const T* X, const int* idx, const T* w, int d, int k,
                   int row0, int n_rows, float* out, cudaStream_t st) {
-  constexpr int CH = kHbmThreads / S;
-  const size_t bytes = 2ull * CH * k * (sizeof(int) + D * sizeof(T));
-  if (bytes > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ell_gather_staged<T, D, S>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((n_rows + CH * kHbmChunks - 1) / (CH * kHbmChunks),
-                  (d + D - 1) / D);
-  ell_gather_staged<T, D, S><<<grid, kHbmThreads, bytes, st>>>(
-      X, idx, w, d, k, row0, n_rows, out);
+  constexpr int kWarps = kStagedThreads / 32;
+  constexpr long long rows_a_block = static_cast<long long>(kSpan) * (32 / S) *
+                                     kWarps;
+  constexpr size_t bytes = static_cast<size_t>(kWarps) * kStages * kRounds *
+                           32 * (kCellBytes<T, D, kSplit> + sizeof(T));
+  static_assert(bytes <= kMaxSmem, "the rings outgrow shared memory");
+  const auto kernel = ell_gather_staged<T, D, kSplit, S>;
+  cudaError_t err = cudaSuccess;
+  if constexpr (bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               kCarveout);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((n_rows + rows_a_block - 1) /
+                                        rows_a_block),
+                  kSplit ? (d + D - 1) / D : 1);
+  kernel<<<grid, kStagedThreads, bytes, st>>>(X, idx, w, d, k, row0, n_rows,
+                                              out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// "hbm": S a power of two >= k up to a warp, at least 4.
-template <typename T, int D>
+// "hbm": S as for the direct gather, so that both give a row's slots to the
+// same lanes in the same order.
+template <typename T, int D, bool kSplit>
 int launch_staged_k(const T* X, const int* idx, const T* w, int d, int k,
                     int row0, int n_rows, float* out, cudaStream_t st) {
-  if (k <= 4) return launch_staged<T, D, 4>(X, idx, w, d, k, row0, n_rows, out, st);
-  if (k <= 8) return launch_staged<T, D, 8>(X, idx, w, d, k, row0, n_rows, out, st);
-  if (k <= 16) return launch_staged<T, D, 16>(X, idx, w, d, k, row0, n_rows, out, st);
-  return launch_staged<T, D, 32>(X, idx, w, d, k, row0, n_rows, out, st);
+#define ELL_STAGED(S) \
+  launch_staged<T, D, kSplit, S>(X, idx, w, d, k, row0, n_rows, out, st)
+  if (k <= 4) return ELL_STAGED(4);
+  if (k <= 8) return ELL_STAGED(8);
+  if (k <= 16) return ELL_STAGED(16);
+  return ELL_STAGED(32);
+#undef ELL_STAGED
 }
 
 template <typename T>
@@ -445,10 +620,11 @@ int launch_d(int layout, const void* Xv, const int* idx, const void* wv, int d,
   const T* w = static_cast<const T*>(wv);
   if (layout == 1) {
     switch (d) {
-      case 1: return launch_staged_k<T, 1>(X, idx, w, d, k, row0, n_rows, out, st);
-      case 2: return launch_staged_k<T, 2>(X, idx, w, d, k, row0, n_rows, out, st);
-      case 3: return launch_staged_k<T, 3>(X, idx, w, d, k, row0, n_rows, out, st);
-      default: return launch_staged_k<T, 4>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 1: return launch_staged_k<T, 1, false>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 2: return launch_staged_k<T, 2, false>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 3: return launch_staged_k<T, 3, false>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 4: return launch_staged_k<T, 4, false>(X, idx, w, d, k, row0, n_rows, out, st);
+      default: return launch_staged_k<T, 4, true>(X, idx, w, d, k, row0, n_rows, out, st);
     }
   }
   switch (d) {

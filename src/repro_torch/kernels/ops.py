@@ -16,11 +16,14 @@ calls these; each decides per call:
      (they carry cell occupancies), and `bh_tree` rounds X and the grid's
      centre-of-mass tables.  Accumulation is float32 and outputs
      are float32.
-  3. **Layout** (`ell_lap_matvec` only): ``"vmem"`` (direct gather, the
-     default: on Hopper X always sits in device memory, and L2 holds it
-     whole at the sizes the sparse backend runs) or ``"hbm"`` (staged
-     gather through a double-buffered shared-memory ring).  The reference picks between its
-     two layouts by the TPU's VMEM budget; that budget has no counterpart.
+  3. **Layout** (`ell_lap_matvec` only): ``"vmem"`` (direct gather) or
+     ``"hbm"`` (staged gather: each lane copies its slots' rows into a
+     ring in shared memory with cp.async).  Both give the same bits.
+     `ELL_DEFAULT_LAYOUT` is ``"vmem"``, the faster of the two on the
+     H100 at every main-path shape (PERF.md).  The reference picks between
+     its two layouts by the TPU's VMEM budget; that budget has no
+     counterpart (on Hopper X always sits in device memory, and L2 holds
+     it whole at the sizes the sparse backend runs).
 
 The TPU layout steps of the reference (padding d to 128 lanes and N to a
 tile multiple) have no counterpart either: the kernels take any d and mask
@@ -61,6 +64,8 @@ from .sparse_attractive import (LAYOUTS, ell_lap_matvec_cuda,
                                 ell_lap_matvec_local_cuda)
 
 IMPLS = ("auto", "kernel", "torch")
+#: the layout `ell_lap_matvec` runs when none is asked for
+ELL_DEFAULT_LAYOUT = "vmem"
 STORAGE_DTYPES = ("float32", "bfloat16")
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -125,10 +130,11 @@ def ell_lap_matvec(X: torch.Tensor, indices: torch.Tensor,
                    layout: str | None = None,
                    storage_dtype: str | None = None) -> torch.Tensor:
     """Directed ELL Laplacian product L(A) X, float32 (N, d); see
-    kernels/ref.py for the contract.  `layout` None means ``"vmem"``."""
+    kernels/ref.py for the contract.  `layout` None means
+    `ELL_DEFAULT_LAYOUT`."""
     path, reason = _path(impl, X)
     storage = resolve_storage(storage_dtype)
-    lay = layout or "vmem"
+    lay = layout or ELL_DEFAULT_LAYOUT
     if lay not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
     if path == "torch":

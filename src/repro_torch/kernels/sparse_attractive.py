@@ -3,7 +3,8 @@
 `ell_lap_matvec_cuda` is the port of `repro/kernels/sparse_attractive.py`'s
 `ell_lap_matvec_pallas` (layout ``"vmem"``) and `ell_lap_matvec_pallas_hbm`
 (layout ``"hbm"``): the contract of `ref.ell_lap_matvec_ref`, computed by a
-hand-written Hopper kernel.  `ell_lap_matvec_local_cuda` is the port of
+hand-written Hopper kernel (the direct gather and the staged gather, which
+give the same bits).  `ell_lap_matvec_local_cuda` is the port of
 `ell_lap_matvec_local_pallas`: the contract of `ref.ell_lap_matvec_local_ref`
 (one shard's rows against a replicated X), the row-sharded backend's
 product.  Both take CUDA tensors only and launch the kernel or raise; the
@@ -118,9 +119,9 @@ def ell_lap_matvec_cuda(X: torch.Tensor, indices: torch.Tensor,
     if status != 0:
         raise RuntimeError(
             f"ell_lap_matvec kernel launch failed: CUDA error {status} "
-            f"(n={n}, d={d}, k={k}, layout={layout!r}; the hbm layout "
-            f"stages 2 x rows-a-chunk x k neighbour rows in shared memory "
-            f"and refuses a k too wide for it)")
+            f"(n={n}, d={d}, k={k}, layout={layout!r}; neither layout "
+            f"limits k: the hbm layout's shared-memory rings hold a fixed "
+            f"number of slots a lane, whatever the row width)")
     launch_counts[f"ell_lap_matvec_{layout}"] += 1
     return out
 

@@ -162,6 +162,48 @@ def test_cuda_ell_kernel_matches_oracle(cuda_device, layout, storage):
         assert torch.equal(got, again)
 
 
+# Row widths of the staged gather's bit-equality test: every lane-group size
+# S with the edges around it, the fits' forward (90) and reverse (229)
+# widths, and phase check_ell's widest (386) in chip_smoke.py
+STAGED_KS = (1, 4, 5, 8, 16, 17, 32, 64, 90, 128, 229, 256, 386)
+
+
+def _self_loop_graph(seed: int, n: int, k: int, d: int, device):
+    """`_ell_graph`'s cases (padding slots, an all-padding row 3, a row 5 of
+    one repeated column) plus self loops: every 7th slot from slot 2 the
+    row's own index with a non-zero weight, and row 4 nothing but its own
+    index, all weights non-zero."""
+    X, idx, w = _ell_graph(seed, n, k, d, device)
+    rows = torch.arange(n, dtype=torch.int32, device=device)
+    idx[:, 2::7] = rows[:, None]
+    idx[4] = 4
+    w[4] = w[4].abs() + 0.5
+    return X, idx, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", STAGED_KS)
+def test_cuda_staged_ell_equals_direct_bit_for_bit(cuda_device, k, storage):
+    """The staged gather (layout hbm) gives the direct gather's bits: every d
+    template and the generic d = 5, ragged N, and at d = 2 an N where each
+    warp walks many rows through its ring; all-padding rows exactly 0."""
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
+
+    cases = [(97 + 2 * k + d, d) for d in (1, 2, 3, 4, 5)] + [(20011, 2)]
+    for n, d in cases:
+        X, idx, w = _self_loop_graph(n + k + d, n, k, d, cuda_device)
+        Xs, ws = ops.to_storage(X, storage), ops.to_storage(w, storage)
+        staged = ell_lap_matvec_cuda(Xs, idx, ws, layout="hbm")
+        direct = ell_lap_matvec_cuda(Xs, idx, ws, layout="vmem")
+        torch.cuda.synchronize()
+        assert torch.equal(staged, direct), (n, k, d, float(
+            (staged - direct).abs().max()))
+        assert bool(torch.all(staged[3] == 0))
+        assert torch.equal(staged, ell_lap_matvec_cuda(Xs, idx, ws,
+                                                       layout="hbm"))
+
+
 @pytest.mark.cuda
 def test_cuda_ell_kernel_rejects_what_it_cannot_take(cuda_device):
     from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
@@ -175,23 +217,40 @@ def test_cuda_ell_kernel_rejects_what_it_cannot_take(cuda_device):
         ell_lap_matvec_cuda(X, idx.T.contiguous().T, w)
     with pytest.raises(ValueError, match=r"\(64, k\)"):
         ell_lap_matvec_cuda(X, idx[:32], w[:32])
-    with pytest.raises(RuntimeError, match="launch failed"):
-        wide = torch.zeros((64, 100000), dtype=torch.int32,
-                           device=cuda_device)
-        ell_lap_matvec_cuda(X, wide, torch.zeros(wide.shape,
-                                                 device=cuda_device),
-                            layout="hbm")
+    # the staged gather's rings do not grow with k: a row of 100000 slots
+    # runs, with the direct gather's bits
+    wide = torch.randint(0, 64, (64, 100000), dtype=torch.int32,
+                         device=cuda_device)
+    ww = torch.rand(wide.shape, device=cuda_device)
+    assert torch.equal(ell_lap_matvec_cuda(X, wide, ww, layout="hbm"),
+                       ell_lap_matvec_cuda(X, wide, ww, layout="vmem"))
+    # a launch the library refuses raises and is not counted; nothing
+    # falls back to the other layout or to the plain version
+    class Refusing:
+        def ell_lap_matvec_launch(self, *args):
+            return 1                              # cudaErrorInvalidValue
+
+    before = dict(sparse_attractive.launch_counts)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sparse_attractive, "_lib", Refusing)
+        for layout in ("vmem", "hbm"):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                ell_lap_matvec_cuda(X, idx, w, layout=layout)
+    assert sparse_attractive.launch_counts == before
 
 
 @pytest.mark.cuda
 def test_cuda_sparse_fit_launches_follow_impl_and_layout(cuda_device):
     """The sparse objective's ELL products: kernel_impl="torch" launches no
     ELL kernel (CG operator and gradient alike); the default launches the
-    vmem layout only; build_sparse_objective(ell_layout="hbm") moves the CG
-    operator to the hbm layout while the gradient stays on vmem."""
+    default layout (`ops.ELL_DEFAULT_LAYOUT`) only;
+    build_sparse_objective(ell_layout=) moves the CG operator to the other
+    layout while the gradient stays on the default."""
     from repro_torch.api import Embedding, EmbedSpec
     from repro_torch.embed.trainer import build_sparse_objective
 
+    default = ops.ELL_DEFAULT_LAYOUT
+    other, = (lay for lay in sparse_attractive.LAYOUTS if lay != default)
     rng = np.random.default_rng(0)
     Y = rng.normal(size=(300, 8)).astype(np.float32)
     spec = EmbedSpec(kind="ee", lam=10.0, backend="sparse", perplexity=5.0,
@@ -205,20 +264,20 @@ def test_cuda_sparse_fit_launches_follow_impl_and_layout(cuda_device):
     Embedding(spec, device=cuda_device).fit(None, X0=emb.X0_,
                                             saff=emb.affinities_)
     counts = dict(sparse_attractive.launch_counts)
-    assert counts["ell_lap_matvec_vmem"] > 0
-    assert counts["ell_lap_matvec_hbm"] == 0
+    assert counts[f"ell_lap_matvec_{default}"] > 0
+    assert counts[f"ell_lap_matvec_{other}"] == 0
     sparse_attractive.reset_launch_counts()
     obj, X0, _ = build_sparse_objective(
         spec, None, emb.X0_, saff=emb.affinities_, device=cuda_device,
-        ell_layout="hbm")
+        ell_layout=other)
     E, G = obj.energy_and_grad(X0, (spec.seed + 1, 0))
-    assert sparse_attractive.launch_counts == {"ell_lap_matvec_vmem": 2,
-                                               "ell_lap_matvec_hbm": 0,
-                                               "ell_lap_matvec_local": 0}
+    assert sparse_attractive.launch_counts == {
+        f"ell_lap_matvec_{default}": 2, f"ell_lap_matvec_{other}": 0,
+        "ell_lap_matvec_local": 0}
     solve, P0 = obj.make_direction_solver()
     solve(P0, X0, G)
-    assert sparse_attractive.launch_counts["ell_lap_matvec_hbm"] >= 2
-    assert sparse_attractive.launch_counts["ell_lap_matvec_vmem"] == 2
+    assert sparse_attractive.launch_counts[f"ell_lap_matvec_{other}"] >= 2
+    assert sparse_attractive.launch_counts[f"ell_lap_matvec_{default}"] == 2
 
 
 @pytest.mark.cuda

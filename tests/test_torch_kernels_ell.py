@@ -7,8 +7,11 @@ dispatcher's jnp path, on the same numpy inputs, in float32 and with
 bfloat16 storage, at the tolerances of the reference's own kernel test
 (tests/test_sparse_kernel.py: rtol 5e-5 with atol 5e-5 (max|.| + 1) on
 random graphs, atol 5e-6 on a calibrated graph, 1e-5 for duplicate
-columns).  The CUDA kernels themselves run only on a GPU:
-tests/test_torch_kernels_cuda.py.
+columns).  The port's ``layout="hbm"`` request (the staged gather on a GPU,
+the oracle on the CPU) is also held against the reference's own staged
+kernel, `ell_lap_matvec_pallas_hbm`, in interpret mode, at that test's
+tolerance for it (rtol 1e-5, atol 1e-5 (max|.| + 1)).  The CUDA kernels
+themselves run only on a GPU: tests/test_torch_kernels_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +72,41 @@ def test_dispatch_matches_jax_dispatcher(n, k, d, storage):
     info = ops.last_dispatch("ell_lap_matvec")
     assert info == {"path": "torch", "reason": "forced-off",
                     "storage": storage}
+
+
+# (n, k, d) of the staged-layout cases: ragged N against block_rows = 16,
+# one slot a row, d past the kernel's four columns, k past a lane group
+HBM_CASES = [(64, 8, 2), (70, 8, 2), (33, 1, 3), (96, 5, 5), (45, 17, 2)]
+
+
+def _self_loop_graph(seed: int, n: int, k: int, d: int):
+    """`_graph` with padding slots (self index, weight 0) at every 4th slot
+    from 3 and self loops (self index, the slot's non-zero weight) at every
+    4th slot from 1."""
+    X, idx, w = _graph(seed, n, k, d)
+    rows = np.arange(n, dtype=np.int32)[:, None]
+    idx[:, 1::4] = rows
+    idx[:, 3::4] = rows
+    w[:, 3::4] = 0.0
+    return X, idx, w
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,k,d", HBM_CASES)
+def test_hbm_layout_matches_jax_hbm_kernel(n, k, d, storage):
+    """ops.ell_lap_matvec(layout="hbm") against the reference's staged
+    kernel (TPU kernel 3, interpret mode, as tests/test_sparse_kernel.py
+    runs it), both rounding X and the weights through the storage dtype."""
+    X, idx, w = _self_loop_graph(5 * n + k + d, n, k, d)
+    got = _port(X, idx, w, layout="hbm", storage_dtype=storage)
+    want = np.asarray(jops.ell_lap_matvec(
+        jnp.asarray(X), jnp.asarray(idx), jnp.asarray(w),
+        impl="pallas-interpret", layout="hbm", block_rows=16, chunk=4,
+        lane=8, storage_dtype=storage))
+    assert jops.last_dispatch("ell_lap_matvec")["layout"] == "hbm"
+    assert got.dtype == np.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * (np.abs(want).max() + 1))
 
 
 def test_duplicate_columns_sum_and_padding_rows_zero():
