@@ -33,6 +33,28 @@ Phases, each printing one line (or a few) and failing the run on error:
               each call is held against the plain version.
   6. profile — three dense SD iterations of the t-SNE fit under
               torch.profiler: device time by kernel and the idle share.
+ 6a. fit_lineup — the rest of the paper's dense lineup from phase fit's
+              affinities and spectral starts:
+              `Embedding(EmbedSpec(backend="dense", strategy=s))` for s in
+              diag, cg, lbfgs and sd-, EE (lambda = 100) and t-SNE (lambda =
+              1), five iterations each: one kernel launch an energy
+              evaluation, finite energies that never increase, and the first
+              three iterations against the plain path at rtol 1e-4. On EE,
+              DiagH and CG are held from phase fit's settled embedding (from
+              the spectral start they take GD's steps, whose third amplifies
+              float32 rounding: there the plain path must itself part from a
+              float64 run of it wherever the kernel path parts from it) and
+              SD- at lambda = 1; each held trace must part from GD's by more
+              than 1e-4 on EE, and L-BFGS must store a pair there (on t-SNE a
+              line says where only the -G path was checked). Then SparseSD (k
+              = 7) on the EE problem through `_minimize`, five iterations: it
+              launches the default ELL layout, and one direction equals the
+              same PCG solve on the plain ELL product (max |diff| / max |P|
+              1e-4); then `homotopy_path` with SD over three log-spaced stages
+              to lambda = 100, at most three iterations each: every stage
+              descends. It prints each method's set-up seconds (its
+              strategy.init), ms and energy evaluations per iteration and peak
+              device memory.
   7. fit_sparse — slice 2's main path: `Embedding(EmbedSpec(kind=...,
               strategy="sd"))` with the default backend="auto" on
               `mnist_like(n=70000, dim=784)` (the full MNIST set; perplexity
@@ -455,6 +477,7 @@ def phase_fit(n: int = N_FIT, iters: int = 10) -> dict:
     ]
     launches = 0
     data = {}
+    starts = {}
     emb = None
     for kind, spec in configs:
         emb = None            # free the previous fit's N x N state first
@@ -505,8 +528,10 @@ def phase_fit(n: int = N_FIT, iters: int = 10) -> dict:
                    f"rel diff {rel:.2e}")
         del plain
         data[kind] = (X, emb.affinities_.Wp, emb.affinities_.Wm)
+        starts[kind] = (emb.X0_, emb.affinities_)
     emb.result_.state = None    # the timing phase needs X and aff only
-    return {"launches": launches, "emb": emb, "data": data}
+    return {"launches": launches, "emb": emb, "data": data,
+            "starts": starts, "settled": {"ee": data["ee"][0]}}
 
 
 def phase_time(data: dict) -> dict:
@@ -626,6 +651,360 @@ def phase_profile(emb, iters: int = 3) -> None:
     for dev_us, key, count in rows[:8]:
         say("profile", f"  {dev_us / 1e3 / iters:8.3f} ms/iteration "
                        f"{count // iters:3d} calls/iteration  {key[:90]}")
+
+
+# -- the paper's dense lineup and the homotopy path ----------------------------
+
+LINEUP = ("diag", "cg", "lbfgs", "sd-")      # GD, FP and SD run elsewhere
+LINEUP_LAMS = {"ee": 100.0, "tsne": 1.0}
+LINEUP_ITERS = 5
+LINEUP_CHECK_ITERS = 3
+# On EE from the spectral start DiagH and nonlinear CG take gradient-descent
+# steps: DiagH's Hessian diagonal is negative there, so every entry sits at
+# its floor and the direction is -G scaled, and CG's beta is about 0.  The
+# third such step amplifies float32 rounding about a thousandfold, as GD's
+# does (ROADMAP.md, Queue 3): the kernel path, the plain path and the plain
+# path in float64 part from each other by 3e-3 to 1e-2 there.  So on EE they
+# are held from phase fit's settled embedding (ten SD iterations), where
+# they are not GD, at the lambda given here, against the plain path and
+# against the plain path in float64.  DiagH is held at lambda = 1: at 100
+# and 10 its diagonal has entries within float32 rounding of zero, whose
+# quotients part both float32 paths from float64 by 7e-5 to 3e-4 in three
+# iterations (lineup_witness.py prints every case).
+# At the spectral start the plain path must itself be more than 1e-4 off
+# float64 wherever the kernel path is more than 1e-4 off the plain path.
+SETTLED_HOLD = {"diag": 1.0, "cg": 100.0}
+# SD- on EE grows the kernel's float32 gradient rounding at the spectral
+# start (2.5e-6 of max |G| there) to ~1e-4 by the third iteration at
+# lambda = 100, and is held at lambda = 1
+EE_HOLD_LAM = {"sd-": 1.0}
+
+
+def _rel_trace_gap(a, b) -> float:
+    n = min(len(a), len(b))
+    return float(np.max(np.abs(np.asarray(a[:n]) - np.asarray(b[:n]))
+                        / np.abs(np.asarray(b[:n]))))
+
+
+def _lineup_fit(spec, X0, aff) -> tuple:
+    """One kernel-path fit from the given start: the result, the pairwise
+    launches of the fit, its wall seconds and its peak device memory."""
+    from repro_torch.api import Embedding
+    from repro_torch.kernels import pairwise
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pairwise.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = Embedding(spec).fit(None, X0=X0, aff=aff).result_
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, pairwise.launch_counts["pairwise_terms"], wall,
+            torch.cuda.max_memory_allocated())
+
+
+def _plain_energies(spec, X0, aff, iters: int = LINEUP_CHECK_ITERS):
+    """The energies of `spec`'s first `iters` iterations from X0 on the
+    plain path, which must launch nothing."""
+    from repro_torch.api import Embedding
+    from repro_torch.kernels import pairwise
+    pairwise.reset_launch_counts()
+    plain = Embedding(spec.replace(kernel_impl="torch", max_iters=iters)).fit(
+        None, X0=X0, aff=aff).result_
+    if pairwise.launch_counts["pairwise_terms"]:
+        raise AssertionError(f"{spec.strategy} {spec.kind}: the plain path "
+                             f"launched the kernel")
+    return plain.energies
+
+
+def _plain64_energies(spec, X0, aff, iters: int = LINEUP_CHECK_ITERS):
+    """The same as `_plain_energies` in float64: the dense backend's
+    strategy, line search and loop from X0 and the affinities widened, with
+    the plain version's pairwise terms computed in float64 (the
+    dispatcher's plain branch computes in float32, so this run swaps in the
+    plain version itself)."""
+    from unittest import mock
+
+    from repro_torch.api.registries import strategy_entry
+    from repro_torch.core.affinities import Affinities
+    from repro_torch.core.minimize import DenseObjective
+    from repro_torch.embed.engine import fit_loop, make_loop_config
+    from repro_torch.kernels import ops, pairwise
+    from repro_torch.kernels.ref import pairwise_terms_ref
+
+    def terms64(X, Wa, Wb, kind, **_):
+        return pairwise_terms_ref(X, Wa.double(), Wb.double(), kind)
+
+    spec = spec.replace(kernel_impl="torch", max_iters=iters)
+    X0 = X0.double()
+    aff = Affinities(aff.Wp.double(), aff.Wm.double())
+    ls = spec.resolved_ls()
+    strategy = strategy_entry(spec.strategy).dense_factory(
+        spec, **dict(spec.strategy_opts))
+    pairwise.reset_launch_counts()
+    with mock.patch.object(ops, "pairwise_terms", terms64):
+        obj = DenseObjective(aff, spec.kind,
+                             torch.tensor(spec.lam, dtype=X0.dtype,
+                                          device=X0.device),
+                             strategy, ls, X0, impl=spec.kernel_args())
+        res = fit_loop(obj, X0, make_loop_config(spec, ls))
+    if pairwise.launch_counts["pairwise_terms"]:
+        raise AssertionError(f"{spec.strategy} {spec.kind}: the float64 "
+                             f"plain path launched the kernel")
+    return res.energies
+
+
+def _check_descent(tag: str, e) -> None:
+    if not np.all(np.isfinite(e)):
+        raise AssertionError(f"{tag}: non-finite energies {e}")
+    if np.any(np.diff(e) > 0):
+        raise AssertionError(f"{tag}: energy increased: {e}")
+
+
+def _diag_above_floor(X, aff, kind, lam) -> tuple[int, int]:
+    """How many entries of DiagH's Hessian diagonal at X lie above its
+    floor (those whose direction is not -G scaled), and how many there
+    are."""
+    from repro_torch.core import DiagH
+    from repro_torch.core.hessians import diag_hessian
+    d = diag_hessian(X, aff, kind, torch.tensor(lam, device=X.device))
+    floor = DiagH.floor_scale * torch.clamp_min(d.abs().max(), 1e-30)
+    return int((d > floor).sum()), d.numel()
+
+
+def phase_fit_lineup(starts: dict, settled: dict) -> dict:
+    """The rest of the paper's dense lineup at N = 20000 from phase fit's
+    affinities and spectral starts: DiagH, nonlinear CG, L-BFGS and SD-
+    through `Embedding(EmbedSpec(backend="dense", strategy=...))`, EE at
+    lambda = 100 and t-SNE at lambda = 1, five iterations each; then
+    SparseSD (k = 7) through `_minimize` and `homotopy_path` with SD, both
+    on the EE problem.  `settled` holds phase fit's EE embedding after its
+    ten SD iterations, where SETTLED_HOLD's methods are held.  Each held
+    trace must also part from GD's from the same start by more than the
+    tolerance, so that the check sees the method and not GD: on EE a
+    failure, on t-SNE (where CG and L-BFGS reduce to GD from the spectral
+    start) a line that says only the -G path was checked.  Returns the
+    pairwise and ELL launches of these main paths and each fit's
+    numbers."""
+    from repro_torch.api import EmbedSpec
+    from repro_torch.core import SD, LSConfig, homotopy_path, make_strategy
+    from repro_torch.core.minimize import _minimize
+    from repro_torch.core.objectives import energy_and_grad
+    from repro_torch.kernels import pairwise, sparse_attractive
+    from repro_torch.sparse.graph import NeighborGraph
+    from repro_torch.sparse.linalg import pcg, sym_lap_matvec
+
+    t_phase = time.perf_counter()
+    launches = 0
+    rows = {}
+    failed = []
+    gd_traces = {}
+
+    def gd_energies(spec, X, aff, where):
+        """GD's kernel-path energies over the held iterations (a comparison
+        run: its launches stay apart)."""
+        key = (spec.kind, spec.lam, where)
+        if key not in gd_traces:
+            gd_traces[key] = _lineup_fit(
+                spec.replace(strategy="gd", max_iters=LINEUP_CHECK_ITERS),
+                X, aff)[0].energies
+        return gd_traces[key]
+
+    for kind, lam in LINEUP_LAMS.items():
+        X0, aff = starts[kind]
+        resident = torch.cuda.memory_allocated()
+        for strategy in LINEUP:
+            spec = EmbedSpec(kind=kind, lam=lam, perplexity=30.0,
+                             backend="dense", strategy=strategy,
+                             max_iters=LINEUP_ITERS, tol=0.0)
+            tag = f"{strategy} {kind}"
+            res, n_launch, wall, peak = _lineup_fit(spec, X0, aff)
+            e = res.energies
+            _check_descent(tag, e)
+            if n_launch < 1 or n_launch != int(res.n_fevals[-1]):
+                raise AssertionError(
+                    f"{tag}: {n_launch} kernel launches for "
+                    f"{int(res.n_fevals[-1])} energy evaluations")
+            launches += n_launch
+            pairs = (int(res.state["count"]) if strategy == "lbfgs"
+                     else None)
+            res.state = None
+            # what the check holds (comparison runs: their launches stay
+            # apart): the spec, its start and the kernel path's energies
+            notes = []
+            held_spec, held_X, held_e = spec, X0, e
+            where = "the spectral start"
+            if kind == "ee" and strategy in SETTLED_HOLD:
+                plain_e = _plain_energies(spec, X0, aff)
+                spectral_gap = _rel_trace_gap(e, plain_e)
+                own64 = _rel_trace_gap(plain_e,
+                                       _plain64_energies(spec, X0, aff))
+                if spectral_gap > 1e-4 and own64 <= 1e-4:
+                    failed.append(
+                        f"{tag}: at the spectral start the kernel path "
+                        f"parts from the plain path by {spectral_gap:.2e} "
+                        f"while the plain path tracks float64 ({own64:.2e})")
+                notes.append(
+                    f"at the spectral start the kernel path parts from the "
+                    f"plain path by {spectral_gap:.2e}, the plain path from "
+                    f"float64 by {own64:.2e}")
+                held_X, where = settled[kind], "phase fit's settled embedding"
+                held_spec = spec.replace(lam=SETTLED_HOLD[strategy],
+                                         max_iters=LINEUP_CHECK_ITERS)
+                held_e = _lineup_fit(held_spec, held_X, aff)[0].energies
+                _check_descent(f"{tag} (held)", held_e)
+                gap64 = _rel_trace_gap(
+                    held_e, _plain64_energies(held_spec, held_X, aff))
+                if gap64 > 1e-4:
+                    failed.append(f"{tag}: kernel path vs the float64 plain "
+                                  f"path from {where} rel {gap64:.2e}")
+                notes.append(f"held, the kernel path is {gap64:.2e} from "
+                             f"the float64 plain path")
+            elif kind == "ee" and strategy in EE_HOLD_LAM:
+                amplified = _rel_trace_gap(e, _plain_energies(spec, X0, aff))
+                notes.append(f"at lambda = {lam:g} the kernel path parts "
+                             f"from the plain path by {amplified:.2e}")
+                held_spec = spec.replace(lam=EE_HOLD_LAM[strategy],
+                                         max_iters=LINEUP_CHECK_ITERS)
+                held_e = _lineup_fit(held_spec, X0, aff)[0].energies
+            gap = _rel_trace_gap(held_e, _plain_energies(held_spec, held_X,
+                                                         aff))
+            held = (f"first {LINEUP_CHECK_ITERS} iterations from {where} "
+                    f"match the plain path at lambda = {held_spec.lam:g}")
+            if gap > 1e-4:
+                failed.append(f"{tag}: kernel path vs plain path rel "
+                              f"{gap:.2e} ({held})")
+            # the held trace must be the method's, not GD's
+            apart = _rel_trace_gap(held_e[:LINEUP_CHECK_ITERS + 1],
+                                   gd_energies(held_spec, held_X, aff, where))
+            if strategy == "diag":
+                above, total = _diag_above_floor(held_X, aff, kind,
+                                                 held_spec.lam)
+                if held_X is not X0:
+                    above = (f"{_diag_above_floor(X0, aff, kind, lam)[0]} "
+                             f"at the spectral start, {above} at the held one")
+                notes.append(f"diagonal entries above the floor (of "
+                             f"{total}): {above}")
+            if strategy == "lbfgs":
+                notes.append(f"{pairs} (s, y) pairs stored over the fit")
+            notes.append(f"GD's trace from there is {apart:.2e} away")
+            if apart <= 1e-4 or pairs == 0:
+                if kind == "ee":
+                    failed.append(f"{tag}: the held trace is GD's within "
+                                  f"{apart:.2e}" + (" and L-BFGS stored no "
+                                                    "pair" if pairs == 0
+                                                    else ""))
+                notes.append("it reduces to GD there: only the -G path is "
+                             "checked")
+            per_it = res.times[-1] / res.n_iters
+            rows[strategy, kind] = {
+                "setup_s": res.setup_time, "ms_per_iter": per_it * 1e3,
+                "fevals_per_iter": (res.n_fevals[-1] - 1) / res.n_iters,
+                "peak_gb": peak / 1e9, "resident_gb": resident / 1e9}
+            say("lineup", f"{tag}: N={X0.shape[0]} lambda={lam:g} set-up "
+                          f"(strategy.init) {res.setup_time:.3f} s; "
+                          f"{res.n_iters} iterations at {per_it * 1e3:.1f} "
+                          f"ms each, {rows[strategy, kind]['fevals_per_iter']:.2f}"
+                          f" energy evaluations each (kernel launches "
+                          f"{n_launch} = evaluations); peak device memory "
+                          f"{peak / 1e9:.2f} GB (affinities resident "
+                          f"{resident / 1e9:.2f} GB); wall {wall:.1f} s; "
+                          f"energies {np.array2string(e, precision=8)}; "
+                          f"{held}: max rel diff {gap:.2e} ("
+                          + "; ".join(notes) + ")")
+            del res
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    # SparseSD on the EE problem (the paper's kappa = 7 on MNIST-20k)
+    X0, aff = starts["ee"]
+    lam = LINEUP_LAMS["ee"]
+    strategy = make_strategy("sparsesd", k=7)
+    ls = LSConfig(init_step="adaptive_grow")
+    torch.cuda.synchronize()
+    pairwise.reset_launch_counts()
+    sparse_attractive.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = _minimize(X0, aff, "ee", lam, strategy, max_iters=LINEUP_ITERS,
+                    tol=0.0, ls_cfg=ls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ell_launches = dict(sparse_attractive.launch_counts)
+    n_launch = pairwise.launch_counts["pairwise_terms"]
+    _check_descent("sparsesd ee", res.energies)
+    if n_launch != int(res.n_fevals[-1]):
+        raise AssertionError(f"sparsesd ee: {n_launch} pairwise launches "
+                             f"for {int(res.n_fevals[-1])} evaluations")
+    if ell_launches["ell_lap_matvec_vmem"] < 1 or any(
+            v for k, v in ell_launches.items()
+            if k != "ell_lap_matvec_vmem"):
+        raise AssertionError(f"sparsesd ee: ELL launches {ell_launches}")
+    launches += n_launch
+    state = res.strategy_state
+    say("lineup", f"sparsesd ee: k=7 (graph {tuple(state['indices'].shape)}"
+                  f", reverse {tuple(state['rev_indices'].shape)}) set-up "
+                  f"{res.setup_time:.3f} s; {res.n_iters} iterations at "
+                  f"{res.times[-1] / res.n_iters * 1e3:.1f} ms each, "
+                  f"{(res.n_fevals[-1] - 1) / res.n_iters:.2f} evaluations "
+                  f"each; ELL vmem launches "
+                  f"{ell_launches['ell_lap_matvec_vmem']}; wall {wall:.1f} s;"
+                  f" energies {np.array2string(res.energies, precision=8)}")
+    # one direction from the kernel path against the same PCG solve on the
+    # plain ELL product, from the same state and G
+    X = res.X
+    _, G = energy_and_grad(X, aff, "ee", torch.tensor(lam, device=X.device))
+    P_kernel, _ = strategy.direction(state, X, G, aff, "ee", lam)
+    g = NeighborGraph(state["indices"], state["weights"])
+    rev = NeighborGraph(state["rev_indices"], state["rev_weights"])
+    shift = state["shift"]
+    P_plain = pcg(lambda V: 4.0 * sym_lap_matvec(g, V, rev=rev, impl="torch")
+                  + shift[:, None] * V, -G, state["prev_P"],
+                  inv_diag=state["inv_diag"], tol=strategy.cg_tol,
+                  maxiter=strategy.cg_maxiter).x
+    dir_gap = float((P_kernel - P_plain).abs().max() / P_plain.abs().max())
+    if dir_gap > 1e-4:
+        raise AssertionError(f"sparsesd: kernel-path direction vs plain "
+                             f"ELL path: max rel {dir_gap:.2e}")
+    say("lineup", f"sparsesd ee: one direction on the kernel path matches "
+                  f"the plain ELL path's PCG solve, max |diff| / max |P| "
+                  f"{dir_gap:.2e}")
+    rows["sparsesd", "ee"] = {
+        "setup_s": res.setup_time,
+        "ms_per_iter": res.times[-1] / res.n_iters * 1e3,
+        "fevals_per_iter": (res.n_fevals[-1] - 1) / res.n_iters}
+    del res, state, P_kernel, P_plain, g, rev
+
+    # homotopy_path with SD to lambda = 100 over 3 log-spaced stages
+    pairwise.reset_launch_counts()
+    t0 = time.perf_counter()
+    hres = homotopy_path(X0, aff, "ee", SD(), lam_final=lam, n_stages=3,
+                         max_iters=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = pairwise.launch_counts["pairwise_terms"]
+    for stage, r in zip(hres.lambdas, hres.results):
+        _check_descent(f"homotopy stage lambda={stage:g}", r.energies)
+        if r.energies[-1] >= r.energies[0]:
+            raise AssertionError(f"homotopy stage lambda={stage:g} did not "
+                                 f"descend: {r.energies}")
+    if n_launch != int(np.sum(hres.fevals_per_lambda)):
+        raise AssertionError(f"homotopy: {n_launch} pairwise launches for "
+                             f"{hres.fevals_per_lambda} evaluations")
+    launches += n_launch
+    stages = "; ".join(
+        f"lambda={lm:.3g}: {it} iterations, {fe} evaluations, {t:.2f} s "
+        f"(set-up {r.setup_time:.2f} s), E {r.energies[0]:.6g} -> "
+        f"{r.energies[-1]:.6g}"
+        for lm, it, fe, t, r in zip(hres.lambdas, hres.iters_per_lambda,
+                                    hres.fevals_per_lambda,
+                                    hres.time_per_lambda, hres.results))
+    say("lineup", f"homotopy_path sd ee: {stages}; wall {wall:.1f} s")
+    del hres
+    torch.cuda.empty_cache()
+    say("lineup", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches,
+            "ell_launches": ell_launches["ell_lap_matvec_vmem"],
+            "rows": rows}
 
 
 # -- slice 2: the sparse backend and the ELL kernels -------------------------
@@ -2282,6 +2661,8 @@ def main() -> int:
     fit_launches = fit["launches"]
     timing = phase_time(fit["data"])
     phase_profile(fit["emb"])
+    fit["emb"] = None
+    lineup = phase_fit_lineup(fit["starts"], fit["settled"])
     del fit
     torch.cuda.empty_cache()
     sparse = phase_fit_sparse()
@@ -2314,14 +2695,20 @@ def main() -> int:
         "name": "pairwise_terms", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise.cu",
         "replaces": "src/repro/kernels/pairwise.py:131",
-        "launches": fit_launches, **kernel_numbers(f32)}]
+        "launches": fit_launches + lineup["launches"],
+        "launches_from": "the dense SD fits (phase fit) and the lineup "
+                         "(phase fit_lineup: DiagH, CG, L-BFGS and SD- on EE "
+                         "and t-SNE, SparseSD and homotopy_path on EE)",
+        **kernel_numbers(f32)}]
     # the ELL kernels at the wider of the main path's two graphs: the EE
     # fit's reverse graph, float32.  The default layout's launches are the
     # two default fits'; the other's come from the EE fit run again with its
     # CG operator on that layout
     default, other = sparse["default"], sparse["other"]
-    launches = {default: (sparse["launches"][default],
-                          "the default EE and t-SNE sparse fits"),
+    launches = {default: (sparse["launches"][default]
+                          + lineup["ell_launches"],
+                          "the default EE and t-SNE sparse fits and the "
+                          "SparseSD fit of phase fit_lineup"),
                 other: (sparse["launches_other_fit"][
                     f"ell_lap_matvec_{other}"],
                         f"the EE sparse fit with ell_layout={other!r}")}

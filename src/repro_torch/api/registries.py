@@ -1,7 +1,9 @@
 """Strategy and backend registries behind `repro_torch.api.Embedding`.
 
-Port of `repro/api/registries.py`: the strategies ``gd``, ``fp`` and ``sd``
-and the backends ``dense``, ``sparse``, ``tree`` and ``sparse-sharded`` (the
+Port of `repro/api/registries.py`: the paper's strategy lineup (``gd``,
+``fp``, ``diag``, ``sd``, ``sd-``, and the baselines ``lbfgs`` and ``cg``;
+aliases ``diagh``, ``sdminus``, ``l-bfgs`` and ``nonlinearcg``) and the
+backends ``dense``, ``sparse``, ``tree`` and ``sparse-sharded`` (the
 row-sharded sparse backend over a process group; it needs a mesh).
 ``backend="auto"`` follows the reference's policy: ``sparse`` above
 AUTO_SPARSE_N points, ``sparse-sharded`` instead when the mesh has more than
@@ -11,13 +13,18 @@ size-preferred backend lacks.  One deviation: where the reference picks
 count), the port picks ``dense``, since the 2-D-sharded dense backend is not
 ported yet.  ``tree`` is never picked by ``auto`` (it is 2-D only), a spec
 selects it by name.
+
+Every strategy runs on ``dense``.  ``diag`` and ``sd-`` need dense Hessian
+terms, and the baselines keep (N, d) histories, so they are dense-only;
+``sd``, ``fp`` and ``gd`` run on every backend.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.core.strategies import FP, GD, SD
+from repro_torch.core.baselines import LBFGS, NonlinearCG
+from repro_torch.core.strategies import FP, GD, SD, DiagH, SDMinus
 
 #: N above which ``backend="auto"`` picks the sparse backend
 AUTO_SPARSE_N = 2048
@@ -36,13 +43,17 @@ class StrategyEntry:
 
 
 STRATEGIES: dict[str, StrategyEntry] = {}
+_STRATEGY_ALIASES: dict[str, str] = {}
 
 
 def register_strategy(name: str, *, backends, dense_factory,
-                      default_ls_init: str = "one", doc: str = "") -> None:
+                      default_ls_init: str = "one", aliases=(),
+                      doc: str = "") -> None:
     STRATEGIES[name] = StrategyEntry(
         name=name, backends=frozenset(backends), dense_factory=dense_factory,
         default_ls_init=default_ls_init, doc=doc)
+    for a in aliases:
+        _STRATEGY_ALIASES[a] = name
 
 
 def available_strategies() -> list[str]:
@@ -50,8 +61,10 @@ def available_strategies() -> list[str]:
 
 
 def canonical_strategy(name: str) -> str:
-    """Canonical registry name, or ValueError listing the valid names."""
+    """Canonical registry name (resolving aliases), or ValueError listing
+    the valid names."""
     low = name.lower()
+    low = _STRATEGY_ALIASES.get(low, low)
     if low not in STRATEGIES:
         raise ValueError(f"unknown strategy {name!r}; registered strategies: "
                          f"{available_strategies()}")
@@ -154,3 +167,18 @@ register_strategy("sd", backends=_BACKENDS, default_ls_init="adaptive_grow",
                                                         spec.mu_scale, **o}),
                   doc="the spectral direction: B = 4 L+ + mu I (paper "
                       "headline)")
+register_strategy("diag", backends=("dense",), aliases=("diagh",),
+                  dense_factory=lambda spec, **o: DiagH(**o),
+                  doc="clipped diagonal of the full Hessian (needs dense "
+                      "terms)")
+register_strategy("sd-", backends=("dense",), aliases=("sdminus",),
+                  default_ls_init="adaptive_grow",
+                  dense_factory=lambda spec, **o: SDMinus(**o),
+                  doc="SD plus psd repulsive curvature blocks (batched CG)")
+# quasi-Newton baselines from the paper's comparison lineup
+register_strategy("lbfgs", backends=("dense",), aliases=("l-bfgs",),
+                  dense_factory=lambda spec, **o: LBFGS(**o),
+                  doc="limited-memory BFGS baseline")
+register_strategy("cg", backends=("dense",), aliases=("nonlinearcg",),
+                  dense_factory=lambda spec, **o: NonlinearCG(**o),
+                  doc="nonlinear conjugate-gradient baseline")

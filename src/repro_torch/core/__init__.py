@@ -1,8 +1,12 @@
 # The generic attraction-repulsion embedding objective (dense and sparse
-# halves) and the paper's dense partial-Hessian strategies, ported to
+# halves), the paper's partial-Hessian strategies and its baselines
+# (L-BFGS, nonlinear CG), the dense minimizer and the homotopy path, ported to
 # PyTorch.
 from .affinities import Affinities, make_affinities, sq_distances
+from .baselines import LBFGS, NonlinearCG
+from .homotopy import HomotopyResult, homotopy_path
 from .linesearch import LSConfig
+from .minimize import MinimizeResult
 from .objectives import (
     NORMALIZED,
     attractive_weights,
@@ -16,12 +20,15 @@ from .objectives import (
     is_normalized,
 )
 from .spectral_init import laplacian_eigenmaps
-from .strategies import FP, GD, SD
+from .strategies import FP, GD, SD, DiagH, SDMinus, SparseSD, make_strategy
 
 __all__ = [
-    "Affinities", "make_affinities", "sq_distances", "LSConfig",
+    "Affinities", "make_affinities", "sq_distances",
+    "LBFGS", "NonlinearCG", "HomotopyResult", "homotopy_path",
+    "LSConfig", "MinimizeResult",
     "NORMALIZED", "attractive_weights", "direct_energy", "draw_shifts",
     "energy", "energy_and_grad", "energy_and_grad_sparse", "grad",
     "gradient_weights", "is_normalized",
-    "laplacian_eigenmaps", "FP", "GD", "SD",
+    "laplacian_eigenmaps",
+    "DiagH", "FP", "GD", "SD", "SDMinus", "SparseSD", "make_strategy",
 ]

@@ -1,17 +1,20 @@
-"""The dense single-device objective of the fit engine.
+"""The dense single-device objective of the fit engine, and its minimizer.
 
-Port of `DenseObjective` and its fused `_step` from
-`repro/core/minimize.py`.  One step is direction -> initial trial step ->
-Armijo backtracking -> update -> energy and gradient at the new point, with
-the reference's alpha0 policy and max_rel_move cap, all in float32 tensors.
-The reference jits the whole step into one XLA program; here it runs
-eagerly, and the line search reads one flag per trial back to the host.
+Port of `DenseObjective`, its fused `_step`, `MinimizeResult` and
+`_minimize` from `repro/core/minimize.py` (the deprecated `minimize` shim
+is not ported: `repro_torch.api.Embedding` runs the same glue).  One step
+is direction -> initial trial step -> Armijo backtracking -> update ->
+energy and gradient at the new point, with the reference's alpha0 policy
+and max_rel_move cap, all in float32 tensors.  The reference jits the whole
+step into one XLA program; here it runs eagerly, and the line search reads
+one flag per trial back to the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.ops import resolve_storage, to_storage
@@ -19,6 +22,20 @@ from repro_torch.kernels.ops import resolve_storage, to_storage
 from .affinities import Affinities
 from .linesearch import LSConfig, backtracking
 from .objectives import energy, energy_and_grad
+
+
+@dataclasses.dataclass
+class MinimizeResult:
+    X: torch.Tensor
+    energies: np.ndarray      # E_k, k = 0..n_iters (includes E_0)
+    grad_norms: np.ndarray
+    step_sizes: np.ndarray
+    times: np.ndarray         # cumulative wall-clock seconds at each iterate
+    n_fevals: np.ndarray      # cumulative energy evaluations
+    n_iters: int
+    converged: bool
+    setup_time: float         # strategy init (e.g. Cholesky factorization)
+    strategy_state: Any = None
 
 
 def _step(strategy, kind: str, ls_cfg: LSConfig, X, E, G, state, alpha_prev,
@@ -91,3 +108,46 @@ class DenseObjective:
                          self.lam, self.impl)
 
         return step
+
+
+def _minimize(
+    X0: torch.Tensor,
+    aff: Affinities,
+    kind: str,
+    lam,
+    strategy,
+    max_iters: int = 500,
+    tol: float = 1e-7,
+    ls_cfg: LSConfig = LSConfig(),
+    callback: Callable[..., None] | None = None,
+    max_seconds: float | None = None,
+) -> MinimizeResult:
+    """Minimize E(X; lam) with the given search-direction strategy, on the
+    device of X0 (the kernel path on CUDA).
+
+    Stops on relative energy decrease < tol, on max_iters, or (for the
+    paper's fixed-budget comparisons) on max_seconds of wall-clock.
+    """
+    # deferred: repro_torch.embed.engine imports repro_torch.core
+    from repro_torch.embed.engine import LoopConfig, fit_loop
+
+    lam = torch.as_tensor(lam, dtype=X0.dtype, device=X0.device)
+    obj = DenseObjective(aff, kind, lam, strategy, ls_cfg, X0)
+    res = fit_loop(
+        obj, X0,
+        LoopConfig(max_iters=max_iters, tol=tol, ls=ls_cfg,
+                   convergence="raw", max_seconds=max_seconds),
+        callback=callback,
+    )
+    return MinimizeResult(
+        X=res.X,
+        energies=res.energies,
+        grad_norms=res.grad_norms,
+        step_sizes=res.step_sizes,
+        times=res.times,
+        n_fevals=res.n_fevals,
+        n_iters=res.n_iters,
+        converged=res.converged,
+        setup_time=res.setup_time,
+        strategy_state=res.state,
+    )

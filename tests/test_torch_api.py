@@ -10,7 +10,21 @@ GD and FP are pinned at lambda = 1.  At larger lambda their first steps
 from the 0.1-scaled spectral start are huge, and a last-bit difference —
 in the start, or in the order of a sum — grows to ~1e-3 within five
 iterations: on such problems the reference's own jnp and Pallas-interpret
-paths differ by up to 8.6e-4 from one start.  SD does not amplify it.
+paths differ by up to 8.6e-4 from one start.  SD and SD- do not amplify
+it, and run at each kind's lambda.
+
+DiagH, L-BFGS and nonlinear CG are pinned at lambda = 1 on EE and t-SNE
+for the same reason.  DiagH divides by the Hessian's diagonal, whose
+smallest entries are differences of larger terms: their rounding (the
+reference's float32 s-SNE diagonal is 8e-6 of max|d| from float64, the
+port's 6e-7) becomes a relative error of the step, and on s-SNE, EE at
+lambda = 50 and t-EE at lambda = 10 the traces part by 2e-4 to 5e-4, as
+the reference's own two paths do on EE (2.0e-4) and Epanechnikov EE
+(9.4e-3 at lambda = 1, where a pair crossing the support edge t = 1 flips
+the diagonal).  Nonlinear CG's PR+ steps and L-BFGS's curvature pairs
+carry GD's amplification at lambda = 50 (the reference's two paths part
+by up to 4.7e-4 on t-EE at lambda = 10).  Each alias of a strategy runs
+in place of its name once.
 """
 import dataclasses
 
@@ -47,6 +61,14 @@ def _traces(Y, **kw):
     *[(k, "sd", LAMS[k]) for k in LAMS],
     ("ee", "gd", 1.0),
     ("ee", "fp", 1.0),
+    *[(k, "sd-", LAMS[k]) for k in ("ee", "ssne", "tee", "epan")],
+    ("tsne", "sdminus", 1.0),
+    ("ee", "diag", 1.0),
+    ("tsne", "diagh", 1.0),
+    ("ee", "lbfgs", 1.0),
+    ("tsne", "l-bfgs", 1.0),
+    ("ee", "cg", 1.0),
+    ("tsne", "nonlinearcg", 1.0),
 ])
 def test_fit_energy_trace_matches_jax(Y, kind, strategy, lam):
     jres, tres = _traces(Y, kind=kind, strategy=strategy, backend="dense",
@@ -79,6 +101,52 @@ def test_fit_from_carried_jax_state(Y, strategy, lam):
                                rtol=1e-4)
     assert emb.backend_ == "dense"
     assert emb.embedding_.shape == (Y.shape[0], 2)
+
+
+@pytest.mark.parametrize("strategy,opts", [
+    ("diag", {"floor_scale": 1e-6}), ("sd-", {"cg_maxiter": 10}),
+    ("lbfgs", {"m": 20}), ("cg", {})])
+def test_fit_lineup_from_carried_jax_state(Y, strategy, opts):
+    """The rest of the lineup carried across by convert.py with its
+    strategy_opts: the same trace as JAX's from JAX's affinities and start
+    (EE at lambda = 1, where no method amplifies a last-bit difference)."""
+    jspec = JEmbedSpec(kind="ee", strategy=strategy, backend="dense",
+                       lam=1.0, perplexity=8.0, max_iters=5, tol=0.0,
+                       strategy_opts=opts, kernel_impl="jnp")
+    aff = jmake(jnp.asarray(Y), 8.0, model="ee")
+    X0 = jeig(aff.Wp, 2) * 0.1
+    jres = JEmbedding(jspec).fit(None, X0=X0, aff=aff).result_
+    spec = convert.spec_from_jax_fields(dataclasses.asdict(jspec))
+    assert spec.strategy == strategy and dict(spec.strategy_opts) == opts
+    emb = Embedding(spec, device="cpu").fit(
+        None, X0=convert.embedding_from_numpy(X0, "cpu"),
+        aff=convert.affinities_from_numpy(aff.Wp, aff.Wm, "cpu"))
+    np.testing.assert_allclose(emb.result_.energies, jres.energies,
+                               rtol=1e-4)
+    np.testing.assert_array_equal(emb.result_.n_fevals, jres.n_fevals)
+
+
+def test_registry_matches_jax_lineup():
+    """Every strategy the reference registers is registered here, with its
+    aliases, its initial-step policy and its backends (but the unported
+    dense-mesh); the dense-only ones resolve to dense under auto above the
+    sparse cut-off, as in the reference."""
+    from repro.api import registries as jreg
+    from repro_torch.api import registries as preg
+    assert preg.available_strategies() == jreg.available_strategies()
+    assert preg._STRATEGY_ALIASES == jreg._STRATEGY_ALIASES
+    for name, jentry in jreg.STRATEGIES.items():
+        entry = preg.strategy_entry(name)
+        assert entry.default_ls_init == jentry.default_ls_init
+        assert entry.backends == jentry.backends - {"dense-mesh"}
+        for n_devices in (1, 2):
+            want = jreg.resolve_backend("auto", n=AUTO_SPARSE_N + 1,
+                                        n_devices=n_devices, strategy=name)
+            assert resolve_backend("auto", n=AUTO_SPARSE_N + 1,
+                                   n_devices=n_devices,
+                                   strategy=name) == want
+    for alias, name in jreg._STRATEGY_ALIASES.items():
+        assert EmbedSpec(strategy=alias.upper()).strategy == name
 
 
 def test_spec_from_jax_fields_maps_and_validates():
@@ -145,7 +213,9 @@ def test_spec_validation_and_unported_options():
     with pytest.raises(ValueError, match="model families"):
         EmbedSpec(kind="nope")
     with pytest.raises(ValueError, match="registered strategies"):
-        EmbedSpec(strategy="sd-")
+        EmbedSpec(strategy="sparsesd")    # the reference registers none
+    with pytest.raises(ValueError, match="not available on backend"):
+        EmbedSpec(strategy="sd-", backend="sparse")
     with pytest.raises(ValueError, match="registered backends"):
         EmbedSpec(backend="dense-mesh")           # not ported yet
     with pytest.raises(ValueError, match="kernel_impl"):

@@ -1,8 +1,9 @@
 """The port (src/repro_torch) imports neither JAX nor the JAX package.
 
 Checked twice: statically, over every import statement of every module and
-of `chip_smoke.py` (the port's GPU smoke run) and `ell_ab.py` (its A/B
-timing of ELL kernel sources), and at run time, by importing
+of `chip_smoke.py` (the port's GPU smoke run), `ell_ab.py` (its A/B
+timing of ELL kernel sources) and `lineup_witness.py` (where the dense
+lineup's kernel path can be held against its plain path), and at run time, by importing
 every module in a fresh interpreter and looking at `sys.modules`.
 """
 import ast
@@ -36,7 +37,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")),
-                                  ROOT / "chip_smoke.py", ROOT / "ell_ab.py"],
+                                  ROOT / "chip_smoke.py", ROOT / "ell_ab.py",
+                                  ROOT / "lineup_witness.py"],
                          ids=lambda p: str(p.relative_to(PORT))
                          if p.is_relative_to(PORT) else p.name)
 def test_module_imports_no_jax_and_no_repro(path):

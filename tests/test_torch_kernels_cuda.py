@@ -23,6 +23,11 @@ entries that cancel, against the float64 oracle on the same storage-rounded
 inputs, with the Epanechnikov support-edge slack.  The fused tree
 evaluation (`bh_tree`) is held bit for bit to the per-batch kernel path
 (the same sums in the same order), and to its plain version at rtol 1e-4.
+The rest of the dense lineup (DiagH, nonlinear CG, L-BFGS, SD-) is held
+fit for fit to its plain path at rtol 1e-4 (the reference's trace
+tolerance, tests/test_api.py:92), at lambda values where no method
+amplifies a last-bit difference; SparseSD's direction on the ELL kernel to
+the same PCG solve on the plain ELL product, max |diff| / max |P| 1e-4.
 """
 import numpy as np
 import pytest
@@ -612,3 +617,66 @@ def test_cuda_tree_fit_launches_follow_impl(cuda_device):
                                       "bh_tree": 0}
     assert np.array_equal(batched.result_.energies, emb.result_.energies)
     assert torch.equal(batched.embedding_, emb.embedding_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,kind,lam", [
+    ("diag", "ee", 1.0), ("diag", "tsne", 1.0), ("cg", "ee", 1.0),
+    ("cg", "tsne", 1.0), ("lbfgs", "ee", 10.0), ("lbfgs", "tsne", 1.0),
+    ("sd-", "ee", 10.0), ("sd-", "tsne", 1.0)])
+def test_cuda_lineup_fit_matches_plain_path(cuda_device, strategy, kind,
+                                            lam):
+    """A small dense fit of each new method: one pairwise launch an energy
+    evaluation, and the plain path's trace (which launches nothing)."""
+    from repro_torch.api import Embedding, EmbedSpec
+
+    Y = np.random.default_rng(1).normal(size=(300, 8)).astype(np.float32)
+    spec = EmbedSpec(kind=kind, strategy=strategy, backend="dense", lam=lam,
+                     perplexity=10.0, max_iters=3, tol=0.0)
+    launch_counts["pairwise_terms"] = 0
+    emb = Embedding(spec, device=cuda_device).fit(Y)
+    res = emb.result_
+    assert launch_counts["pairwise_terms"] == int(res.n_fevals[-1])
+    assert np.all(np.isfinite(res.energies))
+    assert np.all(np.diff(res.energies) <= 0)
+    launch_counts["pairwise_terms"] = 0
+    plain = Embedding(spec.replace(kernel_impl="torch"),
+                      device=cuda_device).fit(None, X0=emb.X0_,
+                                              aff=emb.affinities_)
+    assert launch_counts["pairwise_terms"] == 0
+    np.testing.assert_allclose(res.energies, plain.result_.energies,
+                               rtol=1e-4)
+    np.testing.assert_array_equal(res.n_fevals, plain.result_.n_fevals)
+
+
+@pytest.mark.cuda
+def test_cuda_sparsesd_direction_matches_plain_ell(cuda_device):
+    """SparseSD (k = 7, dense affinities) launches the default ELL layout
+    in its PCG, and its direction is the same solve on the plain ELL
+    product."""
+    from repro_torch.core import make_affinities, make_strategy
+    from repro_torch.core.objectives import energy_and_grad
+    from repro_torch.sparse.graph import NeighborGraph
+    from repro_torch.sparse.linalg import pcg, sym_lap_matvec
+
+    rng = np.random.default_rng(2)
+    Y = torch.from_numpy(rng.normal(size=(500, 10)).astype(np.float32))
+    aff = make_affinities(Y.to(cuda_device), 10.0, model="ee")
+    X = torch.from_numpy(rng.normal(size=(500, 2)).astype(np.float32)
+                         ).to(cuda_device)
+    _, G = energy_and_grad(X, aff, "ee", 10.0, impl="torch")
+    strategy = make_strategy("sparsesd", k=7)
+    state = strategy.init(X, aff, "ee", 10.0)
+    sparse_attractive.reset_launch_counts()
+    P, _ = strategy.direction(state, X, G, aff, "ee", 10.0)
+    counts = sparse_attractive.launch_counts
+    assert counts[f"ell_lap_matvec_{ops.ELL_DEFAULT_LAYOUT}"] >= 2
+    g = NeighborGraph(state["indices"], state["weights"])
+    rev = NeighborGraph(state["rev_indices"], state["rev_weights"])
+    sparse_attractive.reset_launch_counts()
+    want = pcg(lambda V: 4.0 * sym_lap_matvec(g, V, rev=rev, impl="torch")
+               + state["shift"][:, None] * V, -G, state["prev_P"],
+               inv_diag=state["inv_diag"], tol=strategy.cg_tol,
+               maxiter=strategy.cg_maxiter).x
+    assert not any(sparse_attractive.launch_counts.values())
+    assert float((P - want).abs().max() / want.abs().max()) <= 1e-4
