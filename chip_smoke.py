@@ -169,6 +169,31 @@ Phases, each printing one line (or a few) and failing the run on error:
  18. profile_sharded — three one-rank sharded t-SNE SD iterations under
               torch.profiler: device time by kernel, the idle share and the
               NCCL collectives' time a CG matvec.
+ 19. serve — slice 4's main path: the out-of-sample transform, artifacts
+              and the server (`Embedding.transform`, `save` / `load`,
+              `EmbeddingServer`, `python -m repro_torch.serve.http`) over
+              the t-SNE sparse fit of phase fit_sparse (N = 70000, k = 90,
+              m = 50 anchors, 100 iterations, approximate cross-kNN) and the
+              EE dense fit of phase fit (N = 20000, exact cross-kNN; saved
+              by phase fit as an artifact and loaded here), on 1024 queries
+              (seeded training rows plus N(0, 0.1^2) noise).  Held: an
+              exhaustive transform after save -> load on CUDA is the
+              in-process one bit for bit; `embedding_` is unchanged after
+              every request; each row's rowwise result alone, in pairs, in
+              one batch of 64, in chunks of 5 and through `EmbeddingServer`
+              (8 client threads, padded buckets) within 1e-5 of the others
+              (bit-equality printed), on both maps, and on 16 rows of the
+              t-SNE map with exhaustive repulsion; the default engine solver's energies
+              on 64 rows, exhaustive, finite and never increasing; one HTTP
+              round trip to the CLI on localhost equal to the direct
+              transform.  Printed: the CPU path's gap on the same rows
+              (`device="cpu"`, exhaustive, 3 iterations), the share of
+              queries nearest their own class's centroid, the server's
+              latency percentiles, mean batch and rows/s over 512
+              single-row requests from 8 threads, direct transforms of 1,
+              64 and 1024 rows (ms, iterations, energy evaluations and
+              device reads an iteration), the cross-kNN alone, and one
+              64-row batch under torch.profiler (device busy, idle share).
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -527,6 +552,9 @@ def phase_fit(n: int = N_FIT, iters: int = 10) -> dict:
         say("fit", f"{kind}: first 3 iterations match the plain path, max "
                    f"rel diff {rel:.2e}")
         del plain
+        if kind == "ee":
+            # the serving phase's exact-kNN case loads this artifact
+            emb.save(str(SERVE_DIR / "ee_dense.npz"))
         data[kind] = (X, emb.affinities_.Wp, emb.affinities_.Wm)
         starts[kind] = (emb.X0_, emb.affinities_)
     emb.result_.state = None    # the timing phase needs X and aff only
@@ -1128,7 +1156,7 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
     from repro_torch.kernels import ops, sparse_attractive
 
     t0 = time.perf_counter()
-    Y, _ = mnist_like(n=n, dim=784, seed=0)
+    Y, labels = mnist_like(n=n, dim=784, seed=0)
     say("fit_sparse", f"mnist_like(n={n}, dim=784) made in "
                       f"{time.perf_counter() - t0:.1f} s")
     configs = [
@@ -1141,8 +1169,8 @@ def phase_fit_sparse(n: int = N_SPARSE, iters: int = 10) -> dict:
     ]
     default = ops.ELL_DEFAULT_LAYOUT
     other, = (lay for lay in ELL_LAYOUTS if lay != default)
-    out = {"launches": {default: 0}, "fits": {}, "Y": Y, "default": default,
-           "other": other}
+    out = {"launches": {default: 0}, "fits": {}, "Y": Y, "labels": labels,
+           "default": default, "other": other}
     for kind, spec in configs:
         sparse_attractive.reset_launch_counts()
         diags = []
@@ -2644,6 +2672,338 @@ def phase_profile_sharded(emb, mesh, iters: int = 3) -> None:
                                f"phase time_ell_local's")
 
 
+# -- slice 4: the out-of-sample transform, artifacts and the server -----------
+
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"      # git-ignored
+SERVE_QUERIES = 1024
+SERVE_INVARIANT_ROWS = 64
+SERVE_REQUESTS = 512
+SERVE_CLIENTS = 8
+# the reference's own bound on batch invariance (tests/test_api.py:441,445,
+# tests/test_serve.py:197,213)
+INVARIANCE_TOL = 1e-5
+HTTP_TIMEOUT_S = 300
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def serve_queries(Y: np.ndarray, n: int, seed: int) -> tuple:
+    """n seeded training rows plus N(0, 0.1^2) noise (the generator's own
+    noise scale), and the rows they came from."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(Y.shape[0], n, replace=False)
+    Q = Y[rows] + 0.1 * rng.normal(size=(n, Y.shape[1]))
+    return Q.astype(np.float32), rows
+
+
+def _gap(a, b) -> float:
+    return float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+
+
+def _client_rows(server, Q: np.ndarray, clients: int) -> tuple:
+    """Every row of Q submitted alone, `clients` threads each waiting for
+    its last answer before its next request; (results, wall seconds)."""
+    import threading
+
+    out = np.zeros((Q.shape[0], 2), dtype=np.float32)
+    errors = []
+
+    def client(idxs):
+        try:
+            for i in idxs:
+                out[i] = server.transform(Q[i], timeout=600.0)
+        except Exception as e:      # reported below, fails the phase
+            errors.append(e)
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, Q.shape[0], clients),))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=1200)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"server clients failed: {errors[:3]}")
+    return out, wall
+
+
+def _check_invariance(tag: str, est, Q: np.ndarray, tspec) -> None:
+    """Each row's rowwise result alone, in pairs, in one batch, in chunks of
+    5 and through the server (padded buckets) within INVARIANCE_TOL of the
+    batch's; prints the gaps and whether every result is bit-equal."""
+    # the server's batches: single rows from SERVE_CLIENTS threads, then
+    # one block of 5 rows (bucket 8, padded with copies of its first row)
+    from repro_torch.serve import EmbeddingServer
+
+    n = Q.shape[0]
+    joint = est.transform(Q, tspec)
+    ways = {
+        "alone": torch.cat([est.transform(Q[i:i + 1], tspec)
+                            for i in range(n)]),
+        "pairs": torch.cat([est.transform(Q[i:i + 2], tspec)
+                            for i in range(0, n, 2)]),
+        "chunks of 5": est.transform(Q, tspec.replace(batch_size=5)),
+    }
+    with EmbeddingServer(est, tspec, max_batch=SERVE_INVARIANT_ROWS) as srv:
+        rows, _ = _client_rows(srv, Q, SERVE_CLIENTS)
+        block = srv.transform(Q[:5], timeout=600.0)   # bucket 8, padded
+        stats = srv.stats()
+    ways["server"] = torch.as_tensor(rows)
+    ways["server block of 5"] = torch.as_tensor(block)
+    gaps = {}
+    for name, got in ways.items():
+        want = joint.cpu()[:got.shape[0]]
+        gaps[name] = (_gap(got.cpu(), want),
+                      bool(torch.equal(got.cpu(), want)))
+    say("serve", f"{tag}: batch invariance over {n} rows, largest gap to the "
+                 f"batch of {n}: " + ", ".join(
+                     f"{k} {g:.3e} ({'bit-equal' if eq else 'not bit-equal'})"
+                     for k, (g, eq) in gaps.items())
+        + f"; the server ran {stats['n_batches']} batches "
+          f"(mean {stats.get('mean_batch', 0):.2f} rows) over buckets "
+          f"{sorted(stats['cache'])}")
+    worst = max(g for g, _ in gaps.values())
+    if not worst <= INVARIANCE_TOL:
+        raise AssertionError(f"{tag}: rowwise results depend on the batch: "
+                             f"{gaps}")
+
+
+def _http_round_trip(path: str, Q: np.ndarray, est, tspec) -> None:
+    """`python -m repro_torch.serve.http` on the artifact (CUDA, the CLI's
+    default), one POST of 3 rows held to the direct transform, then
+    SIGTERM: it must drain and exit 0."""
+    import os
+    import signal
+    import urllib.request
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve.http", "--artifact", path,
+         "--port", "0", "--warmup", "4"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        line = ""
+        while "listening on" not in line:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"serve.http exited: "
+                                     f"{proc.stderr.read()[-2000:]}")
+        base = line.split("listening on ")[1].split()[0]
+        up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"{base}/transform",
+            data=json.dumps({"rows": Q[:3].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        obj = json.loads(urllib.request.urlopen(
+            req, timeout=HTTP_TIMEOUT_S).read())
+        rtt = time.perf_counter() - t0
+        health = json.loads(urllib.request.urlopen(
+            f"{base}/healthz", timeout=HTTP_TIMEOUT_S).read())
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=HTTP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or "drained and closed" not in out:
+        raise AssertionError(f"serve.http did not drain and exit 0 "
+                             f"(rc {proc.returncode}): {err[-2000:]}")
+    got = torch.tensor(obj["embedding"], dtype=torch.float32)
+    want = est.transform(Q[:3], tspec).cpu()
+    gap = _gap(got, want)
+    say("serve", f"http: `python -m repro_torch.serve.http` up (artifact "
+                 f"loaded, warmed) in {up:.1f} s, /healthz {health}; one "
+                 f"POST /transform of 3 rows {rtt * 1e3:.1f} ms round trip, "
+                 f"gap to the direct transform {gap:.3e} "
+                 f"({'bit-equal' if torch.equal(got, want) else 'not bit-equal'})"
+                 f"; SIGTERM drained it, rc 0")
+    if not gap <= INVARIANCE_TOL:
+        raise AssertionError(f"HTTP round trip {got} != direct {want}")
+
+
+def _timed_transform(est, Q, tspec) -> tuple:
+    _sync()
+    t0 = time.perf_counter()
+    X = est.transform(Q, tspec)
+    _sync()
+    return X, (time.perf_counter() - t0) * 1e3
+
+
+def _serve_profile(est, Q, tspec) -> None:
+    """One 64-row rowwise batch under torch.profiler: device busy time, the
+    idle share of its wall time and the top device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    est.transform(Q, tspec)                     # warm-up
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.transform(Q, tspec)
+        _sync()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    if not rows:
+        say("serve", "torch.profiler recorded no device kernels: device time "
+                     "and idle share not measured")
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[2] for r in rows)
+    say("serve", f"profile: one {Q.shape[0]}-row rowwise batch "
+                 f"{wall * 1e3:.1f} ms wall under the profiler, device busy "
+                 f"{busy * 1e3:.2f} ms, idle share "
+                 f"{max(0.0, 1 - busy / wall):.3f}, {launches} device "
+                 f"kernels")
+    for dev_us, key, count in rows[:6]:
+        say("serve", f"  {dev_us / 1e3:8.3f} ms {count:6d} calls  {key[:80]}")
+
+
+def phase_serve(tsne_est, labels: np.ndarray) -> None:
+    """Slice 4's main path (module docstring, phase 19)."""
+    from repro_torch.api import Embedding, TransformSpec
+    from repro_torch.api.transform import _anchor_affinities, _cross_method
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+    from repro_torch.serve import EmbeddingServer
+
+    counters = (pairwise, sparse_attractive, farfield)
+    for mod in counters:
+        mod.reset_launch_counts()
+    ee_est = Embedding.load(str(SERVE_DIR / "ee_dense.npz"))
+    ests = {"tsne": tsne_est, "ee": ee_est}
+    before = {k: e.embedding_.clone() for k, e in ests.items()}
+    Y = tsne_est._Y_train
+    Q, rows = serve_queries(Y, SERVE_QUERIES, seed=1)
+    Q64 = Q[:SERVE_INVARIANT_ROWS]
+    rowwise = TransformSpec(solver="rowwise")
+    spec = tsne_est.spec
+    k = spec.n_neighbors or int(3 * spec.perplexity)
+    say("serve", f"t-SNE sparse fit: N={Y.shape[0]} D={Y.shape[1]}, k={k}, "
+                 f"m={spec.transform_negatives}, transform_iters="
+                 f"{spec.transform_iters}, cross-kNN "
+                 f"{_cross_method(rowwise, Y.shape[0])}; {Q.shape[0]} queries")
+
+    # 1 + 4: save -> load on CUDA -> the exhaustive (engine) transform
+    path = str(SERVE_DIR / "tsne_sparse.npz")
+    t0 = time.perf_counter()
+    tsne_est.save(path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = Embedding.load(path)
+    t_load = time.perf_counter() - t0
+    exh = TransformSpec(exhaustive=True)
+    a, ms_a = _timed_transform(tsne_est, Q64, exh)
+    res = tsne_est.last_transform_result_
+    b, _ = _timed_transform(loaded, Q64, exh)
+    if not torch.equal(a, b):
+        raise AssertionError(f"loaded artifact's exhaustive transform parts "
+                             f"from the in-process one by {_gap(a, b):.3e}")
+    e = res.energies
+    if not np.all(np.isfinite(e)) or np.any(np.diff(e) > 0):
+        raise AssertionError(f"engine solver energies {e}")
+    say("serve", f"artifact: save {t_save:.1f} s, load on "
+                 f"{loaded.device} {t_load:.1f} s; exhaustive engine "
+                 f"transform of {Q64.shape[0]} rows ({res.n_iters} "
+                 f"iterations, {int(res.n_fevals[-1])} evaluations, "
+                 f"{ms_a:.0f} ms) bit-equal after the round trip; energies "
+                 f"{e[0]:.6g} -> {e[-1]:.6g}, finite, never increasing")
+
+    # 3: rowwise batch invariance, approximate (t-SNE) and exact (EE) kNN
+    _check_invariance(f"tsne ({_cross_method(rowwise, Y.shape[0])} "
+                      f"cross-kNN)", tsne_est, Q64, rowwise)
+    _check_invariance(f"tsne, exhaustive repulsion over all {Y.shape[0]} "
+                      f"anchors", tsne_est, Q[:16],
+                      rowwise.replace(exhaustive=True))
+    Qee, _ = serve_queries(ee_est._Y_train, SERVE_INVARIANT_ROWS, seed=2)
+    _check_invariance(f"ee (exact cross-kNN, N={ee_est.embedding_.shape[0]}"
+                      f", lambda={ee_est.spec.lam:g})", ee_est, Qee, rowwise)
+
+    # 5: the HTTP front-end as its CLI on localhost
+    _http_round_trip(path, Q, tsne_est, rowwise)
+
+    # printed, not held: the CPU path on the same rows from the artifact
+    cpu_spec = TransformSpec(solver="rowwise", exhaustive=True, max_iters=3)
+    t0 = time.perf_counter()
+    on_cpu = Embedding.load(path, device="cpu").transform(Q64, cpu_spec)
+    t_cpu = time.perf_counter() - t0
+    on_gpu = tsne_est.transform(Q64, cpu_spec).cpu()
+    A = tsne_est.embedding_
+    a_rms = float(torch.sqrt(torch.mean((A - A.mean(0)) ** 2)))
+    gap = _gap(on_cpu, on_gpu)
+    say("serve", f"CPU path (device='cpu', exhaustive, 3 iterations, "
+                 f"{t_cpu:.1f} s): largest gap to the card {gap:.3e}, "
+                 f"{gap / a_rms:.2e} of the anchors' rms {a_rms:.3f}")
+
+    # measured: direct rowwise transforms, the cross-kNN alone
+    for n in (1, SERVE_INVARIANT_ROWS, SERVE_QUERIES):
+        tsne_est.transform(Q[:n], rowwise)                    # warm-up
+        X, ms = _timed_transform(tsne_est, Q[:n], rowwise)
+        r = tsne_est.last_transform_result_
+        say("serve", f"direct rowwise transform of {n} rows: {ms:.1f} ms, "
+                     f"{r.n_iters} iterations, {r.n_evals / r.n_iters:.2f} "
+                     f"energy evaluations and {r.n_reads / r.n_iters:.2f} "
+                     f"device reads an iteration ({r.n_reads} reads, "
+                     f"{r.n_converged} rows frozen)")
+        if n == SERVE_QUERIES:
+            Xn = X.cpu().numpy()
+            Xt = A.cpu().numpy()
+            cents = np.stack([Xt[labels == c].mean(0) for c in range(10)])
+            d = ((Xn[:, None, :] - cents[None]) ** 2).sum(-1)
+            share = float((d.argmin(1) == labels[rows]).mean())
+            say("serve", f"{share:.3f} of the {n} queries lie nearest their "
+                         f"own class's centroid")
+    Yt = tsne_est._train_tensor()
+    for n in (1, SERVE_INVARIANT_ROWS, SERVE_QUERIES):
+        Qn = torch.as_tensor(Q[:n], device=Yt.device)
+        def knn():
+            return _anchor_affinities(Qn, Yt, k, float(spec.perplexity),
+                                      method=_cross_method(rowwise,
+                                                           Yt.shape[0]))
+        knn()
+        _sync()
+        t0 = time.perf_counter()
+        knn()
+        _sync()
+        say("serve", f"cross-kNN and calibration alone for {n} rows: "
+                     f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    _serve_profile(tsne_est, Q64, rowwise)
+
+    # measured: single-row requests from client threads
+    with EmbeddingServer(tsne_est, rowwise,
+                         max_batch=SERVE_INVARIANT_ROWS) as srv:
+        srv.warmup()
+        _, wall = _client_rows(srv, Q[:SERVE_REQUESTS], SERVE_CLIENTS)
+    st = srv.stats()
+    lat = st["latency"]
+    say("serve", f"server: {SERVE_REQUESTS} single-row requests from "
+                 f"{SERVE_CLIENTS} threads in {wall:.2f} s "
+                 f"({SERVE_REQUESTS / wall:.1f} rows/s); latency p50 "
+                 f"{lat['p50_ms']:.1f} ms, p90 {lat['p90_ms']:.1f} ms, p99 "
+                 f"{lat['p99_ms']:.1f} ms, max {lat['max_ms']:.1f} ms; "
+                 f"{st['n_batches']} batches, mean batch "
+                 f"{st['mean_batch']:.2f} rows; busy {st['busy_s']:.2f} s")
+
+    # 2: the training embeddings are untouched
+    for name, est in ests.items():
+        if not torch.equal(est.embedding_, before[name]):
+            raise AssertionError(f"{name}: embedding_ changed while serving")
+    launched = {k: v for mod in counters for k, v in mod.launch_counts.items()
+                if v}
+    say("serve", f"embedding_ of both fits bit-identical after every request;"
+                 f" kernel launches while serving: {launched or 'none'} (the "
+                 f"transform is plain PyTorch)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -2679,6 +3039,7 @@ def main() -> int:
     timing_local = phase_time_ell_local(sharded)
     phase_profile_sharded(sharded["fits"]["tsne"], sharded["mesh"])
     dist.destroy_process_group()
+    phase_serve(sparse["fits"]["tsne"], sparse["labels"])
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     from repro_torch.kernels.ops import ELL_DEFAULT_LAYOUT
     if ell_rule != ELL_DEFAULT_LAYOUT:

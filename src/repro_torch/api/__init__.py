@@ -1,7 +1,10 @@
-# The public entry point for fitting embeddings with the port: a declarative
-# EmbedSpec, the Embedding estimator (fit / fit_transform) and the strategy
-# and backend registries.  Port of repro.api for the dense, sparse, tree and
-# sparse-sharded backends (not yet dense-mesh).
+# The public entry point for fitting and serving embeddings with the port: a
+# declarative EmbedSpec, the Embedding estimator (fit / fit_transform /
+# transform / save / load), a frozen TransformSpec for the out-of-sample
+# path, versioned fitted artifacts (api/artifact.py, the reference's schema
+# v1) and the strategy and backend registries.  Port of repro.api for the
+# dense, sparse, tree and sparse-sharded backends (not yet dense-mesh).
+from .artifact import load_artifact, read_header, save_artifact
 from .estimator import Embedding
 from .registries import (
     available_backends,
@@ -10,10 +13,19 @@ from .registries import (
     register_strategy,
     resolve_backend,
 )
-from .spec import EmbedSpec
+from .spec import EmbedSpec, TransformSpec
+from .transform import (
+    RowwiseResult,
+    TransformObjective,
+    resolve_transform_spec,
+    transform_points,
+)
 
 __all__ = [
-    "Embedding", "EmbedSpec",
+    "Embedding", "EmbedSpec", "TransformSpec",
     "available_backends", "available_strategies",
     "register_backend", "register_strategy", "resolve_backend",
+    "TransformObjective", "transform_points", "RowwiseResult",
+    "resolve_transform_spec",
+    "save_artifact", "load_artifact", "read_header",
 ]

@@ -27,6 +27,12 @@ backend only.  After `fit`:
                      `core.Affinities` (dense) or
                      `sparse.SparseAffinities` (sparse, tree)
   * `X0_`          — the starting point the fit used
+
+`transform(Y_new)` embeds unseen points against the FROZEN training
+embedding (api/transform.py) and leaves `embedding_` bit-identical; `save`
+and the classmethod `load` move a fitted estimator across processes as a
+versioned artifact (api/artifact.py, the reference's schema v1).  Inputs
+may be arrays or tensors; they go to the estimator's device.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ import torch
 from repro_torch.launch.mesh import make_host_mesh, world_size
 
 from . import registries
-from .spec import EmbedSpec
+from .spec import EmbedSpec, TransformSpec
+from .transform import transform_points
 
 
 def resolve_device(device) -> torch.device:
@@ -123,14 +130,91 @@ class Embedding:
         self.embedding_ = res.X
         self.affinities_ = aff
         self.X0_ = X0
+        self._Y_train = Y
+        self._Y_dev = None
         return self
 
     def fit_transform(self, Y, X0=None, callback=None) -> torch.Tensor:
         return self.fit(Y, X0=X0, callback=callback).embedding_
 
+    # -- serving -------------------------------------------------------------
+    def _train_tensor(self) -> torch.Tensor:
+        """The training Y as a float32 tensor on the estimator's device
+        (made once and kept)."""
+        if getattr(self, "_Y_dev", None) is None:
+            self._Y_dev = torch.as_tensor(self._Y_train, dtype=torch.float32,
+                                          device=self.device)
+        return self._Y_dev
+
+    def transform(self, Y_new, spec: TransformSpec | None = None, *,
+                  anchor_source=None, projections=None) -> torch.Tensor:
+        """Embed unseen points against the frozen training embedding.
+
+        Never re-fits: the training coordinates enter as constants, so
+        `embedding_` is bit-identical before and after.  Configuration is a
+        `TransformSpec`, whose zero and None fields defer to the fitted
+        `EmbedSpec`.  `anchor_source(seed, it)` and `projections` replace
+        the random draws (api/transform.py).  Requires the fit to have seen
+        raw `Y` (not only precomputed affinities).  The result (an
+        `EngineResult` or `RowwiseResult`) is kept as
+        `last_transform_result_`."""
+        if getattr(self, "embedding_", None) is None:
+            raise ValueError("transform() requires a fitted estimator")
+        if getattr(self, "_Y_train", None) is None:
+            if getattr(self, "loaded_from_", None):
+                raise ValueError(
+                    "transform() needs the training Y: this estimator was "
+                    "loaded from a train='ref' artifact whose reference was "
+                    "unavailable - pass Y_train= to Embedding.load()")
+            raise ValueError(
+                "transform() needs the raw training Y; this estimator was "
+                "fit from precomputed affinities only")
+        X_new, res = transform_points(
+            self.spec, self._train_tensor(), self.embedding_, Y_new,
+            tspec=spec, anchor_source=anchor_source, projections=projections)
+        self.last_transform_result_ = res
+        return X_new
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, path: str, *, train: str = "snapshot",
+             train_ref: str | None = None) -> str:
+        """Persist the fitted estimator as a versioned artifact (one `.npz`:
+        embedding, training data, frozen spec, graph stats), the supported
+        way to move a fitted `Embedding` across processes and between the
+        two packages; pickling is refused.  `train='ref'` stores a path and
+        SHA-256 instead of the training Y.  Returns `path`."""
+        from .artifact import save_artifact
+        return save_artifact(self, path, train=train, train_ref=train_ref)
+
+    @classmethod
+    def load(cls, path: str, *, Y_train=None, device=None) -> "Embedding":
+        """Reload a saved artifact (the port's or the reference's) onto
+        `device` (None: CUDA, which must be available): a fitted estimator
+        whose exhaustive `transform()` matches the saving estimator's bit
+        for bit on the same device; no refit happens."""
+        from .artifact import load_artifact
+        return load_artifact(path, Y_train=Y_train, device=device)
+
+    def __reduce__(self):
+        raise TypeError(
+            "pickling Embedding is unsupported (device tensors and solver "
+            "state do not survive it); use est.save(path) / "
+            "Embedding.load(path), the versioned artifact format")
+
     def __repr__(self):
+        loaded = getattr(self, "loaded_from_", None)
         fitted = getattr(self, "backend_", None)
-        state = f"fitted[{fitted}]" if fitted else "unfitted"
+        if loaded:
+            ver = (getattr(self, "artifact_header_", None) or {}).get(
+                "schema_version")
+            state = f"loaded[v{ver}:{loaded}]"
+        elif fitted:
+            state = f"fitted[{fitted}]"
+        else:
+            state = "unfitted"
+        X = getattr(self, "embedding_", None)
+        if X is not None:
+            state += f", n_train={X.shape[0]}"
         return (f"Embedding(kind={self.spec.kind!r}, "
                 f"strategy={self.spec.strategy!r}, "
                 f"backend={self.spec.backend!r}, device={str(self.device)!r}, "

@@ -1,12 +1,15 @@
-"""`EmbedSpec`: the declarative description of an embedding problem.
+"""`EmbedSpec` and `TransformSpec`: the declarative descriptions of an
+embedding problem and of an out-of-sample transform request.
 
-Port of `EmbedSpec` from `repro/api/spec.py`: model `kind`, `strategy`,
-`backend`, the objective and loop settings, the sparse neighbour-graph
-knobs, the Barnes-Hut tree knobs and kernel dispatch.  The names that select
-what runs are validated at construction.  The knobs of the parts not yet
-ported (out-of-sample transform, checkpoint cadence) are absent;
-`convert.spec_from_jax_fields` drops them when carrying a `repro` spec
-across.
+Port of `repro/api/spec.py`.  `EmbedSpec` holds the model `kind`,
+`strategy`, `backend`, the objective and loop settings, the sparse
+neighbour-graph knobs, the out-of-sample transform's defaults, the
+Barnes-Hut tree knobs and kernel dispatch; the names that select what runs
+are validated at construction.  The checkpoint cadence (`checkpoint_every`)
+is absent, as checkpointing is not ported; `convert.spec_from_jax_fields`
+drops it when carrying a `repro` spec across.  `TransformSpec` configures
+`Embedding.transform` and the server (`repro_torch.serve`); its zero and
+None fields defer to the fitted `EmbedSpec`.
 """
 from __future__ import annotations
 
@@ -59,6 +62,9 @@ class EmbedSpec:
     knn_method: str = "auto"      # 'exact' | 'approx' | 'auto'
     cg_tol: float = 1e-3
     cg_maxiter: int = 100
+    # out-of-sample transform() (api/transform.py)
+    transform_iters: int = 100
+    transform_negatives: int = 50  # anchor negatives per application
     kernel_impl: str = "auto"
     kernel_precision: str = "float32"    # storage; accumulation is float32
     # Barnes-Hut tree backend
@@ -112,4 +118,69 @@ class EmbedSpec:
         return LSConfig(init_step=entry.default_ls_init)
 
     def replace(self, **changes) -> "EmbedSpec":
+        return dataclasses.replace(self, **changes)
+
+
+#: valid `TransformSpec.knn_method` names (cross-kNN dispatch,
+#: sparse/graph.py::knn_cross)
+TRANSFORM_KNN_METHODS = ("exact", "approx", "auto")
+#: valid `TransformSpec.solver` names: 'engine' runs the fixed-anchor
+#: objective through the shared fit_loop (one global line search over the
+#: whole query batch); 'rowwise' runs the per-row solver whose results do
+#: not depend on the batch's other rows, which the server requires.
+TRANSFORM_SOLVERS = ("engine", "rowwise")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformSpec:
+    """Declarative out-of-sample transform request, mirroring `EmbedSpec`:
+    every serving knob, validated at construction; the frozen value is
+    also the server's per-request configuration
+    (`repro_torch.serve.EmbeddingServer`).  Zero and None fields defer to
+    the fitted `EmbedSpec` (`max_iters=0` -> `transform_iters`,
+    `n_negatives=0` -> `transform_negatives`, `k_cross=0` -> the training
+    ELL width, `tol=None` -> `spec.tol`).
+    """
+
+    max_iters: int = 0            # 0 => EmbedSpec.transform_iters
+    k_cross: int = 0              # 0 => EmbedSpec.n_neighbors (or 3*perp)
+    n_negatives: int = 0          # 0 => EmbedSpec.transform_negatives
+    exhaustive: bool = False      # deterministic repulsion over every
+                                  # training anchor (per-point Z summed
+                                  # over all of them)
+    knn_method: str = "auto"      # cross-kNN: 'exact'|'approx'|'auto'
+    solver: str = "engine"        # 'engine' | 'rowwise' (batch-invariant)
+    batch_size: int = 0           # rowwise chunking cap; 0 => one batch
+    tol: float | None = None      # None => EmbedSpec.tol
+    seed: int = 0                 # negative-anchor draw (sampled mode)
+    # approx cross-kNN knobs (sparse/graph.py::knn_cross_approx)
+    n_projections: int = 8
+    window: int = 16
+
+    def __post_init__(self):
+        if self.knn_method not in TRANSFORM_KNN_METHODS:
+            raise ValueError(
+                f"unknown knn_method {self.knn_method!r}; supported "
+                f"cross-kNN methods: {list(TRANSFORM_KNN_METHODS)}")
+        if self.solver not in TRANSFORM_SOLVERS:
+            raise ValueError(
+                f"unknown solver {self.solver!r}; supported transform "
+                f"solvers: {list(TRANSFORM_SOLVERS)}")
+        for name in ("max_iters", "k_cross", "n_negatives", "batch_size"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 0:
+                raise ValueError(
+                    f"TransformSpec.{name} must be a non-negative int "
+                    f"(0 defers to the fitted EmbedSpec), got {v!r}")
+        for name in ("n_projections", "window"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"TransformSpec.{name} must be a positive int, "
+                    f"got {v!r}")
+        if self.tol is not None and self.tol < 0:
+            raise ValueError(f"TransformSpec.tol must be >= 0 or None, "
+                             f"got {self.tol!r}")
+
+    def replace(self, **changes) -> "TransformSpec":
         return dataclasses.replace(self, **changes)

@@ -1,9 +1,13 @@
-"""Carry state from `repro` (the JAX package) into the port.
+"""Carry state between `repro` (the JAX package) and the port.
 
 The JAX package's state crosses as numpy arrays and plain dicts, so this
 module imports nothing of JAX: the caller hands over `np.asarray(...)` of
 the arrays and `dataclasses.asdict(spec)` of a `repro.api.EmbedSpec`.  With
 these, both packages fit from identical affinities and starting points.
+The artifact format (`api/artifact.py`) crosses the other way too: it
+writes the port's `kernel_impl` in the reference's words
+(`KERNEL_IMPL_TO_JAX`) and reads a `repro` spec through
+`spec_from_jax_fields`.
 """
 from __future__ import annotations
 
@@ -20,13 +24,13 @@ from repro_torch.sparse.graph import NeighborGraph, SparseAffinities
 #: `repro` kernel_impl names -> the port's
 KERNEL_IMPL = {"auto": "auto", "pallas": "kernel", "pallas-interpret": "torch",
                "jnp": "torch"}
+#: the port's kernel_impl names -> `repro`'s (the artifact writer's)
+KERNEL_IMPL_TO_JAX = {"auto": "auto", "kernel": "pallas", "torch": "jnp"}
 
-#: `repro.api.EmbedSpec` fields of parts this port does not have yet
-#: (out-of-sample transform, the checkpoint cadence); they do not affect a
-#: fit and are dropped.  A set `checkpoint_dir` is not dropped: the port's
-#: EmbedSpec refuses it.
-UNPORTED_FIELDS = frozenset({
-    "transform_iters", "transform_negatives", "checkpoint_every"})
+#: `repro.api.EmbedSpec` fields of parts this port does not have yet (the
+#: checkpoint cadence); they do not affect a fit and are dropped.  A set
+#: `checkpoint_dir` is not dropped: the port's EmbedSpec refuses it.
+UNPORTED_FIELDS = frozenset({"checkpoint_every"})
 
 
 def affinities_from_numpy(Wp, Wm, device) -> Affinities:
@@ -58,7 +62,8 @@ def spec_from_jax_fields(fields: dict) -> EmbedSpec:
     """`dataclasses.asdict(repro.api.EmbedSpec(...))` -> the port's
     EmbedSpec.  `kernel_impl` maps pallas -> kernel and jnp /
     pallas-interpret -> torch; the line-search config maps field by field;
-    knobs of unported backends are dropped; any other unknown field raises.
+    the checkpoint cadence (`UNPORTED_FIELDS`) is dropped; any other unknown
+    field raises.
     """
     known = {f.name for f in dataclasses.fields(EmbedSpec)}
     out = {}

@@ -19,6 +19,7 @@ from .graph import (
     SparseAffinities,
     calibrated_weights_ell,
     from_dense,
+    knn_cross,
     knn_graph,
     knn_graph_approx,
     knn_graph_exact,
@@ -48,8 +49,8 @@ from .sharding import (
 
 __all__ = [
     "NeighborGraph", "SparseAffinities", "calibrated_weights_ell",
-    "from_dense", "knn_graph", "knn_graph_approx", "knn_graph_exact",
-    "reverse_graph", "sparse_affinities", "to_dense",
+    "from_dense", "knn_cross", "knn_graph", "knn_graph_approx",
+    "knn_graph_exact", "reverse_graph", "sparse_affinities", "to_dense",
     "ell_matvec", "ell_t_matvec", "in_degree", "make_sd_operator",
     "out_degree", "pcg", "sparse_laplacian_eigenmaps", "sym_degree",
     "sym_lap_matvec", "sym_matvec",

@@ -1,7 +1,6 @@
 """k-NN neighbour graphs in padded neighbour-list (ELL) format.
 
-Port of `repro/sparse/graph.py` (all but `knn_cross`, which belongs to the
-out-of-sample transform).  The spectral direction is scalable because
+Port of `repro/sparse/graph.py`.  The spectral direction is scalable because
 B = 4 L+_kappa is sparse when the attractive graph is a kappa-NN graph;
 this module is the storage layer that makes that sparsity real.
 
@@ -21,7 +20,14 @@ random-projection windows (`method="approx"`, O(T N (log N + w D))): T
 random 1-D projections, candidates = a window of 2 w sorted neighbours per
 projection, exact distances on the candidate union.
 
-The approximate search draws its T projection directions at random.
+`knn_cross` is the cross-set search of the out-of-sample transform: the k
+nearest TRAINING rows of each query row, exact (blocked) or through the same
+random-projection windows.  Every query block it works on has the same
+number of rows (the last one padded with zeros), so a query row's
+neighbours and distances come out of the same kernels whatever the other
+rows of its call.
+
+The approximate searches draw their T projection directions at random.
 `repro` draws them with `jax.random`, which torch cannot replay; the port
 draws them from a CPU `torch.Generator` seeded with `seed`, and takes them
 as `projections=` so that a test can hand both packages the same ones.
@@ -174,6 +180,141 @@ def knn_graph(Y: torch.Tensor, k: int, method: str = "auto", **kw
     if method == "approx":
         return knn_graph_approx(Y, k, **kw)
     raise ValueError(f"unknown knn method {method!r}")
+
+
+#: reference-set size above which ``knn_cross(method="auto")`` switches from
+#: the exact blocked pass to the random-projection candidate search (the
+#: threshold of `knn_graph`'s auto policy)
+CROSS_APPROX_N = 20_000
+
+
+def _validate_cross_k(k: int, n_r: int) -> None:
+    """Up-front `knn_cross` argument check: a clear ValueError at the call
+    boundary instead of a shape error from `topk` inside the blocked pass
+    (the serving path hits this with a user's `k_cross` against a possibly
+    tiny training set)."""
+    if k < 1:
+        raise ValueError(f"knn_cross needs k >= 1, got k={k}")
+    if k > n_r:
+        raise ValueError(
+            f"knn_cross k={k} exceeds the reference-set size n_train={n_r}: "
+            f"each query needs k distinct training neighbors (lower k_cross "
+            f"or provide more training points)")
+
+
+def _query_blocks(Yq: torch.Tensor, block_rows: int):
+    """(row0, rows, block) over Yq in blocks of min(block_rows, n_q) rows,
+    the last one padded with zero rows: every block has the same shape."""
+    n_q = Yq.shape[0]
+    br = min(block_rows, n_q)
+    for r0 in range(0, n_q, br):
+        Yb = Yq[r0:r0 + br]
+        nb = Yb.shape[0]
+        if nb < br:
+            Yb = torch.cat([Yb, Yb.new_zeros((br - nb, Yb.shape[1]))])
+        yield r0, nb, Yb
+
+
+def _empty_cross(Yr: torch.Tensor, k: int):
+    return (Yr.new_zeros((0, k)),
+            torch.zeros((0, k), dtype=torch.int32, device=Yr.device))
+
+
+def knn_cross_exact(Yq: torch.Tensor, Yr: torch.Tensor, k: int,
+                    block_rows: int = 1024
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact blocked k-NN from QUERY rows to REFERENCE rows: (d2, indices),
+    both (n_q, k), nearest first, indices (int32) into Yr.  No
+    self-exclusion: the two sets are distinct by construction (new points
+    against the training set).  O(n_q n_r D) compute, O(block_rows n_r)
+    memory."""
+    n_q, n_r = Yq.shape[0], Yr.shape[0]
+    _validate_cross_k(k, n_r)
+    if n_q == 0:
+        return _empty_cross(Yr, k)
+    r = torch.sum(Yr * Yr, dim=-1)
+    d2s, idxs = [], []
+    for _, nb, Yb in _query_blocks(Yq, block_rows):
+        d2 = torch.clamp_min(torch.sum(Yb * Yb, dim=-1)[:, None] + r[None, :]
+                             - 2.0 * (Yb @ Yr.T), 0.0)
+        vals, idx = torch.topk(d2, k, dim=-1, largest=False)
+        d2s.append(vals[:nb])
+        idxs.append(idx[:nb].to(torch.int32))
+    return torch.cat(d2s), torch.cat(idxs)
+
+
+def knn_cross_approx(Yq: torch.Tensor, Yr: torch.Tensor, k: int,
+                     n_projections: int = 8, window: int = 16, seed: int = 0,
+                     block_rows: int = 1024,
+                     projections: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Approximate cross-set k-NN through `knn_graph_approx`'s random-
+    projection windows, extended to two point sets.
+
+    Per projection u the REFERENCE set is sorted along u (on every call),
+    each query is inserted by `searchsorted`, and its candidates are the
+    2 * window reference points around the insertion slot.  The candidate
+    union over the projections gets exact distances and top-k; repeated
+    candidates score +inf, so with k above the distinct candidates a row
+    returns +inf slots.  `projections` (n_projections, D) replaces the
+    draw from `seed`."""
+    n_q, n_r = Yq.shape[0], Yr.shape[0]
+    _validate_cross_k(k, n_r)
+    cand_per_proj = min(2 * window, n_r)
+    if k > n_projections * cand_per_proj:
+        raise ValueError(
+            f"knn_cross approx mode: k={k} exceeds the candidate budget "
+            f"{n_projections} projections x {cand_per_proj} window points = "
+            f"{n_projections * cand_per_proj}; raise window or n_projections "
+            f"(or use method='exact')")
+    if n_q == 0:
+        return _empty_cross(Yr, k)
+    if projections is None:
+        projections = draw_projections(n_projections, Yr.shape[1], seed,
+                                       Yr.device)
+    projections = projections.to(device=Yr.device, dtype=Yr.dtype)
+    offs = torch.arange(-window, window, device=Yr.device)
+    sorted_proj = []
+    for u in projections:
+        pr = Yr @ u
+        order = torch.argsort(pr, stable=True)           # (n_r,) ref ids
+        sorted_proj.append((u, pr[order].contiguous(), order))
+    d2s, idxs = [], []
+    for _, nb, Yb in _query_blocks(Yq, block_rows):
+        cand = torch.cat([
+            order[torch.clamp(torch.searchsorted(pr_s, Yb @ u)[:, None]
+                              + offs[None, :], 0, n_r - 1)]
+            for u, pr_s, order in sorted_proj], dim=-1)  # (br, C)
+        Yc = Yr[cand]                                    # (br, C, D)
+        d2 = torch.clamp_min(
+            torch.sum(Yb * Yb, dim=-1)[:, None] + torch.sum(Yc * Yc, dim=-1)
+            - 2.0 * torch.einsum("bd,bcd->bc", Yb, Yc), 0.0)
+        cb_s, d2_s = _dedupe_sorted_rows(cand, d2)
+        vals, slot = torch.topk(d2_s, k, dim=-1, largest=False)
+        d2s.append(vals[:nb])
+        idxs.append(torch.gather(cb_s, -1, slot)[:nb].to(torch.int32))
+    return torch.cat(d2s), torch.cat(idxs)
+
+
+def knn_cross(Yq: torch.Tensor, Yr: torch.Tensor, k: int,
+              block_rows: int = 1024, method: str = "exact", **approx_kw
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-set k-NN dispatch: (d2, indices), both (n_q, k), indices into
+    the reference rows `Yr`.  `method`: 'exact' (blocked O(n_q n_r D)
+    pass) | 'approx' (`knn_cross_approx`) | 'auto' (exact up to n_r =
+    CROSS_APPROX_N, approx above: queries against a large frozen training
+    set must not pay a full scan).  Validates 1 <= k <= n_reference up
+    front."""
+    _validate_cross_k(k, Yr.shape[0])
+    if method == "auto":
+        method = "exact" if Yr.shape[0] <= CROSS_APPROX_N else "approx"
+    if method == "exact":
+        return knn_cross_exact(Yq, Yr, k, block_rows=block_rows)
+    if method == "approx":
+        return knn_cross_approx(Yq, Yr, k, block_rows=block_rows,
+                                **approx_kw)
+    raise ValueError(f"unknown knn_cross method {method!r}; "
+                     f"have 'exact' | 'approx' | 'auto'")
 
 
 # -- perplexity calibration over k candidates -----------------------------------
