@@ -169,7 +169,38 @@ Phases, each printing one line (or a few) and failing the run on error:
  18. profile_sharded — three one-rank sharded t-SNE SD iterations under
               torch.profiler: device time by kernel, the idle share and the
               NCCL collectives' time a CG matvec.
- 19. serve — slice 4's main path: the out-of-sample transform, artifacts
+ 19. telemetry — slice 6's telemetry path: phase fit_sparse's t-SNE fit
+              (N = 70000, k = 90, ten iterations) again from Y with
+              `fit(telemetry=<dir>)`: its energies and X must be that fit's
+              bit for bit; run.jsonl must hold ten iteration records with
+              pcg_iters >= 1, pcg_residual, z_ema > 0 and the device's
+              memory counters, the phase records graph-build,
+              spectral-init, setup and compile, and a kernel_dispatch meta
+              naming the ELL kernel's CUDA path and layout; trace.json must
+              be Chrome-trace JSON with the graph build's steps
+              (graph-build/knn, /calibrate, /reverse), ten solve-iter spans
+              and kernel/ell_lap_matvec spans.  Printed: the median ms an
+              iteration with and without telemetry and their ratio (not
+              held), and the report CLI's rendering.  Then three
+              iterations under torch.profiler with
+              profiler_annotations=True: solve-iter user annotations beside
+              the ELL kernel's CUDA events.
+ 20. resume — four fits stopped and resumed through a fresh
+              `Embedding(spec).resume(Y, max_iters=...)`, each bit-equal
+              after the checkpoint (energies and X) to its uninterrupted
+              run and resumed from the step it stopped at: dense EE N =
+              20000 SD (lambda = 100, kappa = 7) 5 -> 10 against phase
+              fit's, from its spectral start (kernel 1; the payload holds
+              SD's two N x N matrices, 3.2 GB); sparse t-SNE N = 70000 5 -> 10 against phase
+              fit_sparse's (kernel 2; the z carry and the PCG warm start),
+              with one telemetry directory whose run.jsonl must hold
+              iterations 1..10; tree EE 2 -> 4 on phase fit_sparse's graph
+              (kernel 4 through bh_tree; the deterministic (E, G) path);
+              sparse-sharded t-SNE 2 -> 4 in the one-rank NCCL group
+              (kernel 5).  Printed: each save's bytes and seconds (its
+              checkpoint span).  The checkpoints live under the ignored
+              build/chip_smoke_resume/, removed at the end.
+ 21. serve — slice 4's main path: the out-of-sample transform, artifacts
               and the server (`Embedding.transform`, `save` / `load`,
               `EmbeddingServer`, `python -m repro_torch.serve.http`) over
               the t-SNE sparse fit of phase fit_sparse (N = 70000, k = 90,
@@ -179,8 +210,10 @@ Phases, each printing one line (or a few) and failing the run on error:
               (seeded training rows plus N(0, 0.1^2) noise).  Held: an
               exhaustive transform after save -> load on CUDA is the
               in-process one bit for bit; `embedding_` is unchanged after
-              every request; each row's rowwise result alone, in pairs, in
-              one batch of 64, in chunks of 5 and through `EmbeddingServer`
+              every request; each row's rowwise result alone, in pairs
+              and in chunks of 5 (the first 8 rows of each check,
+              SERVE_ALONE_ROWS), in one batch of 64 and through
+              `EmbeddingServer` (the first 16, SERVE_CLIENT_ROWS)
               (8 client threads, padded buckets) within 1e-5 of the others
               (bit-equality printed), on both maps, and on 16 rows of the
               t-SNE map with exhaustive repulsion; the default engine solver's energies
@@ -194,6 +227,10 @@ Phases, each printing one line (or a few) and failing the run on error:
               64 and 1024 rows (ms, iterations, energy evaluations and
               device reads an iteration), the cross-kNN alone, and one
               64-row batch under torch.profiler (device busy, idle share).
+              Then the same 512 requests through `EmbeddingServer(
+              telemetry=<dir>)`: 512 request records with status ok, one
+              serve/batch span for each batch of its `stats()`, and rows
+              bit-equal to the server's without telemetry.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -555,11 +592,15 @@ def phase_fit(n: int = N_FIT, iters: int = 10) -> dict:
         if kind == "ee":
             # the serving phase's exact-kNN case loads this artifact
             emb.save(str(SERVE_DIR / "ee_dense.npz"))
+            # phase resume holds its resumed fit to this one
+            resume_ref = {"spec": spec, "Y": Y, "X0": emb.X0_,
+                          "energies": e, "X": X.cpu()}
         data[kind] = (X, emb.affinities_.Wp, emb.affinities_.Wm)
         starts[kind] = (emb.X0_, emb.affinities_)
     emb.result_.state = None    # the timing phase needs X and aff only
     return {"launches": launches, "emb": emb, "data": data,
-            "starts": starts, "settled": {"ee": data["ee"][0]}}
+            "starts": starts, "settled": {"ee": data["ee"][0]},
+            "resume_ref": resume_ref}
 
 
 def phase_time(data: dict) -> dict:
@@ -2672,11 +2713,290 @@ def phase_profile_sharded(emb, mesh, iters: int = 3) -> None:
                                f"phase time_ell_local's")
 
 
+# -- slice 6: run telemetry and checkpoint/resume -----------------------------
+
+TEL_PHASES = ("graph-build", "spectral-init", "setup", "compile")
+TEL_STEPS = ("graph-build/knn", "graph-build/calibrate",
+             "graph-build/reverse")
+TEL_BUDGET = 0.05      # the reference's telemetry overhead budget (printed)
+RESUME_DIR = ROOT / "build" / "chip_smoke_resume"    # git-ignored
+
+
+def _iter_ms(res) -> float:
+    """Median milliseconds an iteration of an engine result."""
+    return float(np.median(np.diff(res.times))) * 1e3
+
+
+def _held_equal(tag: str, got, want, what: str) -> None:
+    if isinstance(got, torch.Tensor):
+        same = torch.equal(got.cpu(), want.cpu())
+    else:
+        same = np.array_equal(np.asarray(got), np.asarray(want))
+    if not same:
+        raise AssertionError(f"{tag}: {what} not bit-equal: {got} vs {want}")
+
+
+def phase_telemetry(sparse: dict) -> dict:
+    """Slice 6's telemetry path: the sparse t-SNE fit of phase fit_sparse
+    again from Y with `fit(telemetry=<dir>)` (module docstring, phase
+    19)."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Embedding
+    from repro_torch.kernels import ops, sparse_attractive
+    from repro_torch.obs import Telemetry, load_jsonl
+    from repro_torch.obs import report
+
+    ref = sparse["fits"]["tsne"]
+    spec = ref.spec
+    default = ops.ELL_DEFAULT_LAYOUT
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        sparse_attractive.reset_launch_counts()
+        t0 = time.perf_counter()
+        emb = Embedding(spec).fit(sparse["Y"], telemetry=d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(sparse_attractive.launch_counts)
+        if launches[f"ell_lap_matvec_{default}"] < 1:
+            raise AssertionError(f"telemetry fit: ELL launches {launches}")
+        res = emb.result_
+        _held_equal("telemetry", res.energies, ref.result_.energies,
+                    "energies with and without telemetry")
+        _held_equal("telemetry", emb.embedding_, ref.embedding_,
+                    "X with and without telemetry")
+        meta, phases, records = load_jsonl(f"{d}/run.jsonl")
+        if [r.it for r in records] != list(range(1, spec.max_iters + 1)):
+            raise AssertionError(f"iteration records {[r.it for r in records]}")
+        for r in records:
+            x = r.extras
+            if not (x.get("pcg_iters", 0) >= 1 and "pcg_residual" in x
+                    and x.get("z_ema", 0) > 0
+                    and x.get("mem_bytes_in_use", 0) > 0
+                    and x.get("mem_peak_bytes", 0) > 0):
+                raise AssertionError(f"iteration {r.it}: extras {x}")
+        names = [p["name"] for p in phases]
+        if set(names) != set(TEL_PHASES):
+            raise AssertionError(f"phase records {names}")
+        disp = meta.get("kernel_dispatch", {}).get("ell_lap_matvec", {})
+        if (disp.get("path"), disp.get("reason"), disp.get("layout")) != (
+                "kernel", "cuda-default", default):
+            raise AssertionError(f"kernel_dispatch {meta.get('kernel_dispatch')}")
+        with open(f"{d}/trace.json") as f:
+            trace = json.load(f)
+        events = trace["traceEvents"]
+        for e in events:
+            if (e["ph"] != "X" or e["ts"] < 0 or e["dur"] < 0
+                    or "pid" not in e or "tid" not in e):
+                raise AssertionError(f"not a Chrome-trace complete event: {e}")
+        counts = {}
+        for e in events:
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+        missing = [s for s in (*TEL_PHASES, *TEL_STEPS) if s not in counts]
+        if (missing or counts.get("solve-iter") != spec.max_iters
+                or counts.get("kernel/ell_lap_matvec", 0) < 1):
+            raise AssertionError(f"trace spans {counts} (missing {missing})")
+        pcg = [r.extras["pcg_iters"] for r in records]
+        say("telemetry", f"tsne N={res.X.shape[0]} from Y with telemetry: "
+                         f"{res.n_iters} iterations, wall {wall:.1f} s; "
+                         f"energies and X bit-equal to phase fit_sparse's "
+                         f"fit without telemetry; run.jsonl: "
+                         f"{len(records)} iteration records (pcg_iters "
+                         f"{pcg}, z_ema {records[-1].extras['z_ema']:.6g}, "
+                         f"mem_bytes_in_use "
+                         f"{records[-1].extras['mem_bytes_in_use'] / 1e6:.1f}"
+                         f" MB, mem_peak_bytes "
+                         f"{records[-1].extras['mem_peak_bytes'] / 1e6:.1f} "
+                         f"MB), phases {names}, kernel_dispatch "
+                         f"ell_lap_matvec {disp}")
+        say("telemetry", f"trace.json: {len(events)} complete events; "
+                         + ", ".join(f"{k} {v}" for k, v in
+                                     sorted(counts.items())))
+        say("telemetry", "the report CLI (python -m repro_torch.obs.report "
+                         "run.jsonl):")
+        report.main([f"{d}/run.jsonl", "--max-rows", "10"])
+        sys.stdout.flush()
+
+    # the overhead: the same ten iterations from the fit's graph and start
+    # without and with telemetry, in turns (off, on, on, off)
+    ms = {False: [], True: []}
+    for on in (False, True, True, False):
+        r = Embedding(spec).fit(None, X0=ref.X0_, saff=ref.affinities_,
+                                telemetry=on)
+        ms[on].append(_iter_ms(r.result_))
+    ms_on, ms_off = np.median(ms[True]), np.median(ms[False])
+    say("telemetry", f"median ms an iteration, from the fit's graph and "
+                     f"start in turns (off, on, on, off): {ms_on:.2f} with "
+                     f"telemetry ({ms[True][0]:.2f}, {ms[True][1]:.2f}), "
+                     f"{ms_off:.2f} without ({ms[False][0]:.2f}, "
+                     f"{ms[False][1]:.2f}), ratio {ms_on / ms_off:.3f} (the "
+                     f"reference's budget {1 + TEL_BUDGET:.2f}; printed, not "
+                     f"held: this path's host noise is larger)")
+
+    # profiler annotations: a short fit from the same graph and start
+    tel = Telemetry(profiler_annotations=True)
+    short = spec.replace(max_iters=3)
+    sparse_attractive.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        Embedding(short).fit(None, X0=ref.X0_, saff=ref.affinities_,
+                             telemetry=tel)
+        torch.cuda.synchronize()
+    launches[f"ell_lap_matvec_{default}"] += sparse_attractive.launch_counts[
+        f"ell_lap_matvec_{default}"]
+    if launches[f"ell_lap_matvec_{default}"] < 1:
+        raise AssertionError(f"telemetry phase: ELL launches {launches}")
+    evs = prof.key_averages()
+    ann = {e.key: e.count for e in evs if e.key == "solve-iter"}
+    ell = sum(e.count for e in evs if e.device_type == DeviceType.CUDA
+              and "ell_gather" in e.key)
+    if ann.get("solve-iter") != short.max_iters or ell < 1:
+        raise AssertionError(f"profile: solve-iter annotations {ann}, ELL "
+                             f"kernel events {ell}")
+    say("telemetry", f"under torch.profiler with profiler_annotations=True: "
+                     f"{ann['solve-iter']} solve-iter user annotations beside "
+                     f"{ell} ELL kernel (ell_gather) CUDA events")
+    return {"launches": launches[f"ell_lap_matvec_{default}"]}
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def _resume_case(tag: str, spec, stop: int, want, *, ckdir, fit_kw,
+                 Y=None, telemetry=None, **est_kw) -> dict:
+    """`Embedding(spec)` stopped at `stop` (the save timed by the telemetry
+    span ``checkpoint``), then a fresh estimator's `resume` to
+    `spec.max_iters`: bit-equal energies after the checkpoint and X against
+    the uninterrupted `want` (energies, X)."""
+    from repro_torch.api import Embedding
+    from repro_torch.obs import Telemetry, resolve_telemetry
+
+    part = spec.replace(max_iters=stop, checkpoint_dir=str(ckdir))
+    tel = resolve_telemetry(telemetry) or Telemetry()
+    t0 = time.perf_counter()
+    Embedding(part, **est_kw).fit(Y, telemetry=tel, **fit_kw)
+    torch.cuda.synchronize()
+    wall_part = time.perf_counter() - t0
+    spans = {}
+    for e in tel.tracer.events:        # the last save's spans
+        spans[e["name"]] = e["dur"] / 1e6
+    save_s = spans["checkpoint"]
+    parts = ", ".join(f"{k.split('/')[1]} {spans[k]:.2f} s"
+                      for k in ("checkpoint/device-to-host",
+                                "checkpoint/write", "checkpoint/hash"))
+    nbytes = _dir_bytes(Path(ckdir) / f"step_{stop:012d}")
+    t0 = time.perf_counter()
+    emb = Embedding(part, **est_kw).resume(Y, max_iters=spec.max_iters,
+                                           telemetry=telemetry, **fit_kw)
+    torch.cuda.synchronize()
+    wall_resume = time.perf_counter() - t0
+    res = emb.result_
+    if res.resumed_from != stop or res.n_iters != spec.max_iters - stop:
+        raise AssertionError(f"{tag}: resumed_from {res.resumed_from}, "
+                             f"{res.n_iters} iterations")
+    e_want, X_want = want
+    _held_equal(tag, res.energies[1:], e_want[stop + 1:],
+                "energies after the checkpoint")
+    _held_equal(tag, emb.embedding_, X_want, "X")
+    say("resume", f"{tag}: stopped at {stop} (save of {nbytes / 1e6:.1f} MB "
+                  f"in {save_s:.2f} s: {parts}; {nbytes / 1e9 / save_s:.2f} "
+                  f"GB/s; fit {wall_part:.1f} s), resumed to "
+                  f"{spec.max_iters} from step {res.resumed_from} "
+                  f"({wall_resume:.1f} s, its set-up run again): energies "
+                  f"after the checkpoint and X bit-equal to the "
+                  f"uninterrupted run; E at the restored X "
+                  f"{res.energies[0]:.8g} (uninterrupted "
+                  f"{e_want[stop]:.8g})")
+    return {"bytes": nbytes, "save_s": save_s}
+
+
+def phase_resume(dense: dict, sparse: dict, tree: dict, sharded: dict
+                 ) -> dict:
+    """Slice 6's resume path: four fits interrupted and resumed through
+    `Embedding(spec).resume(Y, max_iters=...)` (module docstring, phase
+    20)."""
+    import shutil
+
+    from repro_torch.api import Embedding
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+    from repro_torch.obs import load_jsonl
+
+    counters = (pairwise, sparse_attractive, farfield)
+    for mod in counters:
+        mod.reset_launch_counts()
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    RESUME_DIR.mkdir(parents=True)
+    try:
+        # dense EE (kernel 1, the 3.2 GB payload of SD's B and Cholesky
+        # factor) against phase fit's uninterrupted 10 iterations, from its
+        # spectral start (X0=: no eigh, which resume would discard)
+        _resume_case(f"dense ee N={dense['Y'].shape[0]} SD", dense["spec"],
+                     5,
+                     (dense["energies"], dense["X"]),
+                     ckdir=RESUME_DIR / "dense", Y=dense["Y"],
+                     fit_kw={"X0": dense["X0"]})
+        shutil.rmtree(RESUME_DIR / "dense")
+        torch.cuda.empty_cache()
+        # sparse t-SNE (kernel 2, the z carry and the PCG warm start)
+        # against phase fit_sparse's fit; one telemetry directory
+        fit = sparse["fits"]["tsne"]
+        tel_dir = RESUME_DIR / "sparse-tel"
+        n = sparse["Y"].shape[0]
+        _resume_case(f"sparse tsne N={n}", fit.spec, 5,
+                     (fit.result_.energies, fit.embedding_),
+                     ckdir=RESUME_DIR / "sparse", Y=sparse["Y"], fit_kw={},
+                     telemetry=str(tel_dir))
+        its = [r.it for r in load_jsonl(str(tel_dir / "run.jsonl"))[2]]
+        if its != list(range(1, fit.spec.max_iters + 1)):
+            raise AssertionError(f"sparse: iteration records {its} across "
+                                 f"the resume")
+        say("resume", f"sparse tsne: one run.jsonl across the resume, "
+                      f"iterations {its[0]}..{its[-1]} contiguous")
+        # tree EE (kernel 4 through bh_tree; the deterministic (E, G) path)
+        # on phase fit_sparse's EE graph, against 4 uninterrupted iterations
+        saff = sparse["fits"]["ee"].affinities_
+        spec = tree["fits"]["ee"].spec.replace(max_iters=4)
+        full = Embedding(spec).fit(None, saff=saff)
+        _resume_case(f"tree ee N={n}", spec, 2,
+                     (full.result_.energies, full.embedding_),
+                     ckdir=RESUME_DIR / "tree", fit_kw={"saff": saff})
+        # sparse-sharded t-SNE in the one-rank NCCL group (kernel 5)
+        mesh = sharded["mesh"]
+        spec = sharded["fits"]["tsne"].spec.replace(max_iters=4)
+        full = Embedding(spec, mesh=mesh).fit(sparse["Y"])
+        _resume_case(f"sparse-sharded tsne N={n}, {mesh.size} NCCL rank",
+                     spec, 2,
+                     (full.result_.energies, full.embedding_),
+                     ckdir=RESUME_DIR / "sharded", Y=sparse["Y"], fit_kw={},
+                     mesh=mesh)
+    finally:
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    counts = {k: v for mod in counters for k, v in mod.launch_counts.items()}
+    for name in ("pairwise_terms", f"ell_lap_matvec_{sparse['default']}",
+                 "bh_tree", "ell_lap_matvec_local"):
+        if counts[name] < 1:
+            raise AssertionError(f"the resume phase launched no {name}: "
+                                 f"{counts}")
+    say("resume", f"kernel launches over the phase: "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 # -- slice 4: the out-of-sample transform, artifacts and the server -----------
 
 SERVE_DIR = ROOT / "build" / "chip_smoke_serve"      # git-ignored
 SERVE_QUERIES = 1024
 SERVE_INVARIANT_ROWS = 64
+# rows transformed alone, in pairs and in chunks of 5, and rows sent to the
+# server one at a time, by the invariance checks (the first of each check's
+# rows; the batch takes all of them)
+SERVE_ALONE_ROWS = 8
+SERVE_CLIENT_ROWS = 16
 SERVE_REQUESTS = 512
 SERVE_CLIENTS = 8
 # the reference's own bound on batch invariance (tests/test_api.py:441,445,
@@ -2741,16 +3061,17 @@ def _check_invariance(tag: str, est, Q: np.ndarray, tspec) -> None:
     from repro_torch.serve import EmbeddingServer
 
     n = Q.shape[0]
+    m = min(n, SERVE_ALONE_ROWS)
     joint = est.transform(Q, tspec)
     ways = {
         "alone": torch.cat([est.transform(Q[i:i + 1], tspec)
-                            for i in range(n)]),
+                            for i in range(m)]),
         "pairs": torch.cat([est.transform(Q[i:i + 2], tspec)
-                            for i in range(0, n, 2)]),
-        "chunks of 5": est.transform(Q, tspec.replace(batch_size=5)),
+                            for i in range(0, m, 2)]),
+        "chunks of 5": est.transform(Q[:m], tspec.replace(batch_size=5)),
     }
     with EmbeddingServer(est, tspec, max_batch=SERVE_INVARIANT_ROWS) as srv:
-        rows, _ = _client_rows(srv, Q, SERVE_CLIENTS)
+        rows, _ = _client_rows(srv, Q[:SERVE_CLIENT_ROWS], SERVE_CLIENTS)
         block = srv.transform(Q[:5], timeout=600.0)   # bucket 8, padded
         stats = srv.stats()
     ways["server"] = torch.as_tensor(rows)
@@ -2870,7 +3191,7 @@ def _serve_profile(est, Q, tspec) -> None:
 
 
 def phase_serve(tsne_est, labels: np.ndarray) -> None:
-    """Slice 4's main path (module docstring, phase 19)."""
+    """Slice 4's main path (module docstring, phase 21)."""
     from repro_torch.api import Embedding, TransformSpec
     from repro_torch.api.transform import _anchor_affinities, _cross_method
     from repro_torch.kernels import farfield, pairwise, sparse_attractive
@@ -2982,7 +3303,7 @@ def phase_serve(tsne_est, labels: np.ndarray) -> None:
     with EmbeddingServer(tsne_est, rowwise,
                          max_batch=SERVE_INVARIANT_ROWS) as srv:
         srv.warmup()
-        _, wall = _client_rows(srv, Q[:SERVE_REQUESTS], SERVE_CLIENTS)
+        served, wall = _client_rows(srv, Q[:SERVE_REQUESTS], SERVE_CLIENTS)
     st = srv.stats()
     lat = st["latency"]
     say("serve", f"server: {SERVE_REQUESTS} single-row requests from "
@@ -2992,6 +3313,7 @@ def phase_serve(tsne_est, labels: np.ndarray) -> None:
                  f"{lat['p99_ms']:.1f} ms, max {lat['max_ms']:.1f} ms; "
                  f"{st['n_batches']} batches, mean batch "
                  f"{st['mean_batch']:.2f} rows; busy {st['busy_s']:.2f} s")
+    _serve_with_telemetry(tsne_est, rowwise, Q[:SERVE_REQUESTS], served)
 
     # 2: the training embeddings are untouched
     for name, est in ests.items():
@@ -3004,6 +3326,47 @@ def phase_serve(tsne_est, labels: np.ndarray) -> None:
                  f"transform is plain PyTorch)")
 
 
+def _serve_with_telemetry(est, tspec, Q: np.ndarray, served: np.ndarray
+                          ) -> None:
+    """The measured requests again through `EmbeddingServer(telemetry=)`:
+    one ok request record each, one ``serve/batch`` span a batch, and the
+    rows of the server without telemetry, bit for bit."""
+    import tempfile
+
+    from repro_torch.obs import load_requests
+    from repro_torch.serve import EmbeddingServer
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with EmbeddingServer(est, tspec, max_batch=SERVE_INVARIANT_ROWS,
+                             telemetry=d) as srv:
+            rows, wall = _client_rows(srv, Q, SERVE_CLIENTS)
+        st = srv.stats()
+        recs = load_requests(f"{d}/run.jsonl")
+        with open(f"{d}/trace.json") as f:
+            spans = sum(e["name"] == "serve/batch"
+                        for e in json.load(f)["traceEvents"])
+    ok = [r for r in recs if r.status == "ok"]
+    if len(recs) != Q.shape[0] or len(ok) != Q.shape[0]:
+        raise AssertionError(f"{len(recs)} request records, {len(ok)} ok, "
+                             f"for {Q.shape[0]} requests")
+    if spans != st["n_batches"]:
+        raise AssertionError(f"{spans} serve/batch spans for "
+                             f"{st['n_batches']} batches")
+    if not np.array_equal(rows, served):
+        raise AssertionError(f"rows with telemetry differ from the server's "
+                             f"without it by {_gap(rows, served):.3e}")
+    q = np.array([r.queue_s for r in ok]) * 1e3
+    c = np.array([r.compute_s for r in ok]) * 1e3
+    lat = st["latency"]
+    say("serve", f"server with telemetry: {len(ok)} request records "
+                 f"(status ok), {spans} serve/batch spans for "
+                 f"{st['n_batches']} batches; rows bit-equal to the server "
+                 f"without telemetry; {Q.shape[0] / wall:.1f} rows/s, p50 "
+                 f"{lat['p50_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms; per "
+                 f"request median queue {np.median(q):.1f} ms, compute "
+                 f"{np.median(c):.1f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -3013,33 +3376,49 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
-    phase_probe()
-    phase_build()
-    phase_check()
-    phase_check_ell()
-    fit = phase_fit()
+    secs = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    run("probe", phase_probe)
+    run("build", phase_build)
+    run("check", phase_check)
+    run("check_ell", phase_check_ell)
+    fit = run("fit", phase_fit)
     fit_launches = fit["launches"]
-    timing = phase_time(fit["data"])
-    phase_profile(fit["emb"])
+    dense_ref = fit["resume_ref"]
+    timing = run("time", phase_time, fit["data"])
+    run("profile", phase_profile, fit["emb"])
     fit["emb"] = None
-    lineup = phase_fit_lineup(fit["starts"], fit["settled"])
+    lineup = run("fit_lineup", phase_fit_lineup, fit["starts"],
+                 fit["settled"])
     del fit
     torch.cuda.empty_cache()
-    sparse = phase_fit_sparse()
-    timing_ell, ell_rule = phase_time_ell(sparse["fits"])
-    phase_profile_sparse(sparse["fits"]["tsne"])
-    phase_check_bh()
-    tree = phase_fit_tree(sparse["fits"])
-    phase_check_bh_fits(tree["fits"])
-    timing_bh = phase_time_bh(tree["fits"]["tsne"])
-    phase_profile_tree(tree["fits"]["tsne"])
-    phase_check_ell_local(sparse["fits"])
-    sharded = phase_fit_sharded(sparse)
-    phase_fit_sharded_2rank(sharded)
-    timing_local = phase_time_ell_local(sharded)
-    phase_profile_sharded(sharded["fits"]["tsne"], sharded["mesh"])
+    sparse = run("fit_sparse", phase_fit_sparse)
+    timing_ell, ell_rule = run("time_ell", phase_time_ell, sparse["fits"])
+    run("profile_sparse", phase_profile_sparse, sparse["fits"]["tsne"])
+    run("check_bh", phase_check_bh)
+    tree = run("fit_tree", phase_fit_tree, sparse["fits"])
+    run("check_bh", phase_check_bh_fits, tree["fits"])
+    timing_bh = run("time_bh", phase_time_bh, tree["fits"]["tsne"])
+    run("profile_tree", phase_profile_tree, tree["fits"]["tsne"])
+    run("check_ell_local", phase_check_ell_local, sparse["fits"])
+    sharded = run("fit_sharded", phase_fit_sharded, sparse)
+    run("fit_sharded_2rank", phase_fit_sharded_2rank, sharded)
+    timing_local = run("time_ell_local", phase_time_ell_local, sharded)
+    run("profile_sharded", phase_profile_sharded, sharded["fits"]["tsne"],
+        sharded["mesh"])
+    tel = run("telemetry", phase_telemetry, sparse)
+    resumed = run("resume", phase_resume, dense_ref, sparse, tree, sharded)
+    del dense_ref
     dist.destroy_process_group()
-    phase_serve(sparse["fits"]["tsne"], sparse["labels"])
+    run("serve", phase_serve, sparse["fits"]["tsne"], sparse["labels"])
+    say("done", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
     say("done", f"{time.perf_counter() - t_start:.1f} s")
     from repro_torch.kernels.ops import ELL_DEFAULT_LAYOUT
     if ell_rule != ELL_DEFAULT_LAYOUT:
@@ -3056,10 +3435,13 @@ def main() -> int:
         "name": "pairwise_terms", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise.cu",
         "replaces": "src/repro/kernels/pairwise.py:131",
-        "launches": fit_launches + lineup["launches"],
-        "launches_from": "the dense SD fits (phase fit) and the lineup "
+        "launches": (fit_launches + lineup["launches"]
+                     + resumed["pairwise_terms"]),
+        "launches_from": "the dense SD fits (phase fit), the lineup "
                          "(phase fit_lineup: DiagH, CG, L-BFGS and SD- on EE "
-                         "and t-SNE, SparseSD and homotopy_path on EE)",
+                         "and t-SNE, SparseSD and homotopy_path on EE) and "
+                         "the dense EE fit stopped and resumed (phase "
+                         "resume)",
         **kernel_numbers(f32)}]
     # the ELL kernels at the wider of the main path's two graphs: the EE
     # fit's reverse graph, float32.  The default layout's launches are the
@@ -3067,9 +3449,13 @@ def main() -> int:
     # CG operator on that layout
     default, other = sparse["default"], sparse["other"]
     launches = {default: (sparse["launches"][default]
-                          + lineup["ell_launches"],
-                          "the default EE and t-SNE sparse fits and the "
-                          "SparseSD fit of phase fit_lineup"),
+                          + lineup["ell_launches"] + tel["launches"]
+                          + resumed[f"ell_lap_matvec_{default}"],
+                          "the default EE and t-SNE sparse fits, the "
+                          "SparseSD fit of phase fit_lineup, the t-SNE fits "
+                          "with telemetry (phase telemetry) and the sparse "
+                          "and tree fits stopped and resumed (phase "
+                          "resume)"),
                 other: (sparse["launches_other_fit"][
                     f"ell_lap_matvec_{other}"],
                         f"the EE sparse fit with ell_layout={other!r}")}
@@ -3097,8 +3483,10 @@ def main() -> int:
         "name": "bh_interaction", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/farfield.cu",
         "replaces": "src/repro/kernels/farfield.py:97",
-        "launches": tree["launches_main_per_batch"],
-        "launches_from": "the default EE and t-SNE tree fits",
+        "launches": (tree["launches_main_per_batch"]
+                     + resumed["bh_interaction"]),
+        "launches_from": "the default EE and t-SNE tree fits and the EE "
+                         "tree fit stopped and resumed (phase resume)",
         "yardstick_launches": tree["launches_per_batch"],
         "yardstick_launches_from": "the EE and t-SNE tree fits rerun for 3 "
                                    "iterations through the per-batch path "
@@ -3113,8 +3501,9 @@ def main() -> int:
         "name": "bh_tree", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/farfield.cu",
         "replaces": "src/repro/kernels/farfield.py:97",
-        "launches": tree["launches"],
-        "launches_from": "the default EE and t-SNE tree fits",
+        "launches": tree["launches"] + resumed["bh_tree"],
+        "launches_from": "the default EE and t-SNE tree fits and the EE "
+                         "tree fit stopped and resumed (phase resume)",
         **kernel_numbers(timing_bh["fused", "float32"])})
     # the local-rows kernel at the main path's shape on this one card (one
     # rank, nb = N) on the EE fit's reverse graph, float32, as rows 2 and 3
@@ -3125,8 +3514,10 @@ def main() -> int:
         "name": "ell_lap_matvec_local", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ell.cu",
         "replaces": "src/repro/kernels/sparse_attractive.py:241",
-        "launches": sharded["launches"],
-        "launches_from": "the one-rank EE and t-SNE sparse-sharded fits",
+        "launches": sharded["launches"] + resumed["ell_lap_matvec_local"],
+        "launches_from": "the one-rank EE and t-SNE sparse-sharded fits and "
+                         "the t-SNE one stopped and resumed (phase "
+                         "resume)",
         **kernel_numbers(timing_local["reverse", N_SPARSE, "float32"])})
     print(smi())
     print(json.dumps({"kernels": kernels}))

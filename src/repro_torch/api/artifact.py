@@ -39,18 +39,12 @@ pins them):
     re-reads the referenced ``.npy`` (or takes ``Y_train=``) and verifies
     the hash, so a stale reference fails loudly.
 
-Where the two packages' `EmbedSpec`s differ:
-
-  * `kernel_impl` is written in the reference's words (kernel -> pallas,
-    torch -> jnp, `convert.KERNEL_IMPL_TO_JAX`) and read back through
-    `convert.KERNEL_IMPL` (pallas -> kernel, jnp and pallas-interpret ->
-    torch);
-  * `checkpoint_dir`: the port's `EmbedSpec` refuses a set one, as
-    checkpointing is not ported.  The loader drops it (reads it as None):
-    transform never checkpoints, so an artifact that the reference loads
-    loads here too, and a save from the port writes null;
-  * `checkpoint_every` (not in the port's spec) is dropped on load and not
-    written; the reference's loader fills in its default.
+The two packages' `EmbedSpec`s differ only in the words of `kernel_impl`:
+it is written in the reference's (kernel -> pallas, torch -> jnp,
+`convert.KERNEL_IMPL_TO_JAX`) and read back through `convert.KERNEL_IMPL`
+(pallas -> kernel, jnp and pallas-interpret -> torch).  Every other field,
+`checkpoint_dir` and `checkpoint_every` included, is written and read as
+it is, as the reference's loader keeps it.
 """
 from __future__ import annotations
 
@@ -94,7 +88,6 @@ def _spec_from_json(obj: dict) -> EmbedSpec:
     known = ({f.name for f in dataclasses.fields(EmbedSpec)}
              | convert.UNPORTED_FIELDS)
     fields = {k: v for k, v in obj.items() if k in known}
-    fields["checkpoint_dir"] = None
     ls = fields.get("ls")
     if ls is not None:
         known_ls = {f.name for f in dataclasses.fields(LSConfig)}

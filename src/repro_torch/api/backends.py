@@ -2,8 +2,8 @@
 
 Port of `repro/api/backends.py` but for ``dense-mesh``.  Each is
 `fit(spec, Y, *, X0, aff, saff, device, mesh, mesh_spec, callback,
-shift_source) -> (EngineResult, affinities, X0)`; only the mesh backends
-read `mesh` and `mesh_spec`:
+shift_source, telemetry) -> (EngineResult, affinities, X0)`; only the mesh
+backends read `mesh` and `mesh_spec`:
 
   * `fit_dense` builds the problem (perplexity affinities, then a
     Laplacian-eigenmaps start, each skipped when the caller passes it), the
@@ -23,9 +23,16 @@ backends (the sharded one cuts its shards from its own build, as the
 reference's does), and `shift_source=` (the draw of the negatives) is for
 the sparse backends; each backend rejects the other family's with a pointed
 error.
+
+Telemetry: each backend activates `telemetry.tracer` around both the
+problem's build (so that the ``graph-build`` and ``spectral-init`` spans
+land in the trace; the dense backend's close after `_timed`'s
+synchronisation) and the fit loop, and hands the `Telemetry` to `fit_loop`,
+which records the iterations.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -36,16 +43,25 @@ from repro_torch.core.spectral_init import laplacian_eigenmaps
 from repro_torch.embed.engine import EngineResult, fit_loop, make_loop_config
 from repro_torch.embed.trainer import (build_sparse_objective,
                                        build_tree_objective)
+from repro_torch.obs import activate, span
 
 from .registries import BACKENDS, strategy_entry
 
 
-def _timed(fn, device: torch.device):
-    """fn() and its wall-clock seconds, the device work included."""
+def _tracing(telemetry):
+    if telemetry is None:
+        return contextlib.nullcontext()
+    return activate(telemetry.tracer)
+
+
+def _timed(fn, device: torch.device, name: str, **args):
+    """fn() and its wall-clock seconds, the device work included, under the
+    phase span `name`."""
     t0 = time.perf_counter()
-    out = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with span(name, phase=True, **args):
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     return out, time.perf_counter() - t0
 
 
@@ -57,19 +73,21 @@ def _dense_problem(spec, Y, X0, aff, device: torch.device):
         Yt = torch.as_tensor(Y, dtype=torch.float32, device=device)
         aff, phase_times["affinities_s"] = _timed(
             lambda: make_affinities(Yt, spec.perplexity, model=spec.kind),
-            device)
+            device, "graph-build", dense=True)
     else:
         aff = Affinities(*(torch.as_tensor(w, dtype=torch.float32,
                                            device=device) for w in aff))
     if X0 is None:
         X0, phase_times["spectral_init_s"] = _timed(
-            lambda: laplacian_eigenmaps(aff.Wp, spec.dim) * 0.1, device)
+            lambda: laplacian_eigenmaps(aff.Wp, spec.dim) * 0.1, device,
+            "spectral-init")
     X0 = torch.as_tensor(X0, dtype=torch.float32, device=device)
     return aff, X0, phase_times
 
 
 def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
-              mesh_spec=None, callback=None, shift_source=None
+              mesh_spec=None, callback=None, shift_source=None,
+              telemetry=None
               ) -> tuple[EngineResult, Affinities, torch.Tensor]:
     """Single-device dense backend: full affinities, any registered
     strategy, the fused step of `core/minimize.DenseObjective`.  Returns
@@ -81,20 +99,23 @@ def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
     if shift_source is not None:
         raise ValueError("shift_source= draws the sparse backend's negatives;"
                          " the dense backend samples nothing")
-    aff, X0, phase_times = _dense_problem(spec, Y, X0, aff, device)
-    strategy = strategy_entry(spec.strategy).dense_factory(
-        spec, **dict(spec.strategy_opts))
-    ls = spec.resolved_ls()
-    lam = torch.tensor(spec.lam, dtype=X0.dtype, device=device)
-    obj = DenseObjective(aff, spec.kind, lam, strategy, ls, X0,
-                         impl=spec.kernel_args())
-    res = fit_loop(obj, X0, make_loop_config(spec, ls), callback)
+    with _tracing(telemetry):
+        aff, X0, phase_times = _dense_problem(spec, Y, X0, aff, device)
+        strategy = strategy_entry(spec.strategy).dense_factory(
+            spec, **dict(spec.strategy_opts))
+        ls = spec.resolved_ls()
+        lam = torch.tensor(spec.lam, dtype=X0.dtype, device=device)
+        obj = DenseObjective(aff, spec.kind, lam, strategy, ls, X0,
+                             impl=spec.kernel_args())
+        res = fit_loop(obj, X0, make_loop_config(spec, ls), callback,
+                       telemetry=telemetry)
     res.phase_times = phase_times
     return res, aff, X0
 
 
 def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
-               mesh_spec=None, callback=None, shift_source=None
+               mesh_spec=None, callback=None, shift_source=None,
+               telemetry=None
                ) -> tuple[EngineResult, object, torch.Tensor]:
     """Single-device sparse backend: ELL affinities, negative-sampled
     repulsion, matrix-free sd/fp/gd directions.  Returns the engine result,
@@ -108,18 +129,19 @@ def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
     if Y is None and saff is None:
         raise ValueError("fit needs Y (or a precomputed saff=)")
     phase_times: dict[str, float] = {}
-    obj, X0, saff = build_sparse_objective(
-        spec, Y, X0, strategy=spec.strategy, saff=saff, device=device,
-        shift_source=shift_source, phase_times=phase_times)
-    res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
-                   callback)
+    with _tracing(telemetry):
+        obj, X0, saff = build_sparse_objective(
+            spec, Y, X0, strategy=spec.strategy, saff=saff, device=device,
+            shift_source=shift_source, phase_times=phase_times)
+        res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                       callback, telemetry=telemetry)
     res.phase_times = phase_times
     return res, saff, X0
 
 
 def fit_sparse_sharded(spec, Y, *, X0=None, aff=None, saff=None, device,
                        mesh=None, mesh_spec=None, callback=None,
-                       shift_source=None
+                       shift_source=None, telemetry=None
                        ) -> tuple[EngineResult, object, torch.Tensor]:
     """The sparse backend with the ELL graph row-sharded over the ranks of
     `mesh` (a `launch.mesh.Mesh`); every rank calls it with the same
@@ -136,18 +158,20 @@ def fit_sparse_sharded(spec, Y, *, X0=None, aff=None, saff=None, device,
     if Y is None:
         raise ValueError("fit needs Y")
     phase_times: dict[str, float] = {}
-    obj, X0, saff = build_sparse_objective(
-        spec, Y, X0, strategy=spec.strategy, sharded=True, device=device,
-        mesh=mesh, mspec=mesh_spec, shift_source=shift_source,
-        phase_times=phase_times)
-    res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
-                   callback)
+    with _tracing(telemetry):
+        obj, X0, saff = build_sparse_objective(
+            spec, Y, X0, strategy=spec.strategy, sharded=True,
+            device=device, mesh=mesh, mspec=mesh_spec,
+            shift_source=shift_source, phase_times=phase_times)
+        res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                       callback, telemetry=telemetry)
     res.phase_times = phase_times
     return res, saff, X0
 
 
 def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
-             mesh_spec=None, callback=None, shift_source=None
+             mesh_spec=None, callback=None, shift_source=None,
+             telemetry=None
              ) -> tuple[EngineResult, object, torch.Tensor]:
     """Single-device deterministic Barnes-Hut backend: exact ELL attractive
     terms plus grid far-field repulsion, O(N log N), 2-D only, bit-identical
@@ -162,11 +186,12 @@ def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
     if Y is None and saff is None:
         raise ValueError("fit needs Y (or a precomputed saff=)")
     phase_times: dict[str, float] = {}
-    obj, X0, saff = build_tree_objective(
-        spec, Y, X0, strategy=spec.strategy, saff=saff, device=device,
-        phase_times=phase_times)
-    res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
-                   callback)
+    with _tracing(telemetry):
+        obj, X0, saff = build_tree_objective(
+            spec, Y, X0, strategy=spec.strategy, saff=saff, device=device,
+            phase_times=phase_times)
+        res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                       callback, telemetry=telemetry)
     res.phase_times = phase_times
     return res, saff, X0
 

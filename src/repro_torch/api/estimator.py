@@ -27,12 +27,17 @@ backend only.  After `fit`:
                      `core.Affinities` (dense) or
                      `sparse.SparseAffinities` (sparse, tree)
   * `X0_`          — the starting point the fit used
+  * `telemetry_`   — the finalized `obs.Telemetry` of a fit run with
+                     `telemetry=` (None otherwise)
 
-`transform(Y_new)` embeds unseen points against the FROZEN training
-embedding (api/transform.py) and leaves `embedding_` bit-identical; `save`
-and the classmethod `load` move a fitted estimator across processes as a
-versioned artifact (api/artifact.py, the reference's schema v1).  Inputs
-may be arrays or tensors; they go to the estimator's device.
+`resume()` continues a fit from `spec.checkpoint_dir`: the engine's payload
+carries the line-search and solver state, so the resumed trajectory is the
+uninterrupted one, bit for bit.  `transform(Y_new)` embeds unseen points
+against the FROZEN training embedding (api/transform.py) and leaves
+`embedding_` bit-identical; `save` and the classmethod `load` move a fitted
+estimator across processes as a versioned artifact (api/artifact.py, the
+reference's schema v1).  Inputs may be arrays or tensors; they go to the
+estimator's device.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from typing import Callable
 import torch
 
 from repro_torch.launch.mesh import make_host_mesh, world_size
+from repro_torch.obs import resolve_telemetry
 
 from . import registries
 from .spec import EmbedSpec, TransformSpec
@@ -92,7 +98,7 @@ class Embedding:
 
     def fit(self, Y, X0=None, aff=None,
             callback: Callable[..., None] | None = None, *, saff=None,
-            shift_source=None) -> "Embedding":
+            shift_source=None, telemetry=None) -> "Embedding":
         """Fit the embedding.  `Y` is the (N, D) data (array or tensor); the
         dense backend alternatively accepts precomputed `aff=`
         (`core.Affinities`) and the sparse and tree backends `saff=`
@@ -100,7 +106,14 @@ class Embedding:
         calibration; under ``backend="auto"`` a `saff=` pins the sparse
         backend.  `X0` replaces the spectral start.  `shift_source(seed,
         it)` replaces the sparse backend's draw of iteration `it`'s
-        negative shifts ((n_negatives,) ints in 1..N-1)."""
+        negative shifts ((n_negatives,) ints in 1..N-1).
+
+        `telemetry` switches on run observability (`repro_torch.obs`):
+        `True` records in memory, a directory path also writes `run.jsonl`
+        and `trace.json` there, a `obs.Telemetry` gives full control.
+        After the fit `telemetry_` holds it, finalized (`.summary()`,
+        `.recorder.records`, ...), and `result_.diagnostics` the
+        per-iteration table.  Telemetry never changes the fit's results."""
         if aff is not None and saff is not None:
             raise ValueError("pass aff= (dense) or saff= (sparse), not both "
                              "- they pin different backends")
@@ -120,22 +133,52 @@ class Embedding:
             backend = self._resolve_backend(n)
         registries.validate_strategy_backend(self.spec.strategy, backend)
         fit_fn = registries.backend_impl(backend)
-        res, aff, X0 = fit_fn(self.spec, Y, X0=X0, aff=aff, saff=saff,
-                              device=self.device,
-                              mesh=self._mesh_for(backend),
-                              mesh_spec=self.mesh_spec, callback=callback,
-                              shift_source=shift_source)
+        tel = resolve_telemetry(telemetry)
+        if tel is not None:
+            tel.recorder.set_meta(backend=backend, kind=self.spec.kind,
+                                  strategy=self.spec.strategy, n=int(n))
+        try:
+            res, aff, X0 = fit_fn(self.spec, Y, X0=X0, aff=aff, saff=saff,
+                                  device=self.device,
+                                  mesh=self._mesh_for(backend),
+                                  mesh_spec=self.mesh_spec,
+                                  callback=callback,
+                                  shift_source=shift_source, telemetry=tel)
+        finally:
+            if tel is not None:
+                tel.finalize()
         self.backend_ = backend
         self.result_ = res
         self.embedding_ = res.X
         self.affinities_ = aff
         self.X0_ = X0
+        self.telemetry_ = tel
         self._Y_train = Y
         self._Y_dev = None
         return self
 
-    def fit_transform(self, Y, X0=None, callback=None) -> torch.Tensor:
-        return self.fit(Y, X0=X0, callback=callback).embedding_
+    def fit_transform(self, Y, X0=None, callback=None, *,
+                      telemetry=None) -> torch.Tensor:
+        return self.fit(Y, X0=X0, callback=callback,
+                        telemetry=telemetry).embedding_
+
+    def resume(self, Y=None, max_iters: int | None = None, *,
+               telemetry=None, **fit_kw) -> "Embedding":
+        """Continue a checkpointed fit from `spec.checkpoint_dir`, bit for
+        bit the uninterrupted trajectory (the engine's payload carries the
+        line-search and solver state).  `max_iters` extends the iteration
+        budget.  The same `telemetry` directory as the interrupted fit's
+        appends to its `run.jsonl`: one contiguous run of iteration records
+        across the checkpoint.  `fit_kw` (`X0=`, `aff=`, `saff=`,
+        `shift_source=`, `callback=`) go to `fit`, so that a resume can take
+        the precomputed inputs and draws of the fit it continues."""
+        if self.spec.checkpoint_dir is None:
+            raise ValueError("resume() needs spec.checkpoint_dir")
+        if Y is None:               # this process's fit's, if there was one
+            Y = getattr(self, "_Y_train", None)
+        if max_iters is not None:
+            self.spec = dataclasses.replace(self.spec, max_iters=max_iters)
+        return self.fit(Y, telemetry=telemetry, **fit_kw)
 
     # -- serving -------------------------------------------------------------
     def _train_tensor(self) -> torch.Tensor:

@@ -4,10 +4,9 @@ embedding problem and of an out-of-sample transform request.
 Port of `repro/api/spec.py`.  `EmbedSpec` holds the model `kind`,
 `strategy`, `backend`, the objective and loop settings, the sparse
 neighbour-graph knobs, the out-of-sample transform's defaults, the
-Barnes-Hut tree knobs and kernel dispatch; the names that select what runs
-are validated at construction.  The checkpoint cadence (`checkpoint_every`)
-is absent, as checkpointing is not ported; `convert.spec_from_jax_fields`
-drops it when carrying a `repro` spec across.  `TransformSpec` configures
+Barnes-Hut tree knobs, kernel dispatch and checkpointing
+(`checkpoint_dir`, `checkpoint_every`: `Embedding.resume`); the names that
+select what runs are validated at construction.  `TransformSpec` configures
 `Embedding.transform` and the server (`repro_torch.serve`); its zero and
 None fields defer to the fitted `EmbedSpec`.
 """
@@ -51,7 +50,8 @@ class EmbedSpec:
     tol: float = 1e-7
     mu_scale: float = 1e-5
     ls: LSConfig | None = None
-    checkpoint_dir: str | None = None    # not ported: must stay None
+    checkpoint_dir: str | None = None    # fit_loop checkpoints here
+    checkpoint_every: int = 50           # iterations between checkpoints
     seed: int = 0                        # the sparse backend's draws
     max_seconds: float | None = None
     strategy_opts: Mapping[str, Any] = dataclasses.field(default_factory=dict)
@@ -74,9 +74,6 @@ class EmbedSpec:
 
     def __post_init__(self):
         validate_kind(self.kind)
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported to repro_torch yet")
         object.__setattr__(
             self, "strategy", registries.canonical_strategy(self.strategy))
         registries.validate_backend(self.backend)

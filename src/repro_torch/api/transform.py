@@ -67,6 +67,7 @@ import torch
 from repro_torch.core.objectives import (attractive_edge_terms, is_normalized,
                                          negative_pair_terms)
 from repro_torch.embed.engine import LoopConfig, fit_loop
+from repro_torch.obs import span
 from repro_torch.sparse.graph import (CROSS_APPROX_N, calibrated_weights_ell,
                                       knn_cross)
 
@@ -364,11 +365,14 @@ def transform_points(spec, Y_train, X_train, Y_new, *,
         return anchors.new_zeros((0, anchors.shape[1])), None
     n_train = Y_train.shape[0]
     k = _resolve_k(spec, tspec, n_train, spec.perplexity)
-    idx, w = _anchor_affinities(
-        Y_new, Y_train, k, float(spec.perplexity),
-        method=_cross_method(tspec, n_train),
-        n_projections=tspec.n_projections, window=tspec.window,
-        knn_seed=tspec.seed, projections=projections)
+    method = _cross_method(tspec, n_train)
+    # on CUDA the span times the issue of the kNN and calibration
+    with span("cross-knn", phase=True, n_new=int(Y_new.shape[0]), k=k,
+              method=method):
+        idx, w = _anchor_affinities(
+            Y_new, Y_train, k, float(spec.perplexity), method=method,
+            n_projections=tspec.n_projections, window=tspec.window,
+            knn_seed=tspec.seed, projections=projections)
     m = None if tspec.exhaustive else tspec.n_negatives
 
     # init each new point at its calibrated anchor barycenter

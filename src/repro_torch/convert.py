@@ -27,10 +27,9 @@ KERNEL_IMPL = {"auto": "auto", "pallas": "kernel", "pallas-interpret": "torch",
 #: the port's kernel_impl names -> `repro`'s (the artifact writer's)
 KERNEL_IMPL_TO_JAX = {"auto": "auto", "kernel": "pallas", "torch": "jnp"}
 
-#: `repro.api.EmbedSpec` fields of parts this port does not have yet (the
-#: checkpoint cadence); they do not affect a fit and are dropped.  A set
-#: `checkpoint_dir` is not dropped: the port's EmbedSpec refuses it.
-UNPORTED_FIELDS = frozenset({"checkpoint_every"})
+#: `repro.api.EmbedSpec` fields of parts this port does not have yet, which
+#: `spec_from_jax_fields` drops; empty since checkpointing is ported
+UNPORTED_FIELDS = frozenset()
 
 
 def affinities_from_numpy(Wp, Wm, device) -> Affinities:
@@ -62,8 +61,7 @@ def spec_from_jax_fields(fields: dict) -> EmbedSpec:
     """`dataclasses.asdict(repro.api.EmbedSpec(...))` -> the port's
     EmbedSpec.  `kernel_impl` maps pallas -> kernel and jnp /
     pallas-interpret -> torch; the line-search config maps field by field;
-    the checkpoint cadence (`UNPORTED_FIELDS`) is dropped; any other unknown
-    field raises.
+    `UNPORTED_FIELDS` are dropped; any other unknown field raises.
     """
     known = {f.name for f in dataclasses.fields(EmbedSpec)}
     out = {}

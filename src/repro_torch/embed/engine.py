@@ -31,12 +31,39 @@ and may provide
                        place of this process's own `s`: the sharded backend,
                        whose ranks each run this loop, returns the slowest
                        rank's, so that all stop on the same iteration
+    carry_state()      objective-side state to checkpoint (a pytree, e.g.
+                       the normalized sparse models' streaming z), saved
+                       with every checkpoint and put back on resume by
+    restore_carry(t)   AFTER the engine's initial evaluation (which may
+                       advance it), so that the first resumed iteration sees
+                       what the uninterrupted run saw
+    share_checkpoint(write)  runs `write()` (the save) on one rank and
+                       returns on every rank once it is on disk, raising on
+                       every rank if it failed: the sharded backend, whose
+                       ranks all run this loop on the same replicated state
 
 The draw key of iteration `it` is the pair (seed + 1, it), the counterpart
 of the reference's `fold_in(PRNGKey(seed + 1), it)`; the initial evaluation
-uses it = 0.  A deterministic objective gets key None.
+uses it = 0 (on resume, the step resumed from).  A deterministic objective
+gets key None.
 
-Not in this port yet: checkpoint/resume and telemetry.
+Checkpoint/resume (`LoopConfig.checkpoint_dir`): every `checkpoint_every`
+iterations and at the end the engine saves X, the accepted step (float64),
+the EMA, the direction solver's state, the current (E, G) and the
+objective's carry (`ckpt.Checkpointer`, the reference's payload and
+layout); a loop started on a directory that holds a checkpoint resumes
+from its newest step.  A deterministic objective resumes from the saved
+(E, G) without evaluating again (the fused step's (E, G) need not be what a
+standalone evaluation gives, bit for bit); a stochastic one evaluates once
+with the resumed step's key and then gets its carry back.  So the resumed
+trajectory is the uninterrupted one, bit for bit, on the CPU and on CUDA
+(whose kernels sum in a fixed order).
+
+Telemetry (`telemetry=`, a `repro_torch.obs.Telemetry`): the spans
+``setup``, ``compile`` (the first evaluation; on CUDA it includes the
+kernels' first-use build and load, `kernels/_build.py`), one ``solve-iter``
+an iteration and ``checkpoint``, and one `IterationRecord` an iteration
+with the objective's diagnostics and the fit device's memory counters.
 """
 from __future__ import annotations
 
@@ -47,7 +74,9 @@ from typing import Any, Callable, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.ckpt import Checkpointer
 from repro_torch.core.linesearch import LSConfig
+from repro_torch.obs import IterationRecord, device_memory_stats, span
 
 
 @runtime_checkable
@@ -68,6 +97,8 @@ class LoopConfig:
     ls: LSConfig = LSConfig(init_step="adaptive_grow")
     convergence: str = "auto"    # 'raw' | 'ema' | 'auto' (ema iff stochastic)
     ema_decay: float = 0.9
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 50
     seed: int = 0
     max_seconds: float | None = None
 
@@ -83,9 +114,11 @@ class EngineResult:
     n_iters: int
     converged: bool
     setup_time: float         # direction-solver init (e.g. Cholesky)
+    resumed_from: int | None = None         # the checkpoint step resumed
     state: Any = None         # final direction-solver state
     diagnostics: list[dict] | None = None   # per-iteration table, when a
-                                            # callback listens
+                                            # callback, on_iteration or
+                                            # telemetry listens
     phase_times: dict = dataclasses.field(default_factory=dict)
     # seconds of the problem set-up before the loop (affinities, spectral
     # init), filled in by the backend
@@ -141,27 +174,49 @@ def host_backtrack(energy_of: Callable[[torch.Tensor], float],
 def fit_loop(objective: Objective, X0: torch.Tensor,
              cfg: LoopConfig = LoopConfig(),
              callback: Callable[[int, torch.Tensor, float, dict], None]
-             | None = None) -> EngineResult:
+             | None = None, *,
+             on_iteration: Callable[[int, torch.Tensor, dict], None]
+             | None = None, telemetry=None) -> EngineResult:
     """Run the optimization loop to convergence or budget.
 
     Stops on relative (raw or EMA) energy decrease < tol, on max_iters, or
     on max_seconds of wall-clock (the paper's fixed-budget comparisons).
-    `callback(it, X, e, diagnostics)` sees each iteration's diagnostics
-    dict (energy, gradient norm, accepted step, evaluations, times, and
-    the objective's `diagnostics()`).
+    `callback(it, X, e, diagnostics)` and `on_iteration(it, X,
+    diagnostics)` see each iteration's diagnostics dict (energy, gradient
+    norm, accepted step, evaluations, times, and the objective's
+    `diagnostics()`).  `telemetry` is a `repro_torch.obs.Telemetry`: its
+    recorder gets one record an iteration and its tracer the engine's
+    spans (module docstring).  With `cfg.checkpoint_dir` the loop
+    checkpoints, and resumes from the directory's newest step.
     """
+    if telemetry is not None:
+        with telemetry.activate():
+            return _fit_loop(objective, X0, cfg, callback, on_iteration,
+                             telemetry)
+    return _fit_loop(objective, X0, cfg, callback, on_iteration, None)
+
+
+def _fit_loop(objective, X0, cfg, callback, on_iteration,
+              telemetry) -> EngineResult:
     stochastic = bool(getattr(objective, "stochastic", False))
     conv = cfg.convergence
     if conv == "auto":
         conv = "ema" if stochastic else "raw"
     if conv not in ("raw", "ema"):
         raise ValueError(f"unknown convergence mode {conv!r}")
+    recorder = telemetry.recorder if telemetry is not None else None
+    want_diag = (recorder is not None or callback is not None
+                 or on_iteration is not None)
+    record_memory = recorder is not None and recorder.record_memory
     obj_diag = getattr(objective, "diagnostics", None)
     agree_elapsed = getattr(objective, "agree_elapsed", lambda s: s)
+    carry = getattr(objective, "carry_state", None)
+    share = getattr(objective, "share_checkpoint", None)
 
     t0 = time.perf_counter()
-    solve, state = objective.make_direction_solver()
-    _sync(X0)
+    with span("setup", phase=True):
+        solve, state = objective.make_direction_solver()
+        _sync(X0)
     setup_time = time.perf_counter() - t0
     make_fused = getattr(objective, "make_fused_step", None)
     fused_step = make_fused() if make_fused is not None else None
@@ -171,74 +226,148 @@ def fit_loop(objective: Objective, X0: torch.Tensor,
     # python float
     alpha = torch.ones((), dtype=X0.dtype, device=X0.device)
     alpha_host = 1.0
-    key = (cfg.seed + 1, 0) if stochastic else None
-    E, G = objective.energy_and_grad(X, key)
-    e_host, g_host = _host_scalars(E, torch.linalg.norm(G))
+    ema = None
+    ckpt = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+    start_it = 0
+    resumed_from = saved_eg = obj_carry = None
+    if ckpt is not None and ckpt.latest_step() is not None:
+        template = {"X": X, "alpha": np.zeros(()), "ema": np.zeros(()),
+                    "state": state, "E": np.zeros(()), "G": X}
+        if carry is not None:
+            template["obj"] = carry()
+        start_it, payload = ckpt.restore_latest(template)
+        resumed_from = start_it
+        X = payload["X"]
+        alpha_host = float(payload["alpha"])
+        alpha = torch.tensor(alpha_host, dtype=X0.dtype, device=X0.device)
+        ema = float(payload["ema"])
+        state = payload["state"]
+        obj_carry = payload.get("obj")
+        if not stochastic:
+            saved_eg = (payload["E"], payload["G"])
+
+    key = (cfg.seed + 1, start_it) if stochastic else None
+    if saved_eg is None:
+        # the first evaluation; on CUDA it builds and loads the kernels
+        with span("compile", phase=True):
+            E, G = objective.energy_and_grad(X, key)
+            e_host, g_host = _host_scalars(E, torch.linalg.norm(G))
+    else:
+        # deterministic resume: the checkpointed (E, G), which is what the
+        # uninterrupted run fed its next iteration
+        E = torch.tensor(float(saved_eg[0]), dtype=X0.dtype,
+                         device=X0.device)
+        G = saved_eg[1]
+        e_host, g_host = _host_scalars(E, torch.linalg.norm(G))
+    if obj_carry is not None:
+        objective.restore_carry(obj_carry)
     energies = [e_host]
     gnorms = [g_host]
     steps: list[float] = []
     times = [0.0]
     fevals = [1]
-    ema = e_host
+    if ema is None:
+        ema = e_host
+    if recorder is not None:
+        recorder.set_meta(start_it=start_it, resumed_from=resumed_from,
+                          stochastic=stochastic, max_iters=cfg.max_iters,
+                          e0=e_host)
+
+    def save(step):
+        # the host floats as float64 scalars; the tensors are copied to the
+        # host by the Checkpointer
+        payload = {
+            "X": X,
+            "alpha": np.float64(alpha_host),
+            "ema": np.float64(ema),
+            "state": state,
+            "E": np.float64(energies[-1]),
+            "G": G,
+        }
+        if carry is not None:
+            payload["obj"] = carry()
+        with span("checkpoint", it=step):
+            if share is None:
+                ckpt.save(step, payload)
+            else:
+                share(lambda: ckpt.save(step, payload))
 
     converged = False
     diags: list[dict] = []
     t_loop = time.perf_counter()
-    it = 0
-    for it in range(1, cfg.max_iters + 1):
-        if fused_step is not None:
-            X, E, G, state, alpha, n_ev = fused_step(X, E, G, state, alpha)
-            e_rec, g_host, alpha_host = _host_scalars(
-                E, torch.linalg.norm(G), alpha)
-        else:
-            n_ev = 0
-            if stochastic:
-                # one draw a iteration: the line search descends a fixed
-                # surrogate (common random numbers)
-                key = (cfg.seed + 1, it)
-                E, G = objective.energy_and_grad(X, key)
-                e_host, g_host = _host_scalars(E, torch.linalg.norm(G))
-                n_ev += 1
+    it = saved_at = start_it
+    for it in range(start_it + 1, cfg.max_iters + 1):
+        with span("solve-iter", it=it):
+            if fused_step is not None:
+                X, E, G, state, alpha, n_ev = fused_step(X, E, G, state,
+                                                         alpha)
+                e_rec, g_host, alpha_host = _host_scalars(
+                    E, torch.linalg.norm(G), alpha)
             else:
-                e_host = energies[-1]
-            P, state = solve(state, X, G)
-            alpha0 = initial_step(X, P, alpha_host, cfg.ls)
-            alpha_host, e_new, n_bt = host_backtrack(
-                lambda Xn: float(objective.energy(Xn, key)),
-                X, e_host, G, P, alpha0, cfg.ls)
-            n_ev += n_bt
-            X = X + alpha_host * P
-            if stochastic:
-                e_rec = e_new   # this iteration's surrogate, accepted X
-            else:
-                E, G = objective.energy_and_grad(X, key)
-                e_rec, g_host = _host_scalars(E, torch.linalg.norm(G))
-                n_ev += 1
+                n_ev = 0
+                if stochastic:
+                    # one draw a iteration: the line search descends a
+                    # fixed surrogate (common random numbers)
+                    key = (cfg.seed + 1, it)
+                    E, G = objective.energy_and_grad(X, key)
+                    e_host, g_host = _host_scalars(E, torch.linalg.norm(G))
+                    n_ev += 1
+                else:
+                    e_host = energies[-1]
+                P, state = solve(state, X, G)
+                alpha0 = initial_step(X, P, alpha_host, cfg.ls)
+                alpha_host, e_new, n_bt = host_backtrack(
+                    lambda Xn: float(objective.energy(Xn, key)),
+                    X, e_host, G, P, alpha0, cfg.ls)
+                n_ev += n_bt
+                X = X + alpha_host * P
+                if stochastic:
+                    e_rec = e_new   # this iteration's surrogate, accepted X
+                else:
+                    E, G = objective.energy_and_grad(X, key)
+                    e_rec, g_host = _host_scalars(E, torch.linalg.norm(G))
+                    n_ev += 1
         now = time.perf_counter() - t_loop
         energies.append(e_rec)
         gnorms.append(g_host)
         steps.append(alpha_host)
         times.append(now)
         fevals.append(fevals[-1] + n_ev)
-        if callback is not None:
+        diag = None
+        if want_diag:
             extras = obj_diag() if obj_diag is not None else {}
-            diag = {"it": it, "energy": e_rec, "grad_norm": gnorms[-1],
+            if record_memory:
+                extras.update(device_memory_stats(X.device))
+            diag = {"it": it, "energy": e_rec, "grad_norm": g_host,
                     "alpha": alpha_host, "n_evals": n_ev, "t": now,
                     "iter_s": now - times[-2], **extras}
             diags.append(diag)
+            if recorder is not None:
+                recorder.record(IterationRecord(
+                    it=it, energy=e_rec, grad_norm=g_host, alpha=alpha_host,
+                    n_evals=n_ev, t=now, iter_s=now - times[-2],
+                    extras=extras))
+        if callback is not None:
             callback(it, X, e_rec, diag)
+        if on_iteration is not None:
+            on_iteration(it, X, diag)
         if conv == "ema":
             ema_new = cfg.ema_decay * ema + (1.0 - cfg.ema_decay) * e_rec
             rel = abs(ema - ema_new) / max(abs(ema_new), 1e-30)
             ema = ema_new
         else:
             rel = abs(energies[-2] - e_rec) / max(abs(e_rec), 1e-30)
+        if ckpt is not None and it % cfg.checkpoint_every == 0:
+            save(it)
+            saved_at = it
         if rel < cfg.tol:
             converged = True
             break
         if (cfg.max_seconds is not None
                 and agree_elapsed(now) > cfg.max_seconds):
             break
+    if ckpt is not None and saved_at != it:
+        save(it)
 
     return EngineResult(
         X=X,
@@ -247,11 +376,12 @@ def fit_loop(objective: Objective, X0: torch.Tensor,
         step_sizes=np.asarray(steps),
         times=np.asarray(times),
         n_fevals=np.asarray(fevals),
-        n_iters=it,
+        n_iters=it - start_it,
         converged=converged,
         setup_time=setup_time,
+        resumed_from=resumed_from,
         state=state,
-        diagnostics=diags if callback is not None else None,
+        diagnostics=diags if want_diag else None,
     )
 
 
@@ -259,4 +389,6 @@ def make_loop_config(spec, ls: LSConfig) -> LoopConfig:
     """LoopConfig from an EmbedSpec (port of `repro/embed/trainer.py::
     make_loop_config`)."""
     return LoopConfig(max_iters=spec.max_iters, tol=spec.tol, ls=ls,
+                      checkpoint_dir=spec.checkpoint_dir,
+                      checkpoint_every=spec.checkpoint_every,
                       seed=spec.seed, max_seconds=spec.max_seconds)

@@ -40,6 +40,7 @@ from repro_torch.core.objectives import (draw_shifts, energy_and_grad_sparse,
                                          is_normalized)
 from repro_torch.core.spectral_init import laplacian_eigenmaps
 from repro_torch.embed.distributed import EmbedMeshSpec
+from repro_torch.obs import span
 from repro_torch.sparse import (energy_and_grad_tree, make_grid_plan,
                                 make_sd_operator, make_sharded_energy_grad,
                                 make_sharded_sd_operator, pcg,
@@ -56,10 +57,12 @@ class _SparseObjective:
     """Sparse backend over (eg, e_only, solve) closures.  Stochastic: one
     draw of negatives an iteration, from `shift_source(*key)` (cached for
     the line-search trials that share the key).  `solve(G, P0) -> (P,
-    diag)` may warm-start from the previous direction P0 (PCG does); `diag`
-    holds the solver's counters, read back by `diagnostics()` only when a
-    callback listens.  Under a `mesh` (the sharded backend) the engine's time
-    budget reads the slowest rank's clock (`agree_elapsed`)."""
+    diag)` may warm-start from the previous direction P0 (PCG does; the
+    engine checkpoints P0 as its solver state); `diag` holds the solver's
+    counters, read back by `diagnostics()` only when a callback or
+    telemetry listens.  Under a `mesh` (the sharded backend) the engine's
+    time budget reads the slowest rank's clock (`agree_elapsed`) and rank 0
+    writes the checkpoints (`share_checkpoint`)."""
 
     stochastic = True
 
@@ -95,6 +98,25 @@ class _SparseObjective:
 
         return solve, torch.zeros_like(self._X0)
 
+    def share_checkpoint(self, write: Callable[[], object]) -> None:
+        """The engine's save on a mesh of several ranks: rank 0 writes, and
+        one all_reduce (a barrier) tells every rank whether it did, so that
+        every rank returns once the step is on disk or raises if it is not.
+        Every rank holds the same replicated payload."""
+        if self._mesh is None or self._mesh.size == 1:
+            write()
+            return
+        err = None
+        if self._mesh.rank == 0:
+            try:
+                write()
+            except Exception as e:          # re-raised below, every rank
+                err = e
+        if max_over_ranks(self._mesh, float(err is not None),
+                          self._X0.device) > 0:
+            raise RuntimeError("rank 0 failed to write the checkpoint"
+                               ) from err
+
     def agree_elapsed(self, seconds: float) -> float:
         """The seconds the engine's time budget reads: this rank's own, or
         under a mesh of several ranks the slowest rank's, so that every rank
@@ -120,8 +142,10 @@ class _SparseObjective:
 class _NormalizedSparseObjective(_SparseObjective):
     """Sparse backend of the normalized models (ssne/tsne): threads the
     streaming partition-function estimate z through `eg(X, shifts, z) ->
-    (E, G, z_new)`.  The energy uses the instantaneous estimate, so the
-    line-search path `e_only` keeps its shape."""
+    (E, G, z_new)` and hands it to the engine's checkpoint payload
+    (`carry_state` / `restore_carry`), so that a resumed fit replays the
+    uninterrupted gradients bit for bit.  The energy uses the instantaneous
+    estimate, so the line-search path `e_only` keeps its shape."""
 
     def __init__(self, eg, e_only, solve, X0, shift_source, mesh=None):
         super().__init__(eg, e_only, solve, X0, shift_source, mesh)
@@ -132,6 +156,13 @@ class _NormalizedSparseObjective(_SparseObjective):
     def energy_and_grad(self, X, key):
         E, G, self._z = self._eg(X, self.shifts(key), self._z)
         return E, G
+
+    def carry_state(self) -> torch.Tensor:
+        """The streaming z, for the engine's checkpoint payload."""
+        return self._z
+
+    def restore_carry(self, z: torch.Tensor) -> None:
+        self._z = z.to(self._X0.device)
 
     def diagnostics(self) -> dict:
         return self._host_diag({"z_ema": self._z})
@@ -205,9 +236,10 @@ def _graph_and_start(cfg, Y, X0, saff, device, phase_times: dict | None):
     saff = _resolve_saff(cfg, Y, saff, n, device, timings=phase_times)
     if X0 is None:
         t0 = time.perf_counter()
-        X0 = _sparse_spectral_init(cfg, saff, n)
-        if X0.is_cuda:
-            torch.cuda.synchronize(X0.device)
+        with span("spectral-init", phase=True, n=n):
+            X0 = _sparse_spectral_init(cfg, saff, n)
+            if X0.is_cuda:
+                torch.cuda.synchronize(X0.device)
         if phase_times is not None:
             phase_times["spectral_init_s"] = time.perf_counter() - t0
     X0 = torch.as_tensor(X0, dtype=torch.float32, device=device)

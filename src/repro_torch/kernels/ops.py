@@ -47,13 +47,20 @@ evaluation with theta > 0; its plain version is `ref.bh_tree_ref`).
 
 Every decision is recorded: `last_dispatch(name)` for each entry point
 returns the most recent one as a dict of path, reason, storage (and
-layout).
+layout); under an active telemetry recorder (`repro_torch.obs`) the same
+dict is merged into its ``kernel_dispatch`` meta, written again only when a
+kernel's decision changes.  Each call runs under a ``kernel/<name>`` span
+with the decision as its args: host time, so on CUDA the issue of one
+launch (a span adds no synchronisation), on the CPU the plain version's
+whole run.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.obs import current_tracer, span
 
 from .farfield import bh_interaction_cuda, bh_tree_cuda
 from .pairwise import pairwise_terms_cuda
@@ -76,6 +83,20 @@ def last_dispatch(kernel: str | None = None):
     """The most recent dispatch decision (dict of path/reason/storage), per
     kernel or the whole registry."""
     return dict(_LAST) if kernel is None else _LAST.get(kernel)
+
+
+def _record(kernel: str, info: dict) -> None:
+    """Keep the decision for `last_dispatch` and merge it into the active
+    recorder's ``kernel_dispatch`` meta (a meta line only when it
+    changed: the port dispatches on every call, not once a trace)."""
+    _LAST[kernel] = info
+    tracer = current_tracer()
+    rec = tracer.recorder if tracer is not None else None
+    if rec is not None:
+        merged = dict(rec.meta.get("kernel_dispatch") or {})
+        if merged.get(kernel) != info:
+            merged[kernel] = info
+            rec.set_meta(kernel_dispatch=merged)
 
 
 def resolve_storage(storage_dtype: str | None) -> str:
@@ -116,13 +137,16 @@ def pairwise_terms(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
         raise ValueError(f"unknown kind {kind!r}")
     path, reason = _path(impl, X)
     storage = resolve_storage(storage_dtype)
-    _LAST["pairwise_terms"] = {"path": path, "reason": reason,
-                               "storage": storage}
-    if path == "torch":
-        Xs, Was, Wbs = (to_storage(t, storage).float() for t in (X, Wa, Wb))
-        return pairwise_terms_ref(Xs, Was, Wbs, kind)
-    return pairwise_terms_cuda(to_storage(X, storage), to_storage(Wa, storage),
-                               to_storage(Wb, storage), kind)
+    info = {"path": path, "reason": reason, "storage": storage}
+    _record("pairwise_terms", info)
+    with span("kernel/pairwise_terms", n=X.shape[0], kind=kind, **info):
+        if path == "torch":
+            Xs, Was, Wbs = (to_storage(t, storage).float()
+                            for t in (X, Wa, Wb))
+            return pairwise_terms_ref(Xs, Was, Wbs, kind)
+        return pairwise_terms_cuda(to_storage(X, storage),
+                                   to_storage(Wa, storage),
+                                   to_storage(Wb, storage), kind)
 
 
 def ell_lap_matvec(X: torch.Tensor, indices: torch.Tensor,
@@ -137,16 +161,19 @@ def ell_lap_matvec(X: torch.Tensor, indices: torch.Tensor,
     lay = layout or ELL_DEFAULT_LAYOUT
     if lay not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
-    if path == "torch":
-        _LAST["ell_lap_matvec"] = {"path": path, "reason": reason,
-                                   "storage": storage}
-        return ell_lap_matvec_ref(to_storage(X, storage).float(), indices,
-                                  to_storage(weights, storage).float())
-    _LAST["ell_lap_matvec"] = {"path": path, "reason": reason,
-                               "storage": storage, "layout": lay}
-    return ell_lap_matvec_cuda(to_storage(X, storage),
-                               indices.to(torch.int32).contiguous(),
-                               to_storage(weights, storage), layout=lay)
+    info = {"path": path, "reason": reason, "storage": storage}
+    if path != "torch":
+        info["layout"] = lay
+    _record("ell_lap_matvec", info)
+    with span("kernel/ell_lap_matvec", n=X.shape[0], k=indices.shape[1],
+              **info):
+        if path == "torch":
+            return ell_lap_matvec_ref(to_storage(X, storage).float(),
+                                      indices,
+                                      to_storage(weights, storage).float())
+        return ell_lap_matvec_cuda(to_storage(X, storage),
+                                   indices.to(torch.int32).contiguous(),
+                                   to_storage(weights, storage), layout=lay)
 
 
 def resolve_local_ell(nb: int, k: int, d: int, *, impl: str = "auto",
@@ -175,15 +202,17 @@ def ell_lap_matvec_local(X_rep: torch.Tensor, indices: torch.Tensor,
     and the weights on both paths."""
     path, reason = _path(impl, X_rep)
     storage = resolve_storage(storage)
-    _LAST["ell_lap_matvec_local"] = {"path": path, "reason": reason,
-                                     "storage": storage}
-    if path == "torch":
-        return ell_lap_matvec_local_ref(
-            to_storage(X_rep, storage).float(), indices,
-            to_storage(weights, storage).float(), row0)
-    return ell_lap_matvec_local_cuda(to_storage(X_rep, storage),
-                                     indices.to(torch.int32).contiguous(),
-                                     to_storage(weights, storage), row0)
+    info = {"path": path, "reason": reason, "storage": storage}
+    _record("ell_lap_matvec_local", info)
+    with span("kernel/ell_lap_matvec_local", nb=indices.shape[0],
+              k=indices.shape[1], row0=row0, **info):
+        if path == "torch":
+            return ell_lap_matvec_local_ref(
+                to_storage(X_rep, storage).float(), indices,
+                to_storage(weights, storage).float(), row0)
+        return ell_lap_matvec_local_cuda(
+            to_storage(X_rep, storage), indices.to(torch.int32).contiguous(),
+            to_storage(weights, storage), row0)
 
 
 def bh_interaction(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -197,15 +226,18 @@ def bh_interaction(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"unknown kind {kind!r}")
     path, reason = _path(impl, X)
     storage = resolve_storage(storage_dtype)
-    _LAST["bh_interaction"] = {"path": path, "reason": reason,
-                               "storage": storage}
-    if path == "torch":
-        return bh_interaction_ref(to_storage(X, storage).float(), idx,
-                                  w.float(),
-                                  to_storage(table, storage).float(), kind)
-    return bh_interaction_cuda(to_storage(X, storage), idx.to(torch.int32),
-                               w.to(torch.float32), to_storage(table, storage),
-                               kind)
+    info = {"path": path, "reason": reason, "storage": storage}
+    _record("bh_interaction", info)
+    with span("kernel/bh_interaction", n=X.shape[0], w=idx.shape[1],
+              m=table.shape[0], kind=kind, **info):
+        if path == "torch":
+            return bh_interaction_ref(to_storage(X, storage).float(), idx,
+                                      w.float(),
+                                      to_storage(table, storage).float(),
+                                      kind)
+        return bh_interaction_cuda(to_storage(X, storage),
+                                   idx.to(torch.int32), w.to(torch.float32),
+                                   to_storage(table, storage), kind)
 
 
 def bh_tree(grid: TreeGrid, kind: str, *, impl: str = "auto",
@@ -219,15 +251,19 @@ def bh_tree(grid: TreeGrid, kind: str, *, impl: str = "auto",
         raise ValueError(f"unknown kind {kind!r}")
     path, reason = _path(impl, grid.Xs)
     storage = resolve_storage(storage_dtype)
-    _LAST["bh_tree"] = {"path": path, "reason": reason, "storage": storage}
+    info = {"path": path, "reason": reason, "storage": storage}
+    _record("bh_tree", info)
     if path == "torch":
         def rounded(t):
             return to_storage(t, storage).float()
-        return bh_tree_ref(dataclasses.replace(
-            grid, Xs=rounded(grid.Xs), res_com=rounded(grid.res_com),
-            level_com=tuple(rounded(c) for c in grid.level_com)), kind)
-    return bh_tree_cuda(dataclasses.replace(
-        grid, Xs=to_storage(grid.Xs, storage),
-        res_com=to_storage(grid.res_com, storage),
-        level_com=tuple(to_storage(c, storage) for c in grid.level_com)),
-        kind)
+    else:
+        def rounded(t):
+            return to_storage(t, storage)
+    grid = dataclasses.replace(
+        grid, Xs=rounded(grid.Xs), res_com=rounded(grid.res_com),
+        level_com=tuple(rounded(c) for c in grid.level_com))
+    with span("kernel/bh_tree", n=grid.Xs.shape[0], depth=grid.depth,
+              kind=kind, **info):
+        if path == "torch":
+            return bh_tree_ref(grid, kind)
+        return bh_tree_cuda(grid, kind)

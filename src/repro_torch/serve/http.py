@@ -19,7 +19,8 @@ Run it from an artifact (`Embedding.save`, of either package):
 
 It serves on the current CUDA device unless `--device` names another (e.g.
 ``--device cpu``); without CUDA and without `--device` it exits with an
-error.  Request telemetry (the reference's `--telemetry`) is not ported.
+error.  `--telemetry DIR` writes one request record a request to
+`DIR/run.jsonl` and the batches' spans to `DIR/trace.json` (on shutdown).
 The handler threads (`ThreadingHTTPServer`) all funnel into ONE
 `EmbeddingServer`, so concurrent HTTP clients get micro-batched exactly
 like in-process `submit()` callers.  SIGTERM/SIGINT shut down gracefully:
@@ -155,6 +156,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the current "
                          "CUDA device; 'cpu' for the CPU)")
+    ap.add_argument("--telemetry", default=None,
+                    help="telemetry output directory (request JSONL)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -162,7 +165,7 @@ def main(argv=None) -> int:
     es = EmbeddingServer.from_artifact(
         args.artifact, Y_train=Y_train, device=args.device,
         max_batch=args.max_batch, max_delay_s=args.max_delay_ms / 1e3,
-        timeout_s=args.timeout_s)
+        timeout_s=args.timeout_s, telemetry=args.telemetry)
     if not args.no_warmup:
         keys = es.warmup(args.warmup)
         print(f"repro_torch.serve.http: warmed {keys}", flush=True)

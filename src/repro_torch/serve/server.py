@@ -21,9 +21,11 @@ request path cheap and correct:
 Per-request deadlines (`timeout_s`) are enforced while queued; `close()`
 (or the context manager) drains the queue.  The server runs on its
 estimator's device: CUDA unless the estimator was built or loaded with
-``device="cpu"``.  Request telemetry (`telemetry=`) needs `repro.obs`,
-which the port does not have yet: a non-None `telemetry` raises
-`NotImplementedError`.
+``device="cpu"``.  With `telemetry=` (as `Embedding.fit` takes it,
+`repro_torch.obs`) every request appends a `RequestRecord` (queue wait, the
+batch's compute share, end-to-end latency) and each batch runs under a
+``serve/batch`` span, activated again on the batcher's worker thread, which
+starts with an empty context; `close()` finalizes it.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 from repro_torch.api.spec import TransformSpec
 from repro_torch.api.transform import (_resolve_k, resolve_transform_spec,
                                        transform_points)
+from repro_torch.obs import RequestRecord, activate, resolve_telemetry, span
 
 from .batching import MicroBatcher
 from .metrics import LatencyStats
@@ -67,11 +70,6 @@ class EmbeddingServer:
     def __init__(self, embedding, spec: TransformSpec | None = None, *,
                  max_batch: int = 64, max_delay_s: float = 0.002,
                  timeout_s: float | None = None, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "EmbeddingServer(telemetry=) needs repro.obs, which is not "
-                "ported to repro_torch yet (ROADMAP item 11); pass "
-                "telemetry=None")
         if getattr(embedding, "embedding_", None) is None:
             raise ValueError(
                 "EmbeddingServer needs a fitted estimator (fit() or "
@@ -92,6 +90,8 @@ class EmbeddingServer:
         self.max_batch = max_batch
         self.timeout_s = timeout_s
         self.latency = LatencyStats()
+        self._tel = resolve_telemetry(telemetry)
+        self._last_compute_s = 0.0
         self._train = embedding._train_tensor()
         self._dim = int(self._train.shape[1])
         self._k = _resolve_k(embedding.spec, self.spec, self._train.shape[0],
@@ -102,6 +102,11 @@ class EmbeddingServer:
         self._batcher = MicroBatcher(
             self._process, max_batch=max_batch, max_delay_s=max_delay_s,
             name="embedding-serve")
+        if self._tel is not None:
+            self._tel.recorder.set_meta(
+                serve=True, kind=embedding.spec.kind,
+                n_train=int(embedding.embedding_.shape[0]),
+                max_batch=max_batch)
 
     @classmethod
     def from_artifact(cls, path: str, spec: TransformSpec | None = None, *,
@@ -131,7 +136,8 @@ class EmbeddingServer:
         fut = self._batcher.submit(
             (rid, rows, t_submit, single),
             timeout=self.timeout_s if timeout is None else timeout)
-        fut.add_done_callback(lambda f: self._finish(f, t_submit))
+        fut.add_done_callback(
+            lambda f: self._finish(f, rid, rows.shape[0], t_submit))
         return fut
 
     def transform(self, y, *, timeout: float | None = None):
@@ -139,9 +145,23 @@ class EmbeddingServer:
         failure (TimeoutError past the deadline)."""
         return self.submit(y, timeout=timeout).result()
 
-    def _finish(self, fut, t_submit: float) -> None:
-        if not fut.cancelled() and fut.exception() is None:
-            self.latency.add(time.perf_counter() - t_submit)
+    def _finish(self, fut, rid: int, n_rows: int, t_submit: float) -> None:
+        total = time.perf_counter() - t_submit
+        err = None if fut.cancelled() else fut.exception()
+        status = ("ok" if err is None
+                  else "timeout" if isinstance(err, TimeoutError)
+                  else "error")
+        if status == "ok":
+            self.latency.add(total)
+        if self._tel is not None:
+            ok = status == "ok"
+            self._tel.recorder.record_request(RequestRecord(
+                rid=rid, n_rows=n_rows,
+                batch=self._batcher.stats.n_batches - 1,
+                queue_s=max(0.0, total - self._last_compute_s) if ok
+                else total,
+                compute_s=self._last_compute_s if ok else 0.0,
+                total_s=total, status=status))
 
     # -- batch side ----------------------------------------------------------
     def _cache_key(self, bucket: int) -> str:
@@ -164,9 +184,16 @@ class EmbeddingServer:
                                        {"hits": 0, "misses": 0})
         entry["hits" if entry["hits"] + entry["misses"] else "misses"] += 1
         est = self.embedding
-        X, _ = transform_points(est.spec, self._train, est.embedding_, Y,
-                                tspec=self.spec)
-        X = X[:n].cpu().numpy()           # the batch's one result read
+        t0 = time.perf_counter()
+        # the batcher's worker thread starts with an empty context: the
+        # server's tracer (if any) is activated again here
+        with activate(self._tel.tracer if self._tel else None):
+            with span("serve/batch", n=n, bucket=bucket,
+                      requests=len(payloads)):
+                X, _ = transform_points(est.spec, self._train,
+                                        est.embedding_, Y, tspec=self.spec)
+                X = X[:n].cpu().numpy()   # the batch's one result read
+        self._last_compute_s = time.perf_counter() - t0
         out, off = [], 0
         for _, r, _, single in payloads:
             x = X[off:off + r.shape[0]]
@@ -208,6 +235,8 @@ class EmbeddingServer:
 
     def close(self, *, drain: bool = True) -> None:
         self._batcher.close(drain=drain)
+        if self._tel is not None:
+            self._tel.finalize()
 
     def __enter__(self):
         return self

@@ -66,6 +66,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeGrid
+from repro_torch.obs import span
 
 # -- plan ----------------------------------------------------------------------
 
@@ -190,37 +191,41 @@ def _grid_state(X: torch.Tensor, plan: GridPlan) -> TreeGrid:
     the cells that spill past `cap` (`kernels.ref.TreeGrid`)."""
     if plan.exhaustive:
         raise ValueError("theta = 0 (exhaustive mode) builds no grid")
-    D, cap = plan.depth, plan.cap
-    G = 1 << D
-    coords, h = _grid_coords(X, D)
-    cs, perm, Xs, starts, counts, sums, csum = _finest_aggregates(
-        coords.long(), X, G)
+    # the span times the host's issue: nothing here synchronises
+    with span("grid-build", phase=True, n=plan.n, depth=plan.depth,
+              r=plan.r, cap=plan.cap, exhaustive=plan.exhaustive):
+        D, cap = plan.depth, plan.cap
+        G = 1 << D
+        coords, h = _grid_coords(X, D)
+        cs, perm, Xs, starts, counts, sums, csum = _finest_aggregates(
+            coords.long(), X, G)
 
-    # per-level stats, finest -> coarsest (index by level l)
-    counts_l = {D: counts}
-    sums_l = {D: sums}
-    for lev in range(D - 1, plan.l1 - 1, -1):
-        counts_l[lev], sums_l[lev] = _pool(counts_l[lev + 1],
-                                           sums_l[lev + 1], 1 << (lev + 1))
-    levels = range(plan.l1, D + 1)
+        # per-level stats, finest -> coarsest (index by level l)
+        counts_l = {D: counts}
+        sums_l = {D: sums}
+        for lev in range(D - 1, plan.l1 - 1, -1):
+            counts_l[lev], sums_l[lev] = _pool(
+                counts_l[lev + 1], sums_l[lev + 1], 1 << (lev + 1))
+        levels = range(plan.l1, D + 1)
 
-    # residual: cells spilling past `cap` keep one centre-of-mass entry of
-    # their unlisted suffix
-    listed_n = torch.clamp_max(counts, cap)
-    listed_sum = csum[starts + listed_n] - csum[starts]
-    res_cnt = counts - listed_n
-    res_com = (sums - listed_sum) / torch.clamp_min(res_cnt, 1)[:, None]
-    return TreeGrid(
-        Xs=Xs, perm=perm, cids=cs, starts=starts, counts=counts,
-        level_counts=tuple(counts_l[lev] for lev in levels),
-        level_com=tuple(sums_l[lev] / torch.clamp_min(counts_l[lev], 1)[:, None]
-                        for lev in levels),
-        res_cnt=res_cnt, res_com=res_com,
-        far_offsets=torch.as_tensor(_far_offsets(plan.r), dtype=torch.int64,
-                                    device=X.device),
-        near_offsets=torch.as_tensor(_near_offsets(plan.r), dtype=torch.int64,
-                                     device=X.device),
-        h=h, r=plan.r, l1=plan.l1, depth=D, cap=cap, chunk=plan.chunk)
+        # residual: cells spilling past `cap` keep one centre-of-mass entry
+        # of their unlisted suffix
+        listed_n = torch.clamp_max(counts, cap)
+        listed_sum = csum[starts + listed_n] - csum[starts]
+        res_cnt = counts - listed_n
+        res_com = (sums - listed_sum) / torch.clamp_min(res_cnt, 1)[:, None]
+        return TreeGrid(
+            Xs=Xs, perm=perm, cids=cs, starts=starts, counts=counts,
+            level_counts=tuple(counts_l[lev] for lev in levels),
+            level_com=tuple(
+                sums_l[lev] / torch.clamp_min(counts_l[lev], 1)[:, None]
+                for lev in levels),
+            res_cnt=res_cnt, res_com=res_com,
+            far_offsets=torch.as_tensor(_far_offsets(plan.r),
+                                        dtype=torch.int64, device=X.device),
+            near_offsets=torch.as_tensor(_near_offsets(plan.r),
+                                         dtype=torch.int64, device=X.device),
+            h=h, r=plan.r, l1=plan.l1, depth=D, cap=cap, chunk=plan.chunk)
 
 
 # -- interaction batches -------------------------------------------------------

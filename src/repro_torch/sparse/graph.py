@@ -39,6 +39,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import span
+
 
 class NeighborGraph(NamedTuple):
     """Directed ELL graph: A[n, indices[n, j]] = weights[n, j]."""
@@ -371,8 +373,10 @@ def sparse_affinities(Y: torch.Tensor, k: int, perplexity: float = 30.0,
       normalized models:  W+ = (P_cond + P_cond^T) / (2N)   -> A = P_cond / N
 
     `timings`, when given, receives the seconds of the three build steps
-    (``knn_s``, ``calibrate_s``, ``reverse_s``), device work included: the
-    counterpart of the reference's graph-build spans."""
+    (``knn_s``, ``calibrate_s``, ``reverse_s``), device work included.  The
+    same steps run under the reference's spans (``graph-build`` with
+    ``graph-build/knn``, ``/calibrate`` and ``/reverse``), each closing
+    after its step's synchronisation."""
     n = Y.shape[0]
     marks = [time.perf_counter()]
 
@@ -380,20 +384,25 @@ def sparse_affinities(Y: torch.Tensor, k: int, perplexity: float = 30.0,
         _sync(t)
         marks.append(time.perf_counter())
 
-    d2, idx = knn_graph(Y, k, method=method, **knn_kw)
-    mark(d2)
-    self_col = torch.arange(n, dtype=idx.dtype, device=idx.device)[:, None]
-    valid = idx != self_col
-    w = calibrated_weights_ell(d2, valid, perplexity)
-    if model in ("ssne", "tsne"):
-        w = w / n
-    # padding invariant (invalid slots: self index, zero weight)
-    idx = torch.where(valid, idx, self_col)
-    w = torch.where(valid, w, 0.0)
-    g = NeighborGraph(indices=idx, weights=w)
-    mark(w)
-    rev = reverse_graph(g)
-    mark(rev.weights)
+    with span("graph-build", phase=True, n=n, k=k):
+        with span("graph-build/knn", method=method):
+            d2, idx = knn_graph(Y, k, method=method, **knn_kw)
+            mark(d2)
+        self_col = torch.arange(n, dtype=idx.dtype,
+                                device=idx.device)[:, None]
+        valid = idx != self_col
+        with span("graph-build/calibrate", perplexity=perplexity):
+            w = calibrated_weights_ell(d2, valid, perplexity)
+            if model in ("ssne", "tsne"):
+                w = w / n
+            # padding invariant (invalid slots: self index, zero weight)
+            idx = torch.where(valid, idx, self_col)
+            w = torch.where(valid, w, 0.0)
+            g = NeighborGraph(indices=idx, weights=w)
+            mark(w)
+        with span("graph-build/reverse"):
+            rev = reverse_graph(g)
+            mark(rev.weights)
     if timings is not None:
         for name, t0, t1 in zip(("knn_s", "calibrate_s", "reverse_s"),
                                 marks, marks[1:]):

@@ -49,6 +49,7 @@ from repro_torch.core import objectives
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import negative_pair_terms
 from repro_torch.launch.mesh import Mesh, linear_row_index
+from repro_torch.obs import span
 
 from .graph import SparseAffinities, reverse_graph
 from .linalg import make_sd_operator
@@ -126,10 +127,14 @@ def shard_sparse_affinities(mesh: Mesh, row_axes: tuple[str, ...],
         return torch.cat([real, a.new_zeros((nb - real.shape[0],
                                              a.shape[1]))])
 
-    return ShardedSparseGraph(
-        indices=local(g.indices.to(torch.int32)), weights=local(g.weights),
-        rev_indices=local(rev.indices.to(torch.int32)),
-        rev_weights=local(rev.weights), n=n, n_pad=nb * groups, row0=row0)
+    with span("graph-shard", phase=True, n=n, n_pad=nb * groups,
+              groups=groups):
+        return ShardedSparseGraph(
+            indices=local(g.indices.to(torch.int32)),
+            weights=local(g.weights),
+            rev_indices=local(rev.indices.to(torch.int32)),
+            rev_weights=local(rev.weights), n=n, n_pad=nb * groups,
+            row0=row0)
 
 
 def _pad_rows(X: torch.Tensor, n_pad: int) -> torch.Tensor:

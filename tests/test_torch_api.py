@@ -224,8 +224,10 @@ def test_spec_validation_and_unported_options():
         EmbedSpec(kernel_precision="float16")
     assert EmbedSpec(strategy="SD").strategy == "sd"
     assert EmbedSpec().kernel_args() == {}
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        EmbedSpec(checkpoint_dir="ckpt")
+    # checkpointing is ported: the reference's two fields are accepted
+    spec = EmbedSpec(checkpoint_dir="ckpt", checkpoint_every=7)
+    assert (spec.checkpoint_dir, spec.checkpoint_every) == ("ckpt", 7)
+    assert EmbedSpec().checkpoint_every == JEmbedSpec().checkpoint_every
 
 
 def test_callback_sees_each_iteration_and_bf16_fit(Y):

@@ -160,9 +160,13 @@ def test_loader_maps_kernel_impl_and_drops_checkpoint_dir(tmp_path,
     _rewrite(path, mutate)
     est = Embedding.load(path, device="cpu")
     assert est.spec.kernel_impl == "kernel"
-    assert est.spec.checkpoint_dir is None
+    # checkpointing is ported: both fields are kept, as the reference's
+    # loader keeps them (they were dropped before)
+    assert est.spec.checkpoint_dir == "/ckpt"
+    assert est.spec.checkpoint_every == 7
     est.save(path)
-    assert read_header(path)["spec"]["checkpoint_dir"] is None
+    assert read_header(path)["spec"]["checkpoint_dir"] == "/ckpt"
+    assert read_header(path)["spec"]["checkpoint_every"] == 7
     assert read_header(path)["spec"]["kernel_impl"] == "pallas"
 
 

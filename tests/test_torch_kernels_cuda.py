@@ -28,6 +28,8 @@ fit for fit to its plain path at rtol 1e-4 (the reference's trace
 tolerance, tests/test_api.py:92), at lambda values where no method
 amplifies a last-bit difference; SparseSD's direction on the ELL kernel to
 the same PCG solve on the plain ELL product, max |diff| / max |P| 1e-4.
+Fits on the kernels resume from a checkpoint onto the uninterrupted
+trajectory, and run with telemetry, bit for bit.
 """
 import numpy as np
 import pytest
@@ -680,3 +682,33 @@ def test_cuda_sparsesd_direction_matches_plain_ell(cuda_device):
                maxiter=strategy.cg_maxiter).x
     assert not any(sparse_attractive.launch_counts.values())
     assert float((P - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kind", [("dense", "ee"), ("sparse", "tsne"),
+                                          ("tree", "ee")])
+def test_cuda_resume_and_telemetry_are_bit_identical(cuda_device, tmp_path,
+                                                     backend, kind):
+    """On the kernels (pairwise, ELL, bh_tree): a fit stopped and resumed by
+    a fresh estimator replays the uninterrupted one, and a fit with
+    telemetry is the fit without it, bit for bit; the iteration records
+    carry the card's memory counters."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.data import mnist_like
+
+    Y, _ = mnist_like(n=400, dim=20, seed=0)
+    spec = EmbedSpec(kind=kind, lam=1.0 if kind == "tsne" else 50.0,
+                     backend=backend, perplexity=8.0, n_neighbors=24,
+                     max_iters=6, tol=0.0)
+    full = Embedding(spec, device=cuda_device).fit(Y)
+    on = Embedding(spec, device=cuda_device).fit(Y, telemetry=True)
+    np.testing.assert_array_equal(on.result_.energies, full.result_.energies)
+    assert torch.equal(on.embedding_, full.embedding_)
+    assert on.telemetry_.recorder.records[-1].extras["mem_peak_bytes"] > 0
+    part = spec.replace(max_iters=3, checkpoint_dir=str(tmp_path / "ck"))
+    Embedding(part, device=cuda_device).fit(Y)
+    res = Embedding(part, device=cuda_device).resume(Y, max_iters=6)
+    assert res.result_.resumed_from == 3
+    np.testing.assert_array_equal(res.result_.energies[1:],
+                                  full.result_.energies[4:])
+    assert torch.equal(res.embedding_, full.embedding_)

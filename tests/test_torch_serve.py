@@ -5,8 +5,9 @@ Micro-batching semantics (ordering, deadlines, error isolation, drain and
 cancel), server parity with the direct transform under concurrent load at
 the reference's 1e-5 (tests/test_serve.py:197,213), bucket padding, cache
 keys and warmup, artifact-backed serving, the HTTP front-end in process and
-as `python -m repro_torch.serve.http`, and the refusals: the engine solver,
-a wrong dimension, `telemetry=` (not ported) and a missing CUDA device.
+as `python -m repro_torch.serve.http`, request telemetry (`telemetry=`),
+and the refusals: the engine solver, a wrong dimension and a missing CUDA
+device.
 """
 import json
 import os
@@ -210,13 +211,19 @@ TSPEC = TransformSpec(solver="rowwise", exhaustive=True, max_iters=10)
 
 
 def test_server_requires_fitted_rowwise_and_no_telemetry(fitted):
-    _, est = fitted
+    """The refusals; `telemetry=` (refused before the port had `obs`) is
+    now taken: one ok request record, and the same rows as without it."""
+    Y, est = fitted
     with pytest.raises(ValueError, match="fitted"):
         EmbeddingServer(Embedding(EmbedSpec(), device="cpu"))
     with pytest.raises(ValueError, match="rowwise"):
         EmbeddingServer(est, TransformSpec(solver="engine"))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        EmbeddingServer(est, TSPEC, telemetry=True)
+    with EmbeddingServer(est, TSPEC, telemetry=True) as srv:
+        got = srv.transform(Y[130])
+    recs = srv._tel.recorder.requests
+    assert [(r.rid, r.n_rows, r.status) for r in recs] == [(1, 1, "ok")]
+    with EmbeddingServer(est, TSPEC) as srv:
+        np.testing.assert_array_equal(srv.transform(Y[130]), got)
 
 
 def test_server_concurrent_parity_with_direct_transform(fitted):

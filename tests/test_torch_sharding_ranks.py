@@ -224,5 +224,28 @@ def job_api(spec_fields, Y):
     }
 
 
+def job_resume(spec_fields, Y, ckdir, stop):
+    """A sparse-sharded fit run straight through `spec.max_iters`
+    iterations, and the same fit stopped at `stop` and resumed from the
+    checkpoint that rank 0 wrote in `ckdir` (every rank passes the same
+    directory)."""
+    spec = EmbedSpec(**spec_fields)
+
+    def est(s):
+        return Embedding(s, device="cpu", mesh=make_host_mesh())
+
+    full = est(spec).fit(Y)
+    part = spec.replace(max_iters=stop, checkpoint_dir=ckdir)
+    est(part).fit(Y)
+    res = est(part).resume(Y, max_iters=spec.max_iters)
+    return {"full": {"energies": full.result_.energies,
+                     "X": _np(full.embedding_)},
+            "resumed": {"energies": res.result_.energies,
+                        "X": _np(res.embedding_),
+                        "resumed_from": res.result_.resumed_from,
+                        "n_iters": res.result_.n_iters}}
+
+
 JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
-        "fit": job_fit, "budget": job_budget, "api": job_api}
+        "fit": job_fit, "budget": job_budget, "api": job_api,
+        "resume": job_resume}
