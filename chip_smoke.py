@@ -169,6 +169,27 @@ Phases, each printing one line (or a few) and failing the run on error:
  18. profile_sharded — three one-rank sharded t-SNE SD iterations under
               torch.profiler: device time by kernel, the idle share and the
               NCCL collectives' time a CG matvec.
+ 18a. fit_dense_mesh — the dense half of slice 5:
+              `Embedding(EmbedSpec(backend="dense-mesh"), mesh=make_host_mesh())`
+              in phase fit_sharded's one-rank NCCL group on phase fit's
+              N = 20000 data from its spectral starts: SD on EE (lambda =
+              100) and t-SNE (lambda = 1), ten iterations; FP and GD on EE,
+              five.  The 2-D tile is plain torch, as the reference's is, so
+              the fits must launch no pairwise kernel; their energies must
+              not rise.  The tile's (E, G) at phase fit's settled EE
+              embedding is held against kernel 1 through
+              core.energy_and_grad at rtol 1e-4 (E) and 1e-4 in norm (G).
+              Printed: ms and energy evaluations an iteration, the
+              block-Jacobi set-up seconds, peak device memory, the resolved
+              backend, and the tile's ms an evaluation (CUDA events) beside
+              kernel 1's (CUDA-graph replay) on the same X and Wp.
+ 18b. fit_dense_mesh_4rank — four spawned gloo ranks on this card on a
+              (2, 2) ("data", "model") mesh (`make_host_mesh(model_axis=2)`),
+              N = 2048 `mnist_like`, the largest N for which `backend="auto"`
+              picks dense-mesh (it must), SD on EE (lambda = 100) and t-SNE
+              (lambda = 1), three iterations: the ranks' X and traces
+              bit-equal, the mesh's (E, G) at the start within rtol 1e-5 of
+              the one-rank mesh's.
  19. telemetry — slice 6's telemetry path: phase fit_sparse's t-SNE fit
               (N = 70000, k = 90, ten iterations) again from Y with
               `fit(telemetry=<dir>)`: its energies and X must be that fit's
@@ -185,7 +206,7 @@ Phases, each printing one line (or a few) and failing the run on error:
               iterations under torch.profiler with
               profiler_annotations=True: solve-iter user annotations beside
               the ELL kernel's CUDA events.
- 20. resume — four fits stopped and resumed through a fresh
+ 20. resume — five fits stopped and resumed through a fresh
               `Embedding(spec).resume(Y, max_iters=...)`, each bit-equal
               after the checkpoint (energies and X) to its uninterrupted
               run and resumed from the step it stopped at: dense EE N =
@@ -197,7 +218,9 @@ Phases, each printing one line (or a few) and failing the run on error:
               iterations 1..10; tree EE 2 -> 4 on phase fit_sparse's graph
               (kernel 4 through bh_tree; the deterministic (E, G) path);
               sparse-sharded t-SNE 2 -> 4 in the one-rank NCCL group
-              (kernel 5).  Printed: each save's bytes and seconds (its
+              (kernel 5); dense-mesh EE SD 5 -> 10 in the same group
+              against phase fit_dense_mesh's (the plain tile; X and G are
+              the payload, the block-Jacobi factor is built again).  Printed: each save's bytes and seconds (its
               checkpoint span).  The checkpoints live under the ignored
               build/chip_smoke_resume/, removed at the end.
  21. serve — slice 4's main path: the out-of-sample transform, artifacts
@@ -2713,6 +2736,264 @@ def phase_profile_sharded(emb, mesh, iters: int = 3) -> None:
                                f"phase time_ell_local's")
 
 
+# -- slice 5, dense half: the 2-D-sharded dense-mesh backend -----------------
+
+MESH_FITS = (("sd", "ee", 100.0, 10), ("sd", "tsne", 1.0, 10),
+             ("fp", "ee", 100.0, 5), ("gd", "ee", 100.0, 5))
+N_MESH_4RANK = 2048   # the largest N for which backend="auto" picks it
+#: three: the 4-rank checks are the ranks' agreement, which three show, and
+#: the spawn, not the iterations, sets the phase's time
+MESH_4RANK_ITERS = 3
+MESH_DIR = ROOT / "build" / "chip_smoke_dense_mesh"   # git-ignored
+
+
+def _mesh_eg(mesh, X, Wp, kind: str, lam: float, with_grad: bool = True):
+    """The mesh tile's (E, G) at X, G replicated (E alone without grad)."""
+    from repro_torch.embed.distributed import (default_mesh_spec,
+                                               make_distributed_energy_grad,
+                                               replicate, shard_pairwise)
+    spec = default_mesh_spec(mesh)
+    eg = make_distributed_energy_grad(mesh, spec, kind, unit_wm=True)
+    tile = shard_pairwise(mesh, spec, Wp)
+    lam = torch.tensor(lam, dtype=torch.float32, device=X.device)
+    if not with_grad:
+        return eg(X, tile, lam, with_grad=False)
+    E, G = eg(X, tile, lam)
+    return E, replicate(mesh, G, spec)
+
+
+def phase_fit_dense_mesh(dense: dict, starts: dict, mesh) -> dict:
+    """The dense half of slice 5: `Embedding(EmbedSpec(backend="dense-mesh"),
+    mesh=make_host_mesh())` in the one-rank NCCL group of phase fit_sharded,
+    on phase fit's N = 20000 data from its spectral starts: SD on EE
+    (lambda = 100) and t-SNE (lambda = 1), ten iterations; FP and GD on EE,
+    five.  The tile is plain torch (no pairwise kernel launch); energies
+    must not rise.  Then the tile's (E, G) at phase fit's settled EE
+    embedding against kernel 1 through `core.energy_and_grad`, and both
+    timed on the same X and Wp."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.core import energy_and_grad, make_affinities
+    from repro_torch.kernels import pairwise
+    from repro_torch.kernels.pairwise import pairwise_terms_cuda
+
+    Y = dense["Y"]
+    n = Y.shape[0]
+    out = {"fits": {}}
+    for strategy, kind, lam, iters in MESH_FITS:
+        spec = EmbedSpec(kind=kind, lam=lam, perplexity=30.0,
+                         backend="dense-mesh", strategy=strategy,
+                         max_iters=iters, tol=0.0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pairwise.reset_launch_counts()
+        t0 = time.perf_counter()
+        emb = Embedding(spec, mesh=mesh).fit(Y, X0=starts[kind])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        res = emb.result_
+        e = res.energies
+        tag = f"{strategy} {kind} lambda={lam:g}"
+        if emb.backend_ != "dense-mesh":
+            raise AssertionError(f"{tag}: backend {emb.backend_!r}")
+        if pairwise.launch_counts["pairwise_terms"]:
+            raise AssertionError(f"{tag}: the mesh fit launched the pairwise"
+                                 f" kernel {dict(pairwise.launch_counts)}")
+        if not np.all(np.isfinite(e)) or np.any(np.diff(e) > 0):
+            raise AssertionError(f"{tag}: energies {e}")
+        X = emb.embedding_
+        if tuple(X.shape) != (n, 2) or not bool(torch.isfinite(X).all()):
+            raise AssertionError(f"{tag}: bad embedding {tuple(X.shape)}")
+        evals = (res.n_fevals[-1] - 1) / res.n_iters
+        setup = " (the block-Jacobi factor)" if strategy == "sd" else ""
+        say("fit_dense_mesh", f"{tag}: N={n}, mesh {mesh.shape}, resolved "
+                              f"backend {emb.backend_}; set-up affinities "
+                              f"{res.phase_times['affinities_s']:.2f} s, "
+                              f"direction set-up{setup} "
+                              f"{res.setup_time:.3f} s; {res.n_iters} "
+                              f"iterations at "
+                              f"{res.times[-1] / res.n_iters * 1e3:.1f} ms "
+                              f"each, {evals:.2f} energy evaluations an "
+                              f"iteration; pairwise kernel launches 0; peak "
+                              f"device memory {peak / 1e9:.2f} GB; wall "
+                              f"{wall:.1f} s")
+        say("fit_dense_mesh", f"{tag}: energies "
+                              f"{np.array2string(e, precision=8)}")
+        out["fits"][strategy, kind] = {"spec": spec, "energies": e,
+                                       "X": X.cpu()}
+        del emb
+    # the tile against kernel 1 at phase fit's settled EE embedding
+    X = dense["X"].cuda().contiguous()
+    lam = 100.0
+    aff = make_affinities(torch.as_tensor(Y, device="cuda"), 30.0,
+                          model="ee")
+    E1, G1 = _mesh_eg(mesh, X, aff.Wp, "ee", lam)
+    pairwise.reset_launch_counts()
+    E2, G2 = energy_and_grad(X, aff, "ee", torch.tensor(lam, device="cuda"))
+    if pairwise.launch_counts["pairwise_terms"] != 1:
+        raise AssertionError(f"kernel 1's evaluation launched "
+                             f"{dict(pairwise.launch_counts)}")
+    e_rel = abs(float(E1) - float(E2)) / abs(float(E2))
+    g_rel = float(torch.linalg.norm(G1 - G2) / torch.linalg.norm(G2))
+    if e_rel > 1e-4 or g_rel > 1e-4:
+        raise AssertionError(f"the mesh tile against kernel 1: E rel "
+                             f"{e_rel:.2e}, G rel {g_rel:.2e} (limit 1e-4)")
+    say("fit_dense_mesh", f"the mesh tile's (E, G) at phase fit's settled EE "
+                          f"embedding against kernel 1 through "
+                          f"core.energy_and_grad: E rel {e_rel:.2e}, G rel "
+                          f"{g_rel:.2e} in norm (limit 1e-4 each)")
+    tile_ms = cuda_ms(lambda: _mesh_eg(mesh, X, aff.Wp, "ee", lam), reps=5)
+    tile_e_ms = cuda_ms(lambda: _mesh_eg(mesh, X, aff.Wp, "ee", lam,
+                                         with_grad=False), reps=5)
+    k1_ms = graph_ms(lambda: pairwise_terms_cuda(X, aff.Wp, aff.Wm, "ee"),
+                     reps=20)
+    k1_eager = cuda_ms(lambda: pairwise_terms_cuda(X, aff.Wp, aff.Wm, "ee"),
+                       reps=20)
+    say("fit_dense_mesh", f"ms an evaluation at N={n}, EE, the same X and Wp:"
+                          f" the plain-torch mesh tile {tile_ms:.3f} ms with "
+                          f"the gradient, {tile_e_ms:.3f} ms the energy alone"
+                          f" (CUDA events, eager); kernel 1 {k1_ms:.3f} ms "
+                          f"on the device (CUDA-graph replay; "
+                          f"{k1_eager:.3f} ms a call issued eagerly); "
+                          f"{tile_ms / k1_ms:.1f}x")
+    out["tile"] = {"ms": tile_ms, "energy_ms": tile_e_ms, "k1_ms": k1_ms}
+    del aff, G1, G2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dense_mesh_rank(rank: int, world: int, store: str, inputs: str,
+                     out_dir: str) -> None:
+    """One rank of phase `fit_dense_mesh_4rank`: a gloo group whose ranks
+    share this card on a (2, 2) mesh, the mesh's (E, G) at the start and
+    the `backend="auto"` SD fits from it."""
+    from repro_torch.api import Embedding, EmbedSpec
+    from repro_torch.core import make_affinities
+    from repro_torch.kernels import pairwise
+    from repro_torch.launch import make_host_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        data = torch.load(inputs, map_location="cuda:0", weights_only=False)
+        mesh = make_host_mesh(model_axis=2)
+        out = {"coords": mesh.coords, "fits": {}, "eg": {}}
+        Y = data["Y"]
+        for kind, fields in data["specs"].items():
+            aff = make_affinities(torch.as_tensor(Y, device="cuda"), 30.0,
+                                  model=kind)
+            E, G = _mesh_eg(mesh, data["X0"][kind], aff.Wp, kind,
+                            fields["lam"])
+            out["eg"][kind] = (float(E), G.cpu())
+            del aff
+            pairwise.reset_launch_counts()
+            t0 = time.perf_counter()
+            emb = Embedding(EmbedSpec(**fields), mesh=mesh).fit(
+                Y, X0=data["X0"][kind])
+            torch.cuda.synchronize()
+            res = emb.result_
+            out["fits"][kind] = {
+                "backend": emb.backend_, "energies": res.energies,
+                "step_sizes": res.step_sizes, "X": emb.embedding_.cpu(),
+                "s_per_iter": res.times[-1] / res.n_iters,
+                "wall": time.perf_counter() - t0,
+                "launches": pairwise.launch_counts["pairwise_terms"]}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_fit_dense_mesh_4rank(mesh) -> None:
+    """Four spawned gloo ranks on this card on a (2, 2) ("data", "model")
+    mesh: N = 2048 `mnist_like`, `backend="auto"` (which must resolve to
+    dense-mesh), SD on EE (lambda = 100) and t-SNE (lambda = 1), three
+    iterations from the spectral start.  The four ranks' X and traces must
+    be bit-equal, and the (2, 2) mesh's (E, G) at the start equal the
+    one-rank mesh's at rtol 1e-5."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import make_affinities
+    from repro_torch.core.spectral_init import laplacian_eigenmaps
+    from repro_torch.data import mnist_like
+
+    n = N_MESH_4RANK
+    Y, _ = mnist_like(n=n, dim=784, seed=0)
+    specs = {"ee": dict(kind="ee", lam=100.0, perplexity=30.0,
+                        strategy="sd", max_iters=MESH_4RANK_ITERS, tol=0.0),
+             "tsne": dict(kind="tsne", lam=1.0, perplexity=30.0,
+                          strategy="sd", max_iters=MESH_4RANK_ITERS,
+                          tol=0.0)}
+    X0, one = {}, {}
+    for kind, fields in specs.items():
+        aff = make_affinities(torch.as_tensor(Y, device="cuda"), 30.0,
+                              model=kind)
+        X0[kind] = laplacian_eigenmaps(aff.Wp, 2) * 0.1
+        one[kind] = _mesh_eg(mesh, X0[kind], aff.Wp, kind, fields["lam"])
+    run_dir = MESH_DIR / "4rank"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    for f in run_dir.iterdir():
+        f.unlink()
+    inputs = run_dir / "inputs.pt"
+    torch.save({"Y": Y, "X0": X0, "specs": specs}, inputs)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_dense_mesh_rank, args=(4, str(run_dir / "store"),
+                                           str(inputs), str(run_dir)),
+                   nprocs=4, join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the 4-rank fit ran past {SPAWN_TIMEOUT_S}"
+                                 f" s (a deadlock?)")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(run_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    coords = [tuple(r["coords"].values()) for r in ranks]
+    if coords != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        raise AssertionError(f"rank coordinates {coords}")
+    for kind in specs:
+        fits = [r["fits"][kind] for r in ranks]
+        for f in fits:
+            if f["backend"] != "dense-mesh" or f["launches"]:
+                raise AssertionError(f"{kind}: backend {f['backend']!r}, "
+                                     f"pairwise launches {f['launches']}")
+            e = f["energies"]
+            if not np.all(np.isfinite(e)) or np.any(np.diff(e) > 0):
+                raise AssertionError(f"{kind}: energies {e}")
+        for f in fits[1:]:
+            if not (np.array_equal(f["energies"], fits[0]["energies"])
+                    and np.array_equal(f["step_sizes"],
+                                       fits[0]["step_sizes"])
+                    and torch.equal(f["X"], fits[0]["X"])):
+                raise AssertionError(f"{kind}: the four ranks' fits differ")
+        E1, G1 = (float(one[kind][0]), one[kind][1].cpu())
+        worst = 0.0
+        for r in ranks:
+            E4, G4 = r["eg"][kind]
+            e_rel = abs(E4 - E1) / abs(E1)
+            g_rel = float(torch.linalg.norm(G4 - G1) / torch.linalg.norm(G1))
+            worst = max(worst, e_rel, g_rel)
+        if worst > 1e-5:
+            raise AssertionError(f"{kind}: the (2, 2) mesh's (E, G) at X0 "
+                                 f"against the one-rank mesh's: {worst:.2e}")
+        f = fits[0]
+        say("fit_dense_mesh_4rank", f"{kind} N={n}, 4 gloo ranks on one card "
+                                    f"on a (2, 2) mesh: backend='auto' "
+                                    f"resolved to dense-mesh on every rank; "
+                                    f"(E, G) at X0 within {worst:.2e} of the "
+                                    f"one-rank mesh's (rtol 1e-5); "
+                                    f"{MESH_4RANK_ITERS} SD iterations "
+                                    f"bit-identical on all four ranks, "
+                                    f"{f['s_per_iter'] * 1e3:.1f} ms an "
+                                    f"iteration (gloo stages each collective"
+                                    f" through the host); energies "
+                                    f"{np.array2string(f['energies'], precision=8)}")
+    say("fit_dense_mesh_4rank", f"spawn to join {wall:.1f} s")
+
+
 # -- slice 6: run telemetry and checkpoint/resume -----------------------------
 
 TEL_PHASES = ("graph-build", "spectral-init", "setup", "compile")
@@ -2915,9 +3196,9 @@ def _resume_case(tag: str, spec, stop: int, want, *, ckdir, fit_kw,
     return {"bytes": nbytes, "save_s": save_s}
 
 
-def phase_resume(dense: dict, sparse: dict, tree: dict, sharded: dict
-                 ) -> dict:
-    """Slice 6's resume path: four fits interrupted and resumed through
+def phase_resume(dense: dict, sparse: dict, tree: dict, sharded: dict,
+                 mesh_fit: dict) -> dict:
+    """Slice 6's resume path: five fits interrupted and resumed through
     `Embedding(spec).resume(Y, max_iters=...)` (module docstring, phase
     20)."""
     import shutil
@@ -2974,6 +3255,15 @@ def phase_resume(dense: dict, sparse: dict, tree: dict, sharded: dict
                      (full.result_.energies, full.embedding_),
                      ckdir=RESUME_DIR / "sharded", Y=sparse["Y"], fit_kw={},
                      mesh=mesh)
+        # dense-mesh EE SD in the same group (the plain tile, no kernel)
+        # against phase fit_dense_mesh's uninterrupted 10 iterations from
+        # phase fit's spectral start; the block-Jacobi factor is built again
+        fit = mesh_fit["fits"]["sd", "ee"]
+        _resume_case(f"dense-mesh ee N={dense['Y'].shape[0]} SD, "
+                     f"{mesh.size} NCCL rank", fit["spec"], 5,
+                     (fit["energies"], fit["X"]),
+                     ckdir=RESUME_DIR / "dense-mesh", Y=dense["Y"],
+                     fit_kw={"X0": dense["X0"]}, mesh=mesh)
     finally:
         shutil.rmtree(RESUME_DIR, ignore_errors=True)
     counts = {k: v for mod in counters for k, v in mod.launch_counts.items()}
@@ -3396,6 +3686,7 @@ def main() -> int:
     fit["emb"] = None
     lineup = run("fit_lineup", phase_fit_lineup, fit["starts"],
                  fit["settled"])
+    dense_starts = {kind: X0 for kind, (X0, _) in fit["starts"].items()}
     del fit
     torch.cuda.empty_cache()
     sparse = run("fit_sparse", phase_fit_sparse)
@@ -3412,8 +3703,12 @@ def main() -> int:
     timing_local = run("time_ell_local", phase_time_ell_local, sharded)
     run("profile_sharded", phase_profile_sharded, sharded["fits"]["tsne"],
         sharded["mesh"])
+    mesh_fit = run("fit_dense_mesh", phase_fit_dense_mesh, dense_ref,
+                   dense_starts, sharded["mesh"])
+    run("fit_dense_mesh_4rank", phase_fit_dense_mesh_4rank, sharded["mesh"])
     tel = run("telemetry", phase_telemetry, sparse)
-    resumed = run("resume", phase_resume, dense_ref, sparse, tree, sharded)
+    resumed = run("resume", phase_resume, dense_ref, sparse, tree, sharded,
+                  mesh_fit)
     del dense_ref
     dist.destroy_process_group()
     run("serve", phase_serve, sparse["fits"]["tsne"], sparse["labels"])

@@ -3,7 +3,7 @@
 # transform / save / load), a frozen TransformSpec for the out-of-sample
 # path, versioned fitted artifacts (api/artifact.py, the reference's schema
 # v1) and the strategy and backend registries.  Port of repro.api for the
-# dense, sparse, tree and sparse-sharded backends (not yet dense-mesh).
+# dense, dense-mesh, sparse, sparse-sharded and tree backends.
 from .artifact import load_artifact, read_header, save_artifact
 from .estimator import Embedding
 from .registries import (

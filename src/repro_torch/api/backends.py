@@ -1,13 +1,18 @@
 """Backend implementations for the `repro_torch.api` registry.
 
-Port of `repro/api/backends.py` but for ``dense-mesh``.  Each is
-`fit(spec, Y, *, X0, aff, saff, device, mesh, mesh_spec, callback,
-shift_source, telemetry) -> (EngineResult, affinities, X0)`; only the mesh
-backends read `mesh` and `mesh_spec`:
+Port of `repro/api/backends.py`.  Each is `fit(spec, Y, *, X0, aff, saff,
+device, mesh, mesh_spec, callback, shift_source, telemetry) ->
+(EngineResult, affinities, X0)`; only the mesh backends read `mesh` and
+`mesh_spec`:
 
   * `fit_dense` builds the problem (perplexity affinities, then a
     Laplacian-eigenmaps start, each skipped when the caller passes it), the
     strategy and the dense objective, and runs the fit engine;
+  * `fit_dense_mesh` builds the affinities and start on every rank of the
+    mesh, keeps each rank's tile of the 2-D-sharded affinities and the
+    block-Jacobi, FP or GD direction (embed/trainer.py), and runs the same
+    loop on every rank; it returns no affinities (no rank keeps them
+    whole);
   * `fit_sparse` builds the ELL neighbour graph (skipped for a precomputed
     `saff=`), the spectral start and the sparse objective
     (embed/trainer.py), and runs the engine's host loop;
@@ -18,16 +23,17 @@ backends read `mesh` and `mesh_spec`:
     Barnes-Hut objective (sparse/farfield.py), and runs the same loop.
 
 Precomputed inputs pin their family: `aff=` (dense `core.Affinities`) is
-dense-only, `saff=` (`sparse.SparseAffinities`) is for the sparse and tree
-backends (the sharded one cuts its shards from its own build, as the
-reference's does), and `shift_source=` (the draw of the negatives) is for
+for the single-device dense backend only (the mesh backend shards its own),
+`saff=` (`sparse.SparseAffinities`) is for the sparse and tree backends (the
+sharded one cuts its shards from its own build, as the reference's does),
+and `shift_source=` (the draw of the negatives) is for
 the sparse backends; each backend rejects the other family's with a pointed
 error.
 
 Telemetry: each backend activates `telemetry.tracer` around both the
 problem's build (so that the ``graph-build`` and ``spectral-init`` spans
-land in the trace; the dense backend's close after `_timed`'s
-synchronisation) and the fit loop, and hands the `Telemetry` to `fit_loop`,
+land in the trace; the dense backends' close after a synchronisation; the
+dense mesh backend, as the reference's, has no ``spectral-init`` span) and the fit loop, and hands the `Telemetry` to `fit_loop`,
 which records the iterations.
 """
 from __future__ import annotations
@@ -41,11 +47,12 @@ from repro_torch.core.affinities import Affinities, make_affinities
 from repro_torch.core.minimize import DenseObjective
 from repro_torch.core.spectral_init import laplacian_eigenmaps
 from repro_torch.embed.engine import EngineResult, fit_loop, make_loop_config
-from repro_torch.embed.trainer import (build_sparse_objective,
+from repro_torch.embed.trainer import (build_dense_mesh_objective,
+                                       build_sparse_objective,
                                        build_tree_objective)
 from repro_torch.obs import activate, span
 
-from .registries import BACKENDS, strategy_entry
+from .registries import attach_backend_impl, strategy_entry
 
 
 def _tracing(telemetry):
@@ -111,6 +118,41 @@ def fit_dense(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
                        telemetry=telemetry)
     res.phase_times = phase_times
     return res, aff, X0
+
+
+def fit_dense_mesh(spec, Y, *, X0=None, aff=None, saff=None, device,
+                   mesh=None, mesh_spec=None, callback=None,
+                   shift_source=None, telemetry=None
+                   ) -> tuple[EngineResult, None, torch.Tensor]:
+    """The dense backend with the N x N affinities 2-D-sharded over the
+    ranks of `mesh` (a `launch.mesh.Mesh`) and the block-Jacobi spectral
+    direction; every rank calls it with the same arguments and gets the
+    same result.  Returns the engine result, None (each rank keeps only its
+    tile of the affinities) and the starting point."""
+    if aff is not None:
+        raise ValueError("precomputed aff= is dense-backend-only (the mesh "
+                         "backend shards its own affinities)")
+    if saff is not None:
+        raise ValueError(
+            "precomputed saff= is for the sparse/tree backends (the "
+            "dense-mesh backend computes dense affinities; pass aff= "
+            "instead)")
+    if shift_source is not None:
+        raise ValueError("shift_source= draws the sparse backend's negatives;"
+                         " the dense-mesh backend samples nothing")
+    if Y is None:
+        raise ValueError("fit needs Y")
+    if mesh is None:
+        raise ValueError("the dense-mesh backend needs a mesh")
+    phase_times: dict[str, float] = {}
+    with _tracing(telemetry):
+        obj, X0 = build_dense_mesh_objective(
+            spec, mesh, mesh_spec, Y, X0, strategy=spec.strategy,
+            device=device, phase_times=phase_times)
+        res = fit_loop(obj, X0, make_loop_config(spec, spec.resolved_ls()),
+                       callback, telemetry=telemetry)
+    res.phase_times = phase_times
+    return res, None, X0
 
 
 def fit_sparse(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
@@ -196,7 +238,8 @@ def fit_tree(spec, Y, *, X0=None, aff=None, saff=None, device, mesh=None,
     return res, saff, X0
 
 
-BACKENDS["dense"].fit = fit_dense
-BACKENDS["sparse"].fit = fit_sparse
-BACKENDS["sparse-sharded"].fit = fit_sparse_sharded
-BACKENDS["tree"].fit = fit_tree
+attach_backend_impl("dense", fit_dense)
+attach_backend_impl("dense-mesh", fit_dense_mesh)
+attach_backend_impl("sparse", fit_sparse)
+attach_backend_impl("sparse-sharded", fit_sparse_sharded)
+attach_backend_impl("tree", fit_tree)

@@ -9,23 +9,30 @@ Port of `Embedding.fit` / `fit_transform` from `repro/api/estimator.py`:
 
 The estimator runs on CUDA unless it is built with ``device="cpu"``; with
 no device and no CUDA it raises rather than fall back to the CPU.  The
-``sparse-sharded`` backend runs under a `torch.distributed` process group,
-one process per rank, each calling `fit` with the same arguments:
+mesh backends, ``dense-mesh`` and ``sparse-sharded``, run under a
+`torch.distributed` process group, one process per rank, each calling `fit`
+with the same arguments:
 
     torch.cuda.set_device(local_rank)              # e.g. under torchrun
     torch.distributed.init_process_group("nccl")
-    emb = Embedding(EmbedSpec(backend="sparse-sharded")).fit(Y)
+    emb = Embedding(EmbedSpec(backend="dense-mesh"),
+                    mesh=make_host_mesh(model_axis=2)).fit(Y)
 
-`mesh=` (a `launch.mesh.Mesh`; by default the whole group on the row axis)
-and `mesh_spec=` (an `embed.distributed.EmbedMeshSpec`) matter to that
-backend only.  After `fit`:
+`mesh=` (a `launch.mesh.Mesh`; by default the whole group on the row axis,
+`make_host_mesh()`) and `mesh_spec=` (an `embed.distributed.EmbedMeshSpec`:
+the row axes that split the rows of the dense affinities, or the sparse
+graph's, and the column axis that splits the dense affinities' columns; by
+default every mesh axis but the last, and the last) matter to those
+backends only.  With several ranks and N <= 2048 divisible by their count,
+``backend="auto"`` picks ``dense-mesh``.  After `fit`:
 
   * `embedding_`   — the (N, dim) embedding, a tensor on the device
   * `result_`      — the full `EngineResult` (energies, times, fevals, ...)
   * `backend_`     — the resolved backend name
   * `affinities_`  — the affinities the fit used (computed or passed):
-                     `core.Affinities` (dense) or
-                     `sparse.SparseAffinities` (sparse, tree)
+                     `core.Affinities` (dense),
+                     `sparse.SparseAffinities` (sparse, sparse-sharded,
+                     tree), or None (dense-mesh: no rank keeps them whole)
   * `X0_`          — the starting point the fit used
   * `telemetry_`   — the finalized `obs.Telemetry` of a fit run with
                      `telemetry=` (None otherwise)

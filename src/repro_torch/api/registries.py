@@ -3,16 +3,15 @@
 Port of `repro/api/registries.py`: the paper's strategy lineup (``gd``,
 ``fp``, ``diag``, ``sd``, ``sd-``, and the baselines ``lbfgs`` and ``cg``;
 aliases ``diagh``, ``sdminus``, ``l-bfgs`` and ``nonlinearcg``) and the
-backends ``dense``, ``sparse``, ``tree`` and ``sparse-sharded`` (the
-row-sharded sparse backend over a process group; it needs a mesh).
+backends ``dense``, ``dense-mesh`` (the N x N affinities 2-D-sharded over
+the ranks of a process group), ``sparse``, ``sparse-sharded`` (the ELL graph
+row-sharded over them) and ``tree``; the two mesh backends need a mesh.
 ``backend="auto"`` follows the reference's policy: ``sparse`` above
-AUTO_SPARSE_N points, ``sparse-sharded`` instead when the mesh has more than
-one rank, ``dense`` up to AUTO_SPARSE_N, and ``dense`` for a strategy the
-size-preferred backend lacks.  One deviation: where the reference picks
-``dense-mesh`` (several ranks, N <= AUTO_SPARSE_N and divisible by the rank
-count), the port picks ``dense``, since the 2-D-sharded dense backend is not
-ported yet.  ``tree`` is never picked by ``auto`` (it is 2-D only), a spec
-selects it by name.
+AUTO_SPARSE_N points (``sparse-sharded`` when the mesh has more than one
+rank), ``dense-mesh`` up to AUTO_SPARSE_N when it has several ranks and N is
+divisible by their count, else ``dense``, and ``dense`` for a strategy the
+size-preferred backend lacks.  ``tree`` is never picked by ``auto`` (it is
+2-D only), a spec selects it by name.
 
 Every strategy runs on ``dense``.  ``diag`` and ``sd-`` need dense Hessian
 terms, and the baselines keep (N, d) histories, so they are dense-only;
@@ -95,6 +94,13 @@ def register_backend(name: str, *, doc: str = "", fit=None,
                                   needs_mesh=needs_mesh)
 
 
+def attach_backend_impl(name: str, fit) -> None:
+    """Attach the fit callable to an already-registered backend: the one
+    registration point for name, doc and needs_mesh stays in this module;
+    `repro_torch.api.backends` only supplies the implementations."""
+    BACKENDS[name].fit = fit
+
+
 def available_backends() -> list[str]:
     return sorted(BACKENDS)
 
@@ -125,26 +131,31 @@ def backend_impl(name: str):
 
 def resolve_backend(backend: str, *, n: int, n_devices: int = 1,
                     strategy: str) -> str:
-    """``auto`` policy: sparse above AUTO_SPARSE_N points, row-sharded when
-    the mesh has more than one rank (`n_devices`), else ``dense``; ``dense``
-    also when the size-preferred backend cannot realize the requested
-    strategy.  The reference's ``dense-mesh`` pick (several ranks, N up to
-    AUTO_SPARSE_N) is ``dense`` here until that backend is ported."""
+    """``auto`` policy: sparse above AUTO_SPARSE_N points, mesh-sharded when
+    the mesh has more than one rank (`n_devices`); ``dense`` when the
+    size-preferred backend cannot realize the requested strategy, or when
+    the dense-mesh (N, N) sharding needs N divisible by the rank count and
+    it isn't (the sparse-sharded backend pads rows instead)."""
     if backend != "auto":
         return validate_backend(backend)
+    multi = n_devices > 1
     if n > AUTO_SPARSE_N:
-        name = "sparse-sharded" if n_devices > 1 else "sparse"
+        name = "sparse-sharded" if multi else "sparse"
     else:
-        name = "dense"
+        name = "dense-mesh" if multi and n % n_devices == 0 else "dense"
     if name not in strategy_entry(strategy).backends:
         name = "dense"               # every registered strategy runs dense
     return name
 
 
-_BACKENDS = ("dense", "sparse", "sparse-sharded", "tree")
+_BACKENDS = ("dense", "dense-mesh", "sparse", "sparse-sharded", "tree")
 
 register_backend("dense", doc="single device, full affinities, fused step "
                               "(core/minimize.py)")
+register_backend("dense-mesh", needs_mesh=True,
+                 doc="2-D-sharded affinities + block-Jacobi solves over the "
+                     "ranks of a torch.distributed process group "
+                     "(embed/trainer.py)")
 register_backend("sparse", doc="single device, ELL neighbour graph + "
                                "negative sampling, Jacobi-PCG "
                                "(embed/trainer.py)")

@@ -79,6 +79,18 @@ def calibrated_conditionals(D2: torch.Tensor, perplexity: float,
     return P
 
 
+def sne_affinities(Y: torch.Tensor, perplexity: float = 30.0) -> torch.Tensor:
+    """Symmetric joint P (sums to 1, zero diagonal) from data Y."""
+    return sne_affinities_from_d2(sq_distances(Y), perplexity)
+
+
+def sne_affinities_from_d2(D2: torch.Tensor,
+                           perplexity: float = 30.0) -> torch.Tensor:
+    """The joint P = (P_cond + P_cond^T) / 2N of a squared-distance matrix."""
+    P_cond = calibrated_conditionals(D2, perplexity)
+    return (P_cond + P_cond.T) / (2.0 * D2.shape[0])
+
+
 def make_affinities(Y: torch.Tensor, perplexity: float = 30.0,
                     model: str = "ee") -> Affinities:
     """Build (Wp, Wm) for a given model family.

@@ -19,6 +19,11 @@ def degree(W: torch.Tensor) -> torch.Tensor:
     return torch.sum(W, dim=-1)
 
 
+def laplacian(W: torch.Tensor) -> torch.Tensor:
+    """Dense graph Laplacian L = D - W."""
+    return torch.diag(degree(W)) - W
+
+
 def laplacian_matmul(W: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """L(W) @ X without forming L: D X - W X.  X is (N, d)."""
     return degree(W)[:, None] * X - W @ X

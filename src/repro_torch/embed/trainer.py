@@ -1,18 +1,24 @@
-"""The sparse neighbour-graph and Barnes-Hut tree backends of the engine.
+"""The mesh, sparse neighbour-graph and Barnes-Hut tree backends of the
+engine.
 
-Port of the single-device half of `build_sparse_objective`, of
-`build_tree_objective` and of their objectives from
-`repro/embed/trainer.py`: k-NN affinities in ELL storage and matrix-free
-direction solves, with no (N, N) array anywhere.  The sparse backend's
-repulsion is negative-sampled, O(N (k + m) d) an iteration; normalized
-models (ssne/tsne) run through the sampled ratio estimator of the partition
-function, with a streaming (EMA) estimate threaded through the objective.
-The tree backend's repulsion is the deterministic grid far field of
-sparse/farfield.py, O(N log N) an iteration, 2-D only.
+Port of `build_dense_mesh_objective`, `build_sparse_objective`,
+`build_tree_objective` and their objectives from `repro/embed/trainer.py`
+(not the deprecated `EmbedConfig` / `DistributedEmbedding` / `FitResult`
+shims).  The dense mesh backend 2-D-shards the N x N affinities over the
+ranks of a `launch.mesh.Mesh` and solves the spectral direction
+block-Jacobi (embed/distributed.py).  The sparse and tree backends keep
+k-NN affinities in ELL storage and solve matrix-free, with no (N, N) array
+anywhere.  The sparse backend's repulsion is negative-sampled,
+O(N (k + m) d) an iteration; normalized models (ssne/tsne) run through the
+sampled ratio estimator of the partition function, with a streaming (EMA)
+estimate threaded through the objective.  The tree backend's repulsion is
+the deterministic grid far field of sparse/farfield.py, O(N log N) an
+iteration, 2-D only.
 
-Strategies: the spectral direction ``sd`` (Jacobi-PCG on B = 4 L(W+) + mu I,
-warm-started from the previous direction) and its diagonal degenerations
-``fp`` (the same system's Jacobi diagonal 4 D+ + mu applied directly) and
+Strategies: the spectral direction ``sd`` (on the sparse and tree backends
+Jacobi-PCG on B = 4 L(W+) + mu I, warm-started from the previous direction;
+on the dense mesh the block-Jacobi Cholesky solve) and its diagonal
+degenerations ``fp`` (the Jacobi diagonal 4 D+ + mu applied directly) and
 ``gd`` (B = I).
 
 The sparse objectives are stochastic: the engine hands them one draw key
@@ -36,10 +42,22 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.objectives import (draw_shifts, energy_and_grad_sparse,
+from repro_torch.core.affinities import make_affinities
+from repro_torch.core.laplacian import degree
+from repro_torch.core.objectives import (attractive_weights, draw_shifts,
+                                         energy_and_grad_sparse,
                                          is_normalized)
 from repro_torch.core.spectral_init import laplacian_eigenmaps
-from repro_torch.embed.distributed import EmbedMeshSpec
+from repro_torch.core.strategies import _jitter
+from repro_torch.embed.distributed import (EmbedMeshSpec, _layout,
+                                           default_mesh_spec,
+                                           make_block_jacobi_setup,
+                                           make_block_jacobi_solve,
+                                           make_distributed_energy_grad,
+                                           replicate, shard_pairwise,
+                                           shard_rows)
+from repro_torch.embed.engine import make_loop_config  # noqa: F401  (the
+# reference's trainer defines it; the port's lives in the engine)
 from repro_torch.obs import span
 from repro_torch.sparse import (energy_and_grad_tree, make_grid_plan,
                                 make_sd_operator, make_sharded_energy_grad,
@@ -53,16 +71,52 @@ from repro_torch.sparse.sharding import assert_replicated, max_over_ranks
 DENSE_INIT_N = 2048
 
 
-class _SparseObjective:
+class _RankHooks:
+    """The engine's hooks for an objective whose ranks each run the fit
+    loop on the same replicated state (`self._mesh`, a `launch.mesh.Mesh`
+    or None; `self._X0` names the device): the time budget reads the
+    slowest rank's clock (`agree_elapsed`) and rank 0 writes the
+    checkpoints (`share_checkpoint`)."""
+
+    _mesh = None
+
+    def share_checkpoint(self, write: Callable[[], object]) -> None:
+        """The engine's save on a mesh of several ranks: rank 0 writes, and
+        one all_reduce (a barrier) tells every rank whether it did, so that
+        every rank returns once the step is on disk or raises if it is not.
+        Every rank holds the same replicated payload."""
+        if self._mesh is None or self._mesh.size == 1:
+            write()
+            return
+        err = None
+        if self._mesh.rank == 0:
+            try:
+                write()
+            except Exception as e:          # re-raised below, every rank
+                err = e
+        if max_over_ranks(self._mesh, float(err is not None),
+                          self._X0.device) > 0:
+            raise RuntimeError("rank 0 failed to write the checkpoint"
+                               ) from err
+
+    def agree_elapsed(self, seconds: float) -> float:
+        """The seconds the engine's time budget reads: this rank's own, or
+        under a mesh of several ranks the slowest rank's, so that every rank
+        stops on the same iteration."""
+        if self._mesh is None or self._mesh.size == 1:
+            return seconds
+        return max_over_ranks(self._mesh, seconds, self._X0.device)
+
+
+class _SparseObjective(_RankHooks):
     """Sparse backend over (eg, e_only, solve) closures.  Stochastic: one
     draw of negatives an iteration, from `shift_source(*key)` (cached for
     the line-search trials that share the key).  `solve(G, P0) -> (P,
     diag)` may warm-start from the previous direction P0 (PCG does; the
     engine checkpoints P0 as its solver state); `diag` holds the solver's
     counters, read back by `diagnostics()` only when a callback or
-    telemetry listens.  Under a `mesh` (the sharded backend) the engine's
-    time budget reads the slowest rank's clock (`agree_elapsed`) and rank 0
-    writes the checkpoints (`share_checkpoint`)."""
+    telemetry listens.  Under a `mesh` (the sharded backend) the ranks
+    agree through `_RankHooks`."""
 
     stochastic = True
 
@@ -97,33 +151,6 @@ class _SparseObjective:
             return P, P                                # CG warm start
 
         return solve, torch.zeros_like(self._X0)
-
-    def share_checkpoint(self, write: Callable[[], object]) -> None:
-        """The engine's save on a mesh of several ranks: rank 0 writes, and
-        one all_reduce (a barrier) tells every rank whether it did, so that
-        every rank returns once the step is on disk or raises if it is not.
-        Every rank holds the same replicated payload."""
-        if self._mesh is None or self._mesh.size == 1:
-            write()
-            return
-        err = None
-        if self._mesh.rank == 0:
-            try:
-                write()
-            except Exception as e:          # re-raised below, every rank
-                err = e
-        if max_over_ranks(self._mesh, float(err is not None),
-                          self._X0.device) > 0:
-            raise RuntimeError("rank 0 failed to write the checkpoint"
-                               ) from err
-
-    def agree_elapsed(self, seconds: float) -> float:
-        """The seconds the engine's time budget reads: this rank's own, or
-        under a mesh of several ranks the slowest rank's, so that every rank
-        stops on the same iteration."""
-        if self._mesh is None or self._mesh.size == 1:
-            return seconds
-        return max_over_ranks(self._mesh, seconds, self._X0.device)
 
     def _host_diag(self, extra: dict) -> dict:
         vals = {**self._solver_diag, **extra}
@@ -196,6 +223,116 @@ class _TreeObjective(_SparseObjective):
         return self._host_diag(tree_diagnostics(self._last_X, self._plan))
 
 
+class _DenseMeshObjective(_RankHooks):
+    """Dense 2-D-sharded backend: the distributed energy and gradient and a
+    direction solve from `solver_factory()`.  Deterministic (the key is
+    ignored).  `eg(X) -> (E, G)` hands the engine the whole G on every rank
+    (its norm, the line search's dot product and the checkpoint read it),
+    and `e_only(X) -> E` serves the line search."""
+
+    stochastic = False
+
+    def __init__(self, mesh, eg, e_only, solver_factory, X0: torch.Tensor):
+        self._mesh = mesh
+        self._eg, self._e_only = eg, e_only
+        self._solver_factory = solver_factory
+        self._X0 = X0
+
+    def energy_and_grad(self, X, key):
+        return self._eg(X)
+
+    def energy(self, X, key):
+        return self._e_only(X)
+
+    def make_direction_solver(self):
+        return self._solver_factory()
+
+
+def build_dense_mesh_objective(cfg, mesh, mspec: EmbedMeshSpec | None = None,
+                               Y=None, X0=None, strategy: str = "sd", *,
+                               device, phase_times: dict | None = None):
+    """(objective, X0) for the dense 2-D-sharded backend over `mesh` (a
+    `launch.mesh.Mesh`; `mspec` names its row and column axes, by default
+    every axis but the last and the last).
+
+    Every rank builds the affinities and the start from the whole Y (the
+    spectral start `laplacian_eigenmaps(Wp) * 0.1` unless X0 is given),
+    checks that all ranks hold the same, keeps its tile of W+ and drops the
+    rest, so each rank holds O(N^2 / P).  The repulsion takes the unit-W-
+    path (W- == 1 off the diagonal for every affinity builder).
+    Strategies: ``sd`` (the block-Jacobi Cholesky factor of each row
+    block, built by the solver factory, so a resumed fit builds it again),
+    ``fp`` (B = 4 D+ + mu I with the full degree vector, taken before the
+    affinities are sharded) and ``gd``.  `phase_times`, when given,
+    receives ``affinities_s`` and ``spectral_init_s`` (when it ran).
+    Every rank calls this with the same arguments."""
+    if strategy not in ("sd", "fp", "gd"):
+        raise ValueError(
+            f"strategy {strategy!r} is not available on the dense-mesh "
+            f"backend (have 'sd', 'fp', 'gd')")
+    if mspec is None:
+        mspec = default_mesh_spec(mesh)
+    n = Y.shape[0]
+    _layout(mesh, mspec, n)          # fail fast, before the affinities
+    Yt = torch.as_tensor(Y, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    with span("graph-build", phase=True, n=n, dense=True):
+        aff = make_affinities(Yt, cfg.perplexity, model=cfg.kind)
+        if aff.Wp.is_cuda:
+            torch.cuda.synchronize(aff.Wp.device)
+    t1 = time.perf_counter()
+    if X0 is None:
+        X0 = laplacian_eigenmaps(aff.Wp, cfg.dim) * 0.1
+        if X0.is_cuda:
+            torch.cuda.synchronize(X0.device)
+        if phase_times is not None:
+            phase_times["spectral_init_s"] = time.perf_counter() - t1
+    if phase_times is not None:
+        phase_times["affinities_s"] = t1 - t0
+    X0 = torch.as_tensor(X0, dtype=torch.float32, device=device)
+    assert_replicated(mesh, X0, aff.Wp)
+    lam = torch.tensor(cfg.lam, dtype=torch.float32, device=device)
+    if strategy == "fp":
+        dp = degree(attractive_weights(aff, cfg.kind))
+        inv_diag = 1.0 / (4.0 * dp + _jitter(torch.min(dp), torch.mean(dp)))
+    Wp = shard_pairwise(mesh, mspec, aff.Wp)
+    del aff                          # the tile is all this rank keeps
+
+    eg_unit = make_distributed_energy_grad(mesh, mspec, cfg.kind,
+                                           unit_wm=True)
+
+    def eg(X):
+        E, G = eg_unit(X, Wp, lam)
+        return E, replicate(mesh, G, mspec)
+
+    def e_only(X):
+        return eg_unit(X, Wp, lam, with_grad=False)
+
+    if strategy == "sd":
+        bj_setup = make_block_jacobi_setup(mesh, mspec, cfg.mu_scale)
+        bj_solve = make_block_jacobi_solve(mesh, mspec)
+
+        def solver_factory():
+            R = bj_setup(Wp)                    # block-Jacobi factors
+
+            def solve(state, X, G):
+                P = bj_solve(R, shard_rows(mesh, mspec, G))
+                return replicate(mesh, P, mspec), state
+
+            return solve, ()
+    elif strategy == "fp":
+        def solver_factory():
+            def solve(state, X, G):
+                return -inv_diag[:, None] * G, state
+
+            return solve, ()
+    else:
+        def solver_factory():
+            return (lambda state, X, G: (-G, state)), ()
+
+    return _DenseMeshObjective(mesh, eg, e_only, solver_factory, X0), X0
+
+
 def _sparse_spectral_init(cfg, saff, n: int) -> torch.Tensor:
     """Spectral start: the dense eigh up to DENSE_INIT_N points, block power
     iteration on the ELL graph above that (sparse/linalg.py)."""
@@ -265,14 +402,6 @@ def _make_direction_solve(strategy: str, matvec, inv_diag, cfg,
     raise ValueError(
         f"strategy {strategy!r} is not available on the {backend} backend "
         f"(have 'sd', 'fp', 'gd')")
-
-
-def default_mesh_spec(mesh) -> EmbedMeshSpec:
-    """Row axes = every mesh axis but the last, which is the column axis
-    (a one-axis mesh shards its only axis)."""
-    names = mesh.axis_names
-    return EmbedMeshSpec(row_axes=tuple(names[:-1]) or (names[0],),
-                         col_axis=names[-1])
 
 
 def build_sparse_objective(cfg, Y=None, X0=None, strategy: str = "sd",

@@ -7,6 +7,7 @@
 # import; _build.py compiles the CUDA sources at first launch.
 from . import ops, ref
 from .ops import last_dispatch
-from .ref import KINDS, PairwiseTerms
+from .ref import KINDS, PairwiseTerms, ell_lap_matvec_ref
 
-__all__ = ["ops", "ref", "last_dispatch", "KINDS", "PairwiseTerms"]
+__all__ = ["ops", "ref", "last_dispatch", "KINDS", "PairwiseTerms",
+           "ell_lap_matvec_ref"]

@@ -164,13 +164,15 @@ def max_over_ranks(mesh: Mesh, value: float, device) -> float:
 
 def assert_replicated(mesh: Mesh, *tensors: torch.Tensor) -> None:
     """Raise on every rank unless every rank holds the same `tensors`, as
-    far as two float64 checksums each can tell.  The sharded fit needs
+    far as two float64 checksums each can tell.  A mesh fit needs
     every rank to build the same graph and start: a rank that disagreed
     would take other host decisions and leave the others waiting in a
     collective.  One all_reduce MAX of the checksums and their negations
     gives every rank the largest and the smallest of each, so all reach the
     same verdict (all_reduce is the collective both NCCL and gloo take on
-    CUDA tensors)."""
+    CUDA tensors).  One rank agrees with itself: nothing to check."""
+    if mesh.size == 1:
+        return
     sums = []
     for t in tensors:
         flat = t.detach().reshape(-1).double()
@@ -182,9 +184,9 @@ def assert_replicated(mesh: Mesh, *tensors: torch.Tensor) -> None:
     dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group)
     if not torch.equal(both[:mine.numel()], -both[mine.numel():]):
         raise RuntimeError(
-            "the ranks hold different graphs or starting points; the "
-            "sharded sparse backend needs every rank to build them from the "
-            "same data with the same seeds on deterministic devices")
+            "the ranks hold different graphs or starting points; the mesh "
+            "backends need every rank to build them from the same data "
+            "with the same seeds on deterministic devices")
 
 
 def _local_lap_fn(nb: int, k: int, kernel_impl: str, kernel_precision: str):

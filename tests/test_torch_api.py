@@ -128,9 +128,9 @@ def test_fit_lineup_from_carried_jax_state(Y, strategy, opts):
 
 def test_registry_matches_jax_lineup():
     """Every strategy the reference registers is registered here, with its
-    aliases, its initial-step policy and its backends (but the unported
-    dense-mesh); the dense-only ones resolve to dense under auto above the
-    sparse cut-off, as in the reference."""
+    aliases, its initial-step policy and its backends; the dense-only ones
+    resolve to dense under auto above the sparse cut-off, as in the
+    reference."""
     from repro.api import registries as jreg
     from repro_torch.api import registries as preg
     assert preg.available_strategies() == jreg.available_strategies()
@@ -138,7 +138,7 @@ def test_registry_matches_jax_lineup():
     for name, jentry in jreg.STRATEGIES.items():
         entry = preg.strategy_entry(name)
         assert entry.default_ls_init == jentry.default_ls_init
-        assert entry.backends == jentry.backends - {"dense-mesh"}
+        assert entry.backends == jentry.backends
         for n_devices in (1, 2):
             want = jreg.resolve_backend("auto", n=AUTO_SPARSE_N + 1,
                                         n_devices=n_devices, strategy=name)
@@ -217,7 +217,7 @@ def test_spec_validation_and_unported_options():
     with pytest.raises(ValueError, match="not available on backend"):
         EmbedSpec(strategy="sd-", backend="sparse")
     with pytest.raises(ValueError, match="registered backends"):
-        EmbedSpec(backend="dense-mesh")           # not ported yet
+        EmbedSpec(backend="dense_mesh")           # the name is dense-mesh
     with pytest.raises(ValueError, match="kernel_impl"):
         EmbedSpec(kernel_impl="pallas")
     with pytest.raises(ValueError, match="kernel_precision"):

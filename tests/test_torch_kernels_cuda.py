@@ -712,3 +712,25 @@ def test_cuda_resume_and_telemetry_are_bit_identical(cuda_device, tmp_path,
     np.testing.assert_array_equal(res.result_.energies[1:],
                                   full.result_.energies[4:])
     assert torch.equal(res.embedding_, full.embedding_)
+
+
+@pytest.mark.parametrize("kind", ref.KINDS)
+@pytest.mark.cuda
+def test_dense_mesh_tile_on_the_card_matches_the_cpu(cuda_device, kind):
+    """The dense-mesh backend's plain-torch tile (embed/distributed.py, no
+    kernel) on a rectangular 256 x 512 diagonal tile with unit W-: the
+    card's result against the CPU's at rtol 1e-5 (the products with an
+    absolute part of 1e-5 max|.|)."""
+    from repro_torch.embed.distributed import _tile_terms_local
+    rng = np.random.default_rng(5)
+    args = [rng.normal(size=(256, 2)).astype(np.float32),
+            rng.normal(size=(512, 2)).astype(np.float32),
+            np.abs(rng.normal(size=(256, 512))).astype(np.float32)]
+    cpu = _tile_terms_local(kind, *(torch.tensor(a) for a in args), None,
+                            True)
+    dev = _tile_terms_local(kind, *(torch.tensor(a, device=cuda_device)
+                                    for a in args), None, True)
+    for got, want in zip(dev, cpu):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -381,23 +381,22 @@ def test_api_sharded_fit_equals_trainer_level_run(runs):
 
 @pytest.mark.parametrize("n_devices", [1, 2, 3])
 def test_resolve_backend_follows_the_reference(n_devices):
-    """The reference's `auto` table, but for its dense-mesh pick, which is
-    dense until that backend is ported.  Inside a 2-rank group the
-    estimator resolves with the group's size."""
+    """The reference's `auto` table, its dense-mesh pick included.  Inside a
+    2-rank group the estimator resolves with the group's size."""
     for n in (100, 2048, 2049, 10 ** 5):
         for strategy in ("sd", "fp", "gd"):
             want = jresolve_backend("auto", n=n, n_devices=n_devices,
                                     strategy=strategy)
             got = resolve_backend("auto", n=n, n_devices=n_devices,
                                   strategy=strategy)
-            assert got == ("dense" if want == "dense-mesh" else want)
+            assert got == want
     assert resolve_backend("sparse-sharded", n=10, strategy="sd") == \
         "sparse-sharded"
 
 
 def test_estimator_auto_picks_sharded_in_a_group(runs):
     for res in runs(2):
-        assert res["api"]["auto"] == {2048: "dense",
+        assert res["api"]["auto"] == {2048: "dense-mesh",
                                       2049: "sparse-sharded"}
 
 

@@ -1,5 +1,7 @@
-"""Rank side of tests/test_torch_sharding.py: the port's row-sharded backend
-run inside a gloo process group on the CPU.  It holds no tests itself.
+"""Rank side of tests/test_torch_sharding.py and
+tests/test_torch_distributed_embed.py: the port's mesh backends (the
+row-sharded sparse one and the 2-D-sharded dense one) and its meshes run
+inside a gloo process group on the CPU.  It holds no tests itself.
 
 Spawned by `spawn_ranks`, one process per rank; it imports only torch and
 repro_torch (JAX's side is computed in the test process and handed over as
@@ -9,6 +11,7 @@ numpy, to `<out_dir>/rank<r>.pt`.
 from __future__ import annotations
 
 import datetime
+import itertools
 import time
 from pathlib import Path
 
@@ -19,7 +22,12 @@ import torch.multiprocessing as mp
 
 from repro_torch import convert
 from repro_torch.api import Embedding, EmbedSpec
-from repro_torch.embed.distributed import EmbedMeshSpec
+from repro_torch.embed.distributed import (EmbedMeshSpec,
+                                           make_block_jacobi_setup,
+                                           make_block_jacobi_solve,
+                                           make_distributed_energy_grad,
+                                           replicate, shard_pairwise,
+                                           shard_rows)
 from repro_torch.embed.engine import LoopConfig, fit_loop, make_loop_config
 from repro_torch.embed.trainer import build_sparse_objective
 from repro_torch.launch import Mesh, linear_row_index, make_host_mesh
@@ -246,6 +254,108 @@ def job_resume(spec_fields, Y, ckdir, stop):
                         "n_iters": res.result_.n_iters}}
 
 
+def job_mesh_groups(shapes):
+    """For each mesh shape: this rank's coordinates and, for every subset
+    of the axes, `axis_group`'s members and the sum of 2**rank over its
+    process group (the members that really took part); then
+    `make_host_mesh(model_axis=2)`'s shape and the refusal of a model axis
+    that does not divide the group."""
+    meshes = []
+    for shape in shapes:
+        mesh = Mesh(shape)
+        groups = {}
+        for k in range(len(shape) + 1):
+            for axes in itertools.combinations(mesh.axis_names, k):
+                ag = mesh.axis_group(axes)
+                t = torch.tensor([2.0 ** mesh.rank])
+                if ag.size > 1:
+                    dist.all_reduce(t, group=ag.group)
+                groups[axes] = (ag.ranks, int(t))
+        meshes.append({"coords": mesh.coords, "groups": groups})
+    return {"meshes": meshes,
+            "host2": dict(make_host_mesh(model_axis=2).shape),
+            "bad_model_axis": _raised(lambda: make_host_mesh(model_axis=3))}
+
+
+def _mesh_and_spec(shape, row_axes, col_axis):
+    return Mesh(shape), EmbedMeshSpec(tuple(row_axes), col_axis)
+
+
+def job_dense_eg(shape, row_axes, col_axis, X, cases):
+    """The 2-D-sharded E and G of every case ({name: (kind, lam, Wp, Wm or
+    None for unit W-)}) at X: this rank's row block, the replicated G,
+    e_only's E, this rank's row block index and tile shape."""
+    mesh, spec = _mesh_and_spec(shape, row_axes, col_axis)
+    X = _t(X)
+    out = {"row_block": linear_row_index(mesh, spec.row_axes),
+           "rows": _np(shard_rows(mesh, spec, X))}
+    for name, (kind, lam, Wp, Wm) in cases.items():
+        unit = Wm is None
+        eg = make_distributed_energy_grad(mesh, spec, kind, unit_wm=unit)
+        ws = [shard_pairwise(mesh, spec, _t(W)) for W in (Wp, Wm)
+              if W is not None]
+        lam = torch.tensor(lam)
+        E, G = eg(X, *ws, lam)
+        out[name] = {"E": float(E), "G_rows": _np(G),
+                     "G": _np(replicate(mesh, G, spec)),
+                     "E_only": float(eg(X, *ws, lam, with_grad=False)),
+                     "tile": tuple(ws[0].shape)}
+    return out
+
+
+def job_block_jacobi(shape, Wp, G, mu_scale):
+    """This rank's block-Jacobi factor of W+ and the direction -B^-1 G on
+    its rows, and that direction replicated."""
+    mesh, spec = _mesh_and_spec(shape, ("data",), "model")
+    R = make_block_jacobi_setup(mesh, spec, mu_scale)(
+        shard_pairwise(mesh, spec, _t(Wp)))
+    P = make_block_jacobi_solve(mesh, spec)(R, shard_rows(mesh, spec,
+                                                          _t(G)))
+    return {"row_block": linear_row_index(mesh, spec.row_axes),
+            "R": _np(R), "P_rows": _np(P),
+            "P": _np(replicate(mesh, P, spec))}
+
+
+def job_dense_mesh_fits(shape, Y, runs):
+    """`Embedding(backend="dense-mesh")` fits on a mesh of `shape`, one a
+    run ({name: (spec fields, X0)})."""
+    mesh = Mesh(shape)
+    out = {}
+    for name, (fields, X0) in runs.items():
+        emb = Embedding(EmbedSpec(**fields), device="cpu", mesh=mesh).fit(
+            Y, X0=_t(X0))
+        res = emb.result_
+        out[name] = {"energies": res.energies, "step_sizes": res.step_sizes,
+                     "n_fevals": res.n_fevals, "X": _np(emb.embedding_),
+                     "backend": emb.backend_,
+                     "affinities": emb.affinities_}
+    return out
+
+
+def job_dense_mesh_api(Y, n_odd):
+    """`auto`'s pick in this group and the dense-mesh backend's refusals:
+    aff=, saff=, an N that the mesh does not divide."""
+    mesh = make_host_mesh()
+    spec = EmbedSpec(kind="ee", lam=10.0, backend="dense-mesh",
+                     perplexity=5.0, max_iters=2)
+    auto = Embedding(EmbedSpec(), device="cpu")
+    return {
+        "auto": {n: auto._resolve_backend(n)
+                 for n in (2046, 2047, 2048, 2049)},
+        "errors": {
+            "aff": _raised(lambda: Embedding(spec, device="cpu").fit(
+                Y, aff=object())),
+            "saff": _raised(lambda: Embedding(spec, device="cpu").fit(
+                Y, saff=object())),
+            "indivisible": _raised(lambda: Embedding(
+                spec, device="cpu", mesh=mesh).fit(Y[:n_odd])),
+        },
+    }
+
+
 JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "fit": job_fit, "budget": job_budget, "api": job_api,
-        "resume": job_resume}
+        "resume": job_resume, "mesh_groups": job_mesh_groups,
+        "dense_eg": job_dense_eg, "block_jacobi": job_block_jacobi,
+        "dense_mesh_fits": job_dense_mesh_fits,
+        "dense_mesh_api": job_dense_mesh_api}
