@@ -166,6 +166,29 @@ Phases, each printing one line (or a few) and failing the run on error:
               with their L2 sectors; then the NCCL all-gather that
               re-replicates the (N, 2) slab, beside a zero-filled slab's
               all_reduce.
+ 17a. autotune — the launch-shape autotuner (kernels/autotune.py), its
+              disk cache at the ignored build/chip_smoke_autotune/
+              autotune.json (REPRO_AUTOTUNE_CACHE), cleared first: at every
+              main-path shape (pairwise N = 20000 on the EE and t-SNE fits;
+              the ELL direct and staged gathers on the EE fit's forward and
+              reverse graphs at N = 70000; the local-rows kernel at nb =
+              70000 and 35000; bh_tree on the t-SNE tree fit's grid),
+              float32 and bfloat16, one line: the dispatch's search (the
+              candidates' CUDA-event times, the pick, the search's seconds)
+              or cache hit (shapes that share a key), a second lookup that
+              must hit, every candidate's outputs bit-equal (torch.equal) to
+              the fixed shape's, and the pick against the fixed shape by
+              CUDA-graph replay in turns (fixed, pick, pick, fixed).  A fresh
+              process on the same file must hit every key with the same
+              pick.  Then the warmed dense SD (EE, N = 20000), sparse and
+              sparse-sharded (t-SNE, N = 70000, the one-rank NCCL group)
+              fits: one warm-up iteration, three under the sync-debug mode
+              "warn" (every unsanctioned host wait listed by file and line:
+              there must be none), three under
+              `assert_compile_count(expected=0)` and
+              `no_implicit_transfers()` (analysis/guards.py).  The searches'
+              own launches are counted apart (`autotune.search_launches`)
+              and printed by `done`, not in the kernels line.
  18. profile_sharded — three one-rank sharded t-SNE SD iterations under
               torch.profiler: device time by kernel, the idle share and the
               NCCL collectives' time a CG matvec.
@@ -265,6 +288,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import json
 import subprocess
 import sys
@@ -2671,6 +2695,341 @@ def phase_time_ell_local(sharded: dict) -> dict:
     return out
 
 
+AUTOTUNE_DIR = ROOT / "build" / "chip_smoke_autotune"   # git-ignored
+GUARD_ITERS = 3      # guarded iterations of each warmed fit
+
+
+def _outputs(out) -> tuple:
+    """A wrapper's outputs as a flat tuple of tensors."""
+    if isinstance(out, torch.Tensor):
+        return (out,)
+    if hasattr(out, "la_x"):
+        return (out.la_x, out.lb_x, out.e_plus, out.s)
+    return tuple(out)
+
+
+def _tune_case(tag: str, name: str, key: tuple, dispatch, launch,
+               cands) -> dict:
+    """One main-path shape: the dispatch's search (its candidates' times,
+    the pick and the seconds it took) or cache hit, a second lookup (a
+    hit), every candidate's outputs bit-equal to the fixed shape's, and the
+    pick against the fixed shape by CUDA-graph replay in turns (fixed,
+    pick, pick, fixed)."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels.autotune import KernelConfig
+
+    kernel, n, k, d, storage = key
+    ckey = autotune.cache_key(kernel, n=n, k=k, d=d, dtype=storage)
+    before = autotune.n_searches
+    t0 = time.perf_counter()
+    dispatch()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rec = dict(ops.last_dispatch(name))
+    searched = autotune.n_searches > before
+    if not rec.get("autotuned") or rec["cache_hit"] == searched:
+        raise AssertionError(f"autotune {tag}: dispatch record {rec} after "
+                             f"{'a search' if searched else 'no search'}")
+    dispatch()
+    if not ops.last_dispatch(name)["cache_hit"]:
+        raise AssertionError(f"autotune {tag}: the second lookup searched "
+                             f"again: {ops.last_dispatch(name)}")
+    pick = KernelConfig(block_rows=rec["block_rows"],
+                        block_cols=rec.get("block_cols", 0),
+                        layout=cands[0].layout, chunk=rec.get("chunk", 0))
+    if pick not in cands:
+        raise AssertionError(f"autotune {tag}: pick {pick} is no candidate")
+    fixed = _outputs(launch(None))
+    for cfg in cands:
+        got = _outputs(launch(cfg))
+        if not all(torch.equal(a, b) for a, b in zip(got, fixed)):
+            raise AssertionError(f"autotune {tag}: candidate {cfg} is not "
+                                 f"bit-equal to the fixed shape")
+    reps = 20 if kernel.startswith("pairwise") else 50
+    f1 = graph_ms(lambda: launch(None), reps=reps, replays=3)
+    p1 = graph_ms(lambda: launch(pick), reps=reps, replays=3)
+    p2 = graph_ms(lambda: launch(pick), reps=reps, replays=3)
+    f2 = graph_ms(lambda: launch(None), reps=reps, replays=3)
+    log = autotune.search_log[ckey]
+
+    def shape(c):
+        c = KernelConfig.from_json(c) if isinstance(c, dict) else c
+        return (f"{c.block_rows}" + (f"x{c.block_cols}" if c.block_cols
+                                     else "")
+                + (f"/{c.chunk}" if c.chunk else ""))
+
+    times = " ".join(f"{shape(c)}:{t * 1e6:.1f}" for c, t in log["timings"])
+    say("autotune", f"{tag}: {'searched' if searched else 'cache hit'} "
+                    f"({first_s:.3f} s first call); search "
+                    f"{log['seconds']:.3f} s, candidates us "
+                    f"(rows[xcols][/chunk]) {times}; pick {shape(pick)}, "
+                    f"fixed {shape(cands[0])}; by replay pick "
+                    f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us, fixed "
+                    f"{f1 * 1e3:.1f} / {f2 * 1e3:.1f} us; all "
+                    f"{len(cands)} candidates bit-equal to the fixed shape")
+    return {"tag": tag, "key": list(key), "pick": pick.to_json(),
+            "fixed": cands[0].to_json(), "searched": searched,
+            "search_s": log["seconds"], "pick_us": [p1 * 1e3, p2 * 1e3],
+            "fixed_us": [f1 * 1e3, f2 * 1e3]}
+
+
+def _autotune_cases(dense_data: dict, sparse_fits: dict, sharded: dict,
+                    tree_fits: dict) -> list:
+    """(tag, record name, key, dispatch, launch(cfg or None), candidates)
+    for every kernel at every main-path shape, float32 and bfloat16."""
+    from repro_torch.kernels import autotune, farfield, ops
+    from repro_torch.kernels.pairwise import pairwise_terms_cuda
+    from repro_torch.kernels.sparse_attractive import (
+        ell_lap_matvec_cuda, ell_lap_matvec_local_cuda)
+    from repro_torch.sparse import farfield as ff
+
+    def shape(cfg, *fields):
+        return {} if cfg is None else {f: getattr(cfg, f) for f in fields}
+
+    cases = []
+    for storage in ("float32", "bfloat16"):
+        for kind in ("ee", "tsne"):
+            X, Wp, Wm = dense_data[kind]
+            Xs, Wps, Wms = (ops.to_storage(t, storage) for t in (X, Wp, Wm))
+            n, d = X.shape
+            cases.append((
+                f"pairwise {kind} N={n} {storage}", "pairwise_terms",
+                (f"pairwise.{kind}", n, 0, d, storage),
+                functools.partial(ops.pairwise_terms, Xs, Wps, Wms, kind,
+                                  storage_dtype=storage),
+                lambda cfg, a=(Xs, Wps, Wms, kind): pairwise_terms_cuda(
+                    *a, **shape(cfg, "block_rows", "block_cols")),
+                autotune.pairwise_candidates(d=d)))
+    emb = sparse_fits["ee"]
+    X = emb.embedding_
+    n, d = X.shape
+    for layout in ELL_LAYOUTS:
+        for gname, g in (("forward", emb.affinities_.graph),
+                         ("reverse", emb.affinities_.rev)):
+            for storage in ("float32", "bfloat16"):
+                Xs = ops.to_storage(X, storage)
+                ws = ops.to_storage(g.weights, storage)
+                cases.append((
+                    f"ell {layout} {gname} k={g.k} N={n} {storage}",
+                    "ell_lap_matvec",
+                    ("ell" if layout == "vmem" else "ell_hbm", n, g.k, d,
+                     storage),
+                    functools.partial(ops.ell_lap_matvec, Xs, g.indices, ws,
+                                      layout=layout, storage_dtype=storage),
+                    lambda cfg, a=(Xs, g.indices, ws), lay=layout:
+                        ell_lap_matvec_cuda(*a, layout=lay,
+                                            **shape(cfg, "block_rows",
+                                                    "chunk")),
+                    autotune.ell_candidates(k=g.k, layouts=[layout])))
+    emb = sharded["fits"]["ee"]
+    X = emb.embedding_
+    for gname, g in (("forward", emb.affinities_.graph),
+                     ("reverse", emb.affinities_.rev)):
+        for row0, nb in ((0, N_SPARSE), (N_SPARSE // 2, N_SPARSE // 2)):
+            rows = slice(row0, row0 + nb)
+            for storage in ("float32", "bfloat16"):
+                Xs = ops.to_storage(X, storage)
+                idx = g.indices[rows].clone()
+                ws = ops.to_storage(g.weights, storage)[rows].clone()
+                cases.append((
+                    f"ell_local {gname} k={g.k} nb={nb} row0={row0} "
+                    f"{storage}", "ell_lap_matvec_local",
+                    ("ell_local", nb, g.k, d, storage),
+                    functools.partial(ops.ell_lap_matvec_local, Xs, idx, ws,
+                                      row0, storage=storage),
+                    lambda cfg, a=(Xs, idx, ws, row0):
+                        ell_lap_matvec_local_cuda(
+                            *a, **shape(cfg, "block_rows", "chunk")),
+                    autotune.ell_candidates(k=g.k, layouts=["vmem"])))
+    emb = tree_fits["tsne"]
+    X = emb.embedding_
+    plan = ff.make_grid_plan(X.shape[0], theta=emb.spec.theta)
+    grid = ff._grid_state(X, plan)
+    for storage in ("float32", "bfloat16"):
+        g = dataclasses.replace(
+            grid, Xs=ops.to_storage(grid.Xs, storage),
+            res_com=ops.to_storage(grid.res_com, storage),
+            level_com=tuple(ops.to_storage(c, storage)
+                            for c in grid.level_com))
+        packed = farfield.pack_tree(g)
+        cases.append((
+            f"bh_tree tsne N={X.shape[0]} depth={plan.depth} {storage}",
+            "bh_tree",
+            ("bh_tree.tsne", X.shape[0], ops._tree_slots(grid), 2, storage),
+            functools.partial(ops.bh_tree, grid, "tsne",
+                              storage_dtype=storage),
+            lambda cfg, a=packed: farfield.launch_tree(
+                a, "tsne", **shape(cfg, "block_rows")),
+            autotune.bh_tree_candidates()))
+    return cases
+
+
+class _Warmed:
+    """An objective whose direction solver was set up once, outside the
+    guards (SD's Cholesky factor waits on the card by design)."""
+
+    def __init__(self, obj):
+        self._obj = obj
+        self._solver = obj.make_direction_solver()
+
+    def __getattr__(self, name):
+        return getattr(self._obj, name)
+
+    def make_direction_solver(self):
+        return self._solver
+
+
+def _guarded_fit(tag: str, obj, X, spec) -> None:
+    """GUARD_ITERS iterations of a warmed objective through the engine,
+    after one warm-up iteration: first with the sync-debug mode at "warn"
+    (every unsanctioned host wait listed by file and line), then under
+    `assert_compile_count(expected=0)` and `no_implicit_transfers()`."""
+    import traceback
+    import warnings
+
+    from repro_torch.analysis import assert_compile_count, no_implicit_transfers
+    from repro_torch.embed.engine import fit_loop, make_loop_config
+
+    cfg = dataclasses.replace(make_loop_config(spec, spec.resolved_ls()),
+                              max_iters=GUARD_ITERS, tol=0.0,
+                              checkpoint_dir=None, max_seconds=None)
+    fit_loop(obj, X, dataclasses.replace(cfg, max_iters=1))     # warm-up
+    torch.cuda.synchronize()
+    sites = set()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # the port's frames above the waiting call, innermost first (the
+        # mode's own "prototype feature" notice is not a wait)
+        if "called a synchronizing" in str(message):
+            frames = [f"{Path(f.filename).name}:{f.lineno}"
+                      for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename]
+            sites.add(" < ".join([f"{Path(filename).name}:{lineno}",
+                                  *frames[::-1][:4]]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        with no_implicit_transfers(mode="warn"):
+            fit_loop(obj, X, cfg)
+    sites = sorted(sites)
+    if sites:
+        raise AssertionError(f"autotune guard {tag}: unsanctioned host "
+                             f"waits at {'; '.join(sites)}")
+    t0 = time.perf_counter()
+    with assert_compile_count(expected=0, label=tag) as counter, \
+            no_implicit_transfers():
+        res = fit_loop(obj, X, cfg)
+    torch.cuda.synchronize()
+    if not np.all(np.isfinite(res.energies)):
+        raise AssertionError(f"autotune guard {tag}: energies {res.energies}")
+    say("autotune", f"guard {tag}: {res.n_iters} warmed iterations under "
+                    f"assert_compile_count(expected=0) and "
+                    f"no_implicit_transfers(): {counter.count} builds or "
+                    f"searches, no unsanctioned host wait (warn pass: none "
+                    f"listed); {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def phase_autotune(dense_data: dict, dense_spec, sparse_fits: dict,
+                   sharded: dict, tree_fits: dict) -> dict:
+    """The launch-shape autotuner (kernels/autotune.py) at every main-path
+    shape, with its disk cache under the ignored build/chip_smoke_autotune/
+    (REPRO_AUTOTUNE_CACHE): each search's candidates and pick, every
+    candidate bit-equal to the fixed shape, the pick against the fixed shape
+    by CUDA-graph replay, a second lookup and a fresh process hitting the
+    cache; then the warmed dense SD, sparse and sharded fits under the
+    compile-count and sync guards."""
+    import os
+
+    from repro_torch.api.registries import strategy_entry
+    from repro_torch.core.affinities import Affinities
+    from repro_torch.core.minimize import DenseObjective
+    from repro_torch.embed.trainer import build_sparse_objective
+    from repro_torch.kernels import autotune
+
+    AUTOTUNE_DIR.mkdir(parents=True, exist_ok=True)
+    cache = AUTOTUNE_DIR / "autotune.json"
+    cache.unlink(missing_ok=True)
+    os.environ[autotune.CACHE_ENV] = str(cache)
+    autotune.clear_cache()
+    say("autotune", f"device kind {autotune.device_kind()}; cache {cache}; "
+                    f"searches so far in this run {autotune.n_searches}, "
+                    f"their launches (apart from launch_counts) "
+                    f"{dict(autotune.search_launches)}")
+    results = []
+    try:
+        for case in _autotune_cases(dense_data, sparse_fits, sharded,
+                                    tree_fits):
+            results.append(_tune_case(*case))
+    finally:
+        del os.environ[autotune.CACHE_ENV]
+    # a fresh process on the same file finds every pick without a search
+    keys = [r["key"] for r in results]
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.kernels import autotune\n"
+        "def boom(cfg, b):\n"
+        "    raise AssertionError('searched')\n"
+        "out = []\n"
+        "for kernel, n, k, d, dtype in json.loads(sys.argv[1]):\n"
+        "    cfg, hit = autotune.get_config(kernel, n=n, k=k, d=d,\n"
+        "        dtype=dtype, candidates=[autotune.KernelConfig(1)],\n"
+        "        runner=boom)\n"
+        "    out.append([cfg.to_json(), hit])\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env[autotune.CACHE_ENV] = str(cache)
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(keys)],
+                          env=env, capture_output=True, text=True,
+                          timeout=SPAWN_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"autotune: the fresh process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    for r, (cfg, hit) in zip(results, fresh):
+        if not hit or cfg != r["pick"]:
+            raise AssertionError(f"autotune {r['tag']}: the fresh process "
+                                 f"got {cfg} (hit {hit}), not {r['pick']}")
+    n_keys = len(json.loads(cache.read_text())["entries"])
+    say("autotune", f"a fresh process on {cache.name} ({n_keys} entries) "
+                    f"hit the cache for all {len(fresh)} shapes, same picks")
+
+    # the warmed fits under the guards
+    X, Wp, Wm = dense_data["ee"]
+    spec = dense_spec
+    strategy = strategy_entry(spec.strategy).dense_factory(
+        spec, **dict(spec.strategy_opts))
+    lam = torch.tensor(spec.lam, dtype=X.dtype, device=X.device)
+    dense = DenseObjective(Affinities(Wp, Wm), spec.kind, lam, strategy,
+                           spec.resolved_ls(), X, impl=spec.kernel_args())
+    _guarded_fit("dense SD EE N=20000", _Warmed(dense), X, spec)
+    del dense
+    torch.cuda.empty_cache()
+    emb = sparse_fits["tsne"]
+    obj, X0, _ = build_sparse_objective(
+        emb.spec, None, emb.embedding_, strategy=emb.spec.strategy,
+        saff=emb.affinities_, device=emb.embedding_.device)
+    _guarded_fit("sparse t-SNE N=70000", _Warmed(obj), X0, emb.spec)
+    emb = sharded["fits"]["tsne"]
+    obj, X0, _ = build_sparse_objective(
+        emb.spec, None, emb.embedding_, strategy=emb.spec.strategy,
+        sharded=True, saff=emb.affinities_, device=emb.embedding_.device,
+        mesh=sharded["mesh"])
+    _guarded_fit("sparse-sharded t-SNE N=70000 (one NCCL rank)",
+                 _Warmed(obj), X0, emb.spec)
+    return {r["tag"]: r for r in results}
+
+
+def tuned_numbers(tuned: dict, tag: str | None) -> dict:
+    """The kernels line's launch-shape keys for a kernel at its row's shape:
+    the autotuned pick (phase autotune) and its device time by replay (the
+    mean of the two turns), beside `ms`, the fixed shape's."""
+    if tag is None:
+        return {"tuned_shape": None, "tuned_ms": None}
+    r = tuned[tag]
+    return {"tuned_shape": r["pick"], "tuned_ms": sum(r["pick_us"]) / 2e3}
+
+
 def phase_profile_sharded(emb, mesh, iters: int = 3) -> None:
     """Where a sharded SD iteration's time goes: `iters` iterations of the
     one-rank t-SNE sharded fit, continued from its embedding, under
@@ -3687,6 +4046,7 @@ def main() -> int:
     lineup = run("fit_lineup", phase_fit_lineup, fit["starts"],
                  fit["settled"])
     dense_starts = {kind: X0 for kind, (X0, _) in fit["starts"].items()}
+    dense_data = fit["data"]      # phase autotune's pairwise shapes
     del fit
     torch.cuda.empty_cache()
     sparse = run("fit_sparse", phase_fit_sparse)
@@ -3701,6 +4061,10 @@ def main() -> int:
     sharded = run("fit_sharded", phase_fit_sharded, sparse)
     run("fit_sharded_2rank", phase_fit_sharded_2rank, sharded)
     timing_local = run("time_ell_local", phase_time_ell_local, sharded)
+    tuned = run("autotune", phase_autotune, dense_data, dense_ref["spec"],
+                sparse["fits"], sharded, tree["fits"])
+    del dense_data
+    torch.cuda.empty_cache()
     run("profile_sharded", phase_profile_sharded, sharded["fits"]["tsne"],
         sharded["mesh"])
     mesh_fit = run("fit_dense_mesh", phase_fit_dense_mesh, dense_ref,
@@ -3737,7 +4101,8 @@ def main() -> int:
                          "and t-SNE, SparseSD and homotopy_path on EE) and "
                          "the dense EE fit stopped and resumed (phase "
                          "resume)",
-        **kernel_numbers(f32)}]
+        **kernel_numbers(f32),
+        **tuned_numbers(tuned, f"pairwise tsne N={N_FIT} float32")}]
     # the ELL kernels at the wider of the main path's two graphs: the EE
     # fit's reverse graph, float32.  The default layout's launches are the
     # two default fits'; the other's come from the EE fit run again with its
@@ -3754,6 +4119,7 @@ def main() -> int:
                 other: (sparse["launches_other_fit"][
                     f"ell_lap_matvec_{other}"],
                         f"the EE sparse fit with ell_layout={other!r}")}
+    ell_k = sparse["fits"]["ee"].affinities_.rev.k
     for layout, line in (("vmem", 96), ("hbm", 186)):
         t = timing_ell["ee", "reverse", "float32", layout]
         n_launch, origin = launches[layout]
@@ -3764,7 +4130,9 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/ell.cu",
             "replaces": f"src/repro/kernels/sparse_attractive.py:{line}",
             "launches": n_launch, "launches_from": origin,
-            **kernel_numbers(t)})
+            **kernel_numbers(t),
+            **tuned_numbers(tuned, f"ell {layout} reverse k={ell_k} "
+                                   f"N={N_SPARSE} float32")})
     # the per-batch cell-interaction kernel at its widest batch: a near
     # chunk (W = 128, table = X) on the t-SNE tree fit's embedding, float32.
     # No default path launches it any more (the tree fits launch the fused
@@ -3786,7 +4154,8 @@ def main() -> int:
         "yardstick_launches_from": "the EE and t-SNE tree fits rerun for 3 "
                                    "iterations through the per-batch path "
                                    "(_tree_repulsion_batched)",
-        **kernel_numbers(timing_bh["near chunk", "float32"])})
+        **kernel_numbers(timing_bh["near chunk", "float32"]),
+        **tuned_numbers(tuned, None)})
     # the fused cell interaction, one launch an evaluation of the default
     # tree fits, over the t-SNE tree fit's whole evaluation, float32
     if tree["launches"] < 1:
@@ -3799,7 +4168,10 @@ def main() -> int:
         "launches": tree["launches"] + resumed["bh_tree"],
         "launches_from": "the default EE and t-SNE tree fits and the EE "
                          "tree fit stopped and resumed (phase resume)",
-        **kernel_numbers(timing_bh["fused", "float32"])})
+        **kernel_numbers(timing_bh["fused", "float32"]),
+        **tuned_numbers(tuned, next(t for t in tuned
+                                    if t.startswith("bh_tree tsne")
+                                    and t.endswith("float32")))})
     # the local-rows kernel at the main path's shape on this one card (one
     # rank, nb = N) on the EE fit's reverse graph, float32, as rows 2 and 3
     if sharded["launches"] < 1:
@@ -3813,7 +4185,14 @@ def main() -> int:
         "launches_from": "the one-rank EE and t-SNE sparse-sharded fits and "
                          "the t-SNE one stopped and resumed (phase "
                          "resume)",
-        **kernel_numbers(timing_local["reverse", N_SPARSE, "float32"])})
+        **kernel_numbers(timing_local["reverse", N_SPARSE, "float32"]),
+        **tuned_numbers(tuned, f"ell_local reverse k="
+                               f"{sharded['fits']['ee'].affinities_.rev.k} "
+                               f"nb={N_SPARSE} row0=0 float32")})
+    from repro_torch.kernels import autotune
+    say("done", f"autotune: {autotune.n_searches} searches in this run; "
+                f"their kernel launches, apart from the kernels line's: "
+                f"{dict(sorted(autotune.search_launches.items()))}")
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
     python3 ell_ab.py [NAME=PATH.cu ...] [--out FILE]
 
 Builds each given source of the ELL library (an earlier or patched copy of
-`src/repro_torch/kernels/csrc/ell.cu` with the same C entry point; one nvcc
+`src/repro_torch/kernels/csrc/ell.cu` with the same C entry point, whose
+launch shape it leaves at 0, the fixed shape; one nvcc
 each, all started together, into the git-ignored `build/ell_ab/`, with
 nvcc's log beside each library), beside
 the checkout's own `ell.cu` (named `checkout`).  On the sparse fits' graphs
@@ -59,7 +60,7 @@ def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
         out.with_suffix(".log").write_text(log)
         lib = ctypes.CDLL(str(out))
         fn = lib.ell_lap_matvec_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         libs[name] = lib
@@ -71,7 +72,7 @@ def launch(lib, X, idx, w, layout: str) -> torch.Tensor:
     out = torch.empty((n, d), dtype=torch.float32, device=X.device)
     status = lib.ell_lap_matvec_launch(
         X.data_ptr(), idx.data_ptr(), w.data_ptr(), n, d, idx.shape[1],
-        STORAGE[X.dtype], LAYOUTS.index(layout), out.data_ptr(),
+        STORAGE[X.dtype], LAYOUTS.index(layout), 0, 0, out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(f"{layout} launch failed: CUDA error {status}")

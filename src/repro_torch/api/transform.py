@@ -64,6 +64,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.analysis.guards import explicit_read
 from repro_torch.core.objectives import (attractive_edge_terms, is_normalized,
                                          negative_pair_terms)
 from repro_torch.embed.engine import LoopConfig, fit_loop
@@ -207,7 +208,9 @@ class RowwiseResult:
 
 def _host_flags(*flags: torch.Tensor) -> list[bool]:
     """all() of each bool tensor, in one device-to-host read."""
-    return [bool(v) for v in torch.stack([f.all() for f in flags]).tolist()]
+    with explicit_read():
+        return [bool(v)
+                for v in torch.stack([f.all() for f in flags]).tolist()]
 
 
 def rowwise_transform(kind: str, lam, anchors: torch.Tensor,
@@ -278,7 +281,8 @@ def rowwise_transform(kind: str, lam, anchors: torch.Tensor,
         frozen = frozen | failed | (~frozen & (rel < tol))
         alpha_prev = torch.where(alpha_f > 0, alpha_f, alpha_prev)
         it += 1
-    n_conv = int(torch.sum(frozen))
+    with explicit_read():       # the reference's one read of (it, n_conv)
+        n_conv = int(torch.sum(frozen))
     return RowwiseResult(X=X, n_iters=it, n_rows=n_rows, n_converged=n_conv,
                          n_evals=n_evals, n_reads=n_reads + 1)
 

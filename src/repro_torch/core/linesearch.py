@@ -12,6 +12,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.analysis.guards import explicit_read
+
 
 @dataclasses.dataclass(frozen=True)
 class LSConfig:
@@ -43,8 +45,11 @@ class LSResult(NamedTuple):
 def _accepted(e_new: torch.Tensor, e0: torch.Tensor, c1: float,
               alpha: torch.Tensor, gtp: torch.Tensor) -> bool:
     """The Armijo test, evaluated in float32 on the device; one flag read
-    back to the host."""
-    return bool(e_new <= e0 + c1 * alpha * gtp)
+    back to the host, a sanctioned read (the reference's loop condition;
+    `analysis.guards.explicit_read`)."""
+    ok = e_new <= e0 + c1 * alpha * gtp
+    with explicit_read():
+        return bool(ok)
 
 
 def backtracking(energy_fn: Callable[[torch.Tensor], torch.Tensor],

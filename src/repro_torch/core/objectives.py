@@ -186,8 +186,12 @@ def draw_shifts(seed: int, it: int, n: int, m: int,
     `1 + jax.random.choice(fold_in(PRNGKey(seed), it), n - 1, (m,),
     replace=False)`; it gives other numbers from the same seed."""
     g = torch.Generator().manual_seed((seed << 32) + it)
-    return (1 + torch.randperm(n - 1, generator=g)[:m]).to(
-        device=device, dtype=torch.int32)
+    shifts = (1 + torch.randperm(n - 1, generator=g)[:m]).to(torch.int32)
+    if torch.device(device).type == "cuda":
+        # an explicit, asynchronous upload from pinned memory: the host
+        # does not wait on the card (analysis.guards.no_implicit_transfers)
+        return shifts.pin_memory().to(device, non_blocking=True)
+    return shifts.to(device)
 
 
 def energy_and_grad_sparse(X: torch.Tensor, saff, kind: str, lam, *,
@@ -255,7 +259,7 @@ def energy_and_grad_sparse(X: torch.Tensor, saff, kind: str, lam, *,
             z = s_hat
         else:
             # z_decay in float32, as the reference's traced argument
-            zd = torch.as_tensor(z_decay, dtype=X.dtype, device=dev)
+            zd = torch.full((), z_decay, dtype=X.dtype, device=dev)
             z = torch.where(z_prev > 0, zd * z_prev + (1.0 - zd) * s_hat,
                             s_hat)
     else:

@@ -74,6 +74,7 @@ from typing import Any, Callable, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import explicit_read
 from repro_torch.ckpt import Checkpointer
 from repro_torch.core.linesearch import LSConfig
 from repro_torch.obs import IterationRecord, device_memory_stats, span
@@ -125,14 +126,19 @@ class EngineResult:
 
 
 def _sync(X: torch.Tensor) -> None:
+    """Wait for the card, once a fit, so that the set-up's seconds are
+    its own: a deliberate wait (`analysis.guards.explicit_read`)."""
     if X.is_cuda:
-        torch.cuda.synchronize(X.device)
+        with explicit_read():
+            torch.cuda.synchronize(X.device)
 
 
 def _host_scalars(*values: torch.Tensor) -> list[float]:
-    """One batched device-to-host transfer for a few 0-d tensors."""
-    return torch.stack([v.detach().reshape(()).to(torch.float64)
-                        for v in values]).cpu().tolist()
+    """One batched device-to-host transfer for a few 0-d tensors: the
+    engine's sanctioned read (`analysis.guards.explicit_read`)."""
+    with explicit_read():
+        return torch.stack([v.detach().reshape(()).to(torch.float64)
+                            for v in values]).cpu().tolist()
 
 
 def initial_step(X: torch.Tensor, P: torch.Tensor, alpha_prev: float,
@@ -156,7 +162,7 @@ def host_backtrack(energy_of: Callable[[torch.Tensor], float],
     """Armijo backtracking on host floats, one energy evaluation a trial.
     Returns the accepted (alpha, E(X + alpha P), n_evals); on backtrack
     exhaustion alpha shrinks once more and E is evaluated there."""
-    gtp = float(torch.dot(G.reshape(-1), P.reshape(-1)))
+    (gtp,) = _host_scalars(torch.dot(G.reshape(-1), P.reshape(-1)))
     alpha = alpha0
     n_evals = 0
     for _ in range(ls.max_backtracks):
@@ -317,7 +323,7 @@ def _fit_loop(objective, X0, cfg, callback, on_iteration,
                 P, state = solve(state, X, G)
                 alpha0 = initial_step(X, P, alpha_host, cfg.ls)
                 alpha_host, e_new, n_bt = host_backtrack(
-                    lambda Xn: float(objective.energy(Xn, key)),
+                    lambda Xn: _host_scalars(objective.energy(Xn, key))[0],
                     X, e_host, G, P, alpha0, cfg.ls)
                 n_ev += n_bt
                 X = X + alpha_host * P

@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: `_build_all` runs in this process (`analysis.guards` pins it to 0 on a
+#: warmed path)
+n_builds = 0
 #: per source: {"seconds": build wall time (0.0 when reused), "log": ptxas
 #: and compiler output, "path": the library}
 BUILD_INFO: dict[str, dict] = {}
@@ -69,6 +72,8 @@ def _digest(src: Path) -> str:
 
 def _build_all() -> None:
     """Compile every source whose library is missing, all in parallel."""
+    global n_builds
+    n_builds += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = []
     for src in _sources():

@@ -112,6 +112,19 @@
 //     d = 4 at S = 8) spill 4-8 bytes; no static shared memory (the rings
 //     are dynamic: 9216 bytes a block at d = 2 in f32, 4608 in bf16).
 //
+// The launch shape is a runtime choice (`kernels/autotune.py` searches
+// it), and every shape gives the same bits:
+//   * "vmem" and local: rows a block (threads a block / S, 32 to 512
+//     threads; default 256) and P, a lane's slots a pass (default the
+//     bucket that k gives).  A row's sum order follows S, which stays what
+//     k gives; P only cuts the row into passes.  Only S = 32 has more than
+//     one P: at k <= 16 (S < 32) a lane holds one slot whatever P, so no
+//     other P is instantiated there.  __launch_bounds__(512, 2) keeps the
+//     64-register cap of (256, 4) at every block size.
+//   * "hbm": rows a block (warps a block x span x rows a warp-group, 1 to 8
+//     warps; default 4) and the span (row groups a warp walks; default 8).
+//     Slots are added in the direct gather's order whatever the span.
+//
 // Shared rules:
 //   * The direct gather takes d <= 4 as a template parameter (the paper
 //     embeds in d = 2), so nothing is padded to 128 lanes as on the TPU and
@@ -137,17 +150,19 @@
 
 namespace {
 
-constexpr int kThreads = 256;          // "vmem": 8 warps a block
-constexpr int kMinBlocks = 4;          // so <= 64 registers a thread
+constexpr int kThreads = 256;          // "vmem": default threads a block
+constexpr int kMaxThreads = 512;       // "vmem": most threads a block ...
+constexpr int kMinBlocks = 2;          // ... and so <= 64 registers a thread
 constexpr int kMaxSmem = 232448;       // dynamic shared memory a block may use
 
-// "hbm".  The ring's shape, the grid and the carveout, fixed by measurement
-// on an H100 (the header above).
-constexpr int kStagedThreads = 128;    // 4 warps a block, a ring each
+// "hbm".  The ring's shape and the carveout, fixed by measurement on an
+// H100 (the header above); warps a block and the span are the launch shape.
+constexpr int kStagedWarps = 4;        // default warps a block, a ring each
+constexpr int kMaxStagedWarps = 8;
 constexpr int kStages = 3;             // stages in a lane's ring
 constexpr int kRounds = 2;             // rounds (one slot a lane) in a stage
 constexpr int kAhead = 2;              // stages of indices and weights ahead
-constexpr int kSpan = 8;               // row groups a warp walks
+constexpr int kSpan = 8;               // default row groups a warp walks
 constexpr int kCarveout = 15;          // percent of L1 asked for shared memory
 static_assert(kStages >= 2 && kRounds >= 1 && kStages * kRounds <= 32,
               "a lane's ring keeps a bit a round in one word");
@@ -262,7 +277,7 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ X,
                                             float* __restrict__ out) {
   constexpr int G = P * D <= 16 ? P : 4;
   const int lane = threadIdx.x % S;
-  const int r = (blockIdx.x * kThreads + threadIdx.x) / S;
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) / S;
   const int c0 = kSplit ? blockIdx.y * D : 0;
   const bool live = r < n_rows;   // dead lanes still join the shuffles
   float deg = 0.f;
@@ -303,7 +318,7 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ X,
 
 // "vmem": every row of the graph (row0 = 0).
 template <typename T, int D, bool kSplit, int S, int P>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
            const T* __restrict__ w, int d, int k, int n_rows,
            float* __restrict__ out) {
@@ -312,7 +327,7 @@ ell_gather(const T* __restrict__ X, const int* __restrict__ idx,
 
 // The local-rows kernel: rows [row0, row0 + n_rows) of X's graph.
 template <typename T, int D, bool kSplit, int S, int P>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 ell_gather_local(const T* __restrict__ X, const int* __restrict__ idx,
                  const T* __restrict__ w, int d, int k, int row0, int n_rows,
                  float* __restrict__ out) {
@@ -406,20 +421,22 @@ struct Round {
 // L = kAhead iterations before), loads the indices and weights of stage
 // s + NS - 1 + L into the registers that freed, waits until stage s has
 // landed (cp.async.wait_group NS - 1) and adds it.  The lane that copies a
-// cell is the lane that reads it, so the ring needs no barrier.
+// cell is the lane that reads it, so the ring needs no barrier.  A block of
+// blockDim.x / 32 warps; each walks `span_groups` row groups.
 template <typename T, int D, bool kSplit, int S>
-__global__ void __launch_bounds__(kStagedThreads)
+__global__ void __launch_bounds__(kMaxStagedWarps * 32)
 ell_gather_staged(const T* __restrict__ X, const int* __restrict__ idx,
                   const T* __restrict__ w, int d, int k, int row0, int n_rows,
-                  float* __restrict__ out) {
-  constexpr int G = 32 / S, B = kRounds, NS = kStages, span = kSpan * G;
+                  int span_groups, float* __restrict__ out) {
+  constexpr int G = 32 / S, B = kRounds, NS = kStages;
   constexpr int CB = kCellBytes<T, D, kSplit>;
   constexpr int kRing = NS * B * 32;           // cells of a warp's ring
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % 32, grp = lane / S, sl = lane % S;
   const int warp = threadIdx.x / 32;
+  const int span = span_groups * G;
   const long long first =
-      (static_cast<long long>(blockIdx.x) * (kStagedThreads / 32) + warp) *
+      (static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + warp) *
       span;
   if (first >= n_rows) return;                 // the whole warp leaves
   const int r_begin = static_cast<int>(first);
@@ -534,55 +551,83 @@ ell_gather_staged(const T* __restrict__ X, const int* __restrict__ idx,
 // layout: 0 "vmem", 1 "hbm", kLocal the local-rows kernel.
 constexpr int kLocal = 2;
 
+// The launch shape.  "vmem" and local: `rows` rows a block and P, a lane's
+// slots a pass (`chunk`); "hbm": `rows` rows a block and the span in row
+// groups (`chunk`).  0 takes the default.
+struct Shape {
+  int rows, chunk;
+};
+
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
 template <typename T, int D, bool kSplit, int S, int P>
-int launch_direct(int layout, const T* X, const int* idx, const T* w, int d,
-                  int k, int row0, int n_rows, float* out, cudaStream_t st) {
+int launch_direct(int layout, int threads, const T* X, const int* idx,
+                  const T* w, int d, int k, int row0, int n_rows, float* out,
+                  cudaStream_t st) {
   const dim3 grid(
-      static_cast<unsigned>((static_cast<long long>(n_rows) * S + kThreads - 1)
-                            / kThreads),
+      static_cast<unsigned>((static_cast<long long>(n_rows) * S + threads - 1)
+                            / threads),
       kSplit ? (d + D - 1) / D : 1);
   if (layout == 0)
-    ell_gather<T, D, kSplit, S, P><<<grid, kThreads, 0, st>>>(X, idx, w, d, k,
-                                                              n_rows, out);
+    ell_gather<T, D, kSplit, S, P><<<grid, threads, 0, st>>>(X, idx, w, d, k,
+                                                             n_rows, out);
   else
-    ell_gather_local<T, D, kSplit, S, P><<<grid, kThreads, 0, st>>>(
+    ell_gather_local<T, D, kSplit, S, P><<<grid, threads, 0, st>>>(
         X, idx, w, d, k, row0, n_rows, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // S, the lanes a row: a power of two >= k up to a warp, at least 4 (the
-// sum order of a row follows S, not P).  P, a lane's slots a pass:
-// ceil(k / S) rounded up to 1, 2, 4 or 8; wider rows take passes of 8.
+// sum order of a row follows S, not P).  P, a lane's slots a pass: by
+// default ceil(k / S) rounded up to 1, 2, 4 or 8 (wider rows take passes
+// of 8); at S = 32 any of the four.  Threads a block: rows x S, a multiple
+// of 32 up to 512.
 template <typename T, int D, bool kSplit>
-int launch_direct_k(int layout, const T* X, const int* idx, const T* w,
-                    int d, int k, int row0, int n_rows, float* out,
-                    cudaStream_t st) {
-#define ELL_DIRECT(S, P) \
-  launch_direct<T, D, kSplit, S, P>(layout, X, idx, w, d, k, row0, n_rows, \
-                                    out, st)
-  if (k <= 4) return ELL_DIRECT(4, 1);
-  if (k <= 8) return ELL_DIRECT(8, 1);
-  if (k <= 16) return ELL_DIRECT(16, 1);
-  if (k <= 32) return ELL_DIRECT(32, 1);
-  if (k <= 64) return ELL_DIRECT(32, 2);
-  if (k <= 128) return ELL_DIRECT(32, 4);
-  return ELL_DIRECT(32, 8);
+int launch_direct_k(int layout, Shape sh, const T* X, const int* idx,
+                    const T* w, int d, int k, int row0, int n_rows,
+                    float* out, cudaStream_t st) {
+  const int S = k <= 4 ? 4 : k <= 8 ? 8 : k <= 16 ? 16 : 32;
+  const int threads = sh.rows ? sh.rows * S : kThreads;
+  const int P = sh.chunk ? sh.chunk
+                         : k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : 8;
+  if (sh.rows > kMaxThreads || threads < 32 || threads > kMaxThreads ||
+      threads % 32)
+    return kInvalid;
+#define ELL_DIRECT(S, P)                                                      \
+  launch_direct<T, D, kSplit, S, P>(layout, threads, X, idx, w, d, k, row0,  \
+                                    n_rows, out, st)
+  if (S < 32) {
+    if (P != 1) return kInvalid;
+    if (S == 4) return ELL_DIRECT(4, 1);
+    if (S == 8) return ELL_DIRECT(8, 1);
+    return ELL_DIRECT(16, 1);
+  }
+  switch (P) {
+    case 1: return ELL_DIRECT(32, 1);
+    case 2: return ELL_DIRECT(32, 2);
+    case 4: return ELL_DIRECT(32, 4);
+    case 8: return ELL_DIRECT(32, 8);
+    default: return kInvalid;
+  }
 #undef ELL_DIRECT
 }
 
-// "hbm": four warps a block, each walking kSpan row groups.
+// "hbm": `warps` warps a block, each walking `span_groups` row groups.
 template <typename T, int D, bool kSplit, int S>
-int launch_staged(const T* X, const int* idx, const T* w, int d, int k,
-                  int row0, int n_rows, float* out, cudaStream_t st) {
-  constexpr int kWarps = kStagedThreads / 32;
-  constexpr long long rows_a_block = static_cast<long long>(kSpan) * (32 / S) *
-                                     kWarps;
-  constexpr size_t bytes = static_cast<size_t>(kWarps) * kStages * kRounds *
-                           32 * (kCellBytes<T, D, kSplit> + sizeof(T));
-  static_assert(bytes <= kMaxSmem, "the rings outgrow shared memory");
+int launch_staged(int warps, int span_groups, const T* X, const int* idx,
+                  const T* w, int d, int k, int row0, int n_rows, float* out,
+                  cudaStream_t st) {
+  const long long rows_a_block =
+      static_cast<long long>(span_groups) * (32 / S) * warps;
+  const size_t bytes = static_cast<size_t>(warps) * kStages * kRounds * 32 *
+                       (kCellBytes<T, D, kSplit> + sizeof(T));
+  static_assert(static_cast<size_t>(kMaxStagedWarps) * kStages * kRounds *
+                        32 * (kCellBytes<T, D, kSplit> + sizeof(T)) <=
+                    kMaxSmem,
+                "the rings outgrow shared memory");
   const auto kernel = ell_gather_staged<T, D, kSplit, S>;
   cudaError_t err = cudaSuccess;
-  if constexpr (bytes > 48 * 1024)
+  if (bytes > 48 * 1024)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
@@ -594,60 +639,70 @@ int launch_staged(const T* X, const int* idx, const T* w, int d, int k,
   const dim3 grid(static_cast<unsigned>((n_rows + rows_a_block - 1) /
                                         rows_a_block),
                   kSplit ? (d + D - 1) / D : 1);
-  kernel<<<grid, kStagedThreads, bytes, st>>>(X, idx, w, d, k, row0, n_rows,
-                                              out);
+  kernel<<<grid, 32 * warps, bytes, st>>>(X, idx, w, d, k, row0, n_rows,
+                                          span_groups, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // "hbm": S as for the direct gather, so that both give a row's slots to the
-// same lanes in the same order.
+// same lanes in the same order.  rows = warps x span x (32 / S).
 template <typename T, int D, bool kSplit>
-int launch_staged_k(const T* X, const int* idx, const T* w, int d, int k,
-                    int row0, int n_rows, float* out, cudaStream_t st) {
-#define ELL_STAGED(S) \
-  launch_staged<T, D, kSplit, S>(X, idx, w, d, k, row0, n_rows, out, st)
-  if (k <= 4) return ELL_STAGED(4);
-  if (k <= 8) return ELL_STAGED(8);
-  if (k <= 16) return ELL_STAGED(16);
+int launch_staged_k(Shape sh, const T* X, const int* idx, const T* w, int d,
+                    int k, int row0, int n_rows, float* out,
+                    cudaStream_t st) {
+  const int S = k <= 4 ? 4 : k <= 8 ? 8 : k <= 16 ? 16 : 32;
+  const int span = sh.chunk ? sh.chunk : kSpan;
+  const int per_warp = span * (32 / S);
+  const int warps = sh.rows ? sh.rows / per_warp : kStagedWarps;
+  if (span < 1 || span > 4096 || (sh.rows && sh.rows % per_warp) ||
+      warps < 1 || warps > kMaxStagedWarps)
+    return kInvalid;
+#define ELL_STAGED(S)                                                      \
+  launch_staged<T, D, kSplit, S>(warps, span, X, idx, w, d, k, row0, n_rows, \
+                                 out, st)
+  if (S == 4) return ELL_STAGED(4);
+  if (S == 8) return ELL_STAGED(8);
+  if (S == 16) return ELL_STAGED(16);
   return ELL_STAGED(32);
 #undef ELL_STAGED
 }
 
 template <typename T>
-int launch_d(int layout, const void* Xv, const int* idx, const void* wv, int d,
-             int k, int row0, int n_rows, float* out, cudaStream_t st) {
+int launch_d(int layout, Shape sh, const void* Xv, const int* idx,
+             const void* wv, int d, int k, int row0, int n_rows, float* out,
+             cudaStream_t st) {
   const T* X = static_cast<const T*>(Xv);
   const T* w = static_cast<const T*>(wv);
   if (layout == 1) {
     switch (d) {
-      case 1: return launch_staged_k<T, 1, false>(X, idx, w, d, k, row0, n_rows, out, st);
-      case 2: return launch_staged_k<T, 2, false>(X, idx, w, d, k, row0, n_rows, out, st);
-      case 3: return launch_staged_k<T, 3, false>(X, idx, w, d, k, row0, n_rows, out, st);
-      case 4: return launch_staged_k<T, 4, false>(X, idx, w, d, k, row0, n_rows, out, st);
-      default: return launch_staged_k<T, 4, true>(X, idx, w, d, k, row0, n_rows, out, st);
+      case 1: return launch_staged_k<T, 1, false>(sh, X, idx, w, d, k, row0, n_rows, out, st);
+      case 2: return launch_staged_k<T, 2, false>(sh, X, idx, w, d, k, row0, n_rows, out, st);
+      case 3: return launch_staged_k<T, 3, false>(sh, X, idx, w, d, k, row0, n_rows, out, st);
+      case 4: return launch_staged_k<T, 4, false>(sh, X, idx, w, d, k, row0, n_rows, out, st);
+      default: return launch_staged_k<T, 4, true>(sh, X, idx, w, d, k, row0, n_rows, out, st);
     }
   }
   switch (d) {
-    case 1: return launch_direct_k<T, 1, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    case 2: return launch_direct_k<T, 2, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    case 3: return launch_direct_k<T, 3, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    case 4: return launch_direct_k<T, 4, false>(layout, X, idx, w, d, k, row0, n_rows, out, st);
-    default: return launch_direct_k<T, 4, true>(layout, X, idx, w, d, k, row0, n_rows, out, st);
+    case 1: return launch_direct_k<T, 1, false>(layout, sh, X, idx, w, d, k, row0, n_rows, out, st);
+    case 2: return launch_direct_k<T, 2, false>(layout, sh, X, idx, w, d, k, row0, n_rows, out, st);
+    case 3: return launch_direct_k<T, 3, false>(layout, sh, X, idx, w, d, k, row0, n_rows, out, st);
+    case 4: return launch_direct_k<T, 4, false>(layout, sh, X, idx, w, d, k, row0, n_rows, out, st);
+    default: return launch_direct_k<T, 4, true>(layout, sh, X, idx, w, d, k, row0, n_rows, out, st);
   }
 }
 
-int launch_any(int layout, const void* X, const void* idx, const void* w,
-               int n_x, int d, int k, int row0, int n_rows, int bf16,
-               void* out, void* stream) {
+int launch_any(int layout, Shape sh, const void* X, const void* idx,
+               const void* w, int n_x, int d, int k, int row0, int n_rows,
+               int bf16, void* out, void* stream) {
   if (n_x < 1 || d < 1 || k < 1 || row0 < 0 || n_rows < 0 ||
-      row0 > n_x - n_rows)
-    return static_cast<int>(cudaErrorInvalidValue);
+      row0 > n_x - n_rows || sh.rows < 0 || sh.chunk < 0)
+    return kInvalid;
   if (n_rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   float* o = static_cast<float*>(out);
-  return bf16 ? launch_d<uint16_t>(layout, X, ip, w, d, k, row0, n_rows, o, st)
-              : launch_d<float>(layout, X, ip, w, d, k, row0, n_rows, o, st);
+  return bf16 ? launch_d<uint16_t>(layout, sh, X, ip, w, d, k, row0, n_rows, o, st)
+              : launch_d<float>(layout, sh, X, ip, w, d, k, row0, n_rows, o, st);
 }
 
 }  // namespace
@@ -655,25 +710,32 @@ int launch_any(int layout, const void* X, const void* idx, const void* w,
 // X (n, d), idx (n, k) int32, w (n, k): row-major, contiguous, X and w in
 // the storage type (bf16 != 0: bfloat16, else float32), all 16-byte
 // aligned.  out: (n, d) float32.  layout: 0 "vmem" (direct gather), 1 "hbm"
-// (staged).  Enqueues on `stream` and returns the launch status
-// (cudaError_t as int).
+// (staged).  The launch shape (0: the default): "vmem": rows a block
+// (rows x S threads, a multiple of 32 up to 512) and P, a lane's slots a
+// pass (1, 2, 4 or 8; 1 where k <= 16); "hbm": rows a block (warps x span
+// x 32 / S, 1 to 8 warps) and the span in row groups.  Every shape gives
+// the same bits.  Enqueues on `stream` and returns the launch status
+// (cudaError_t as int; cudaErrorInvalidValue for a shape out of range).
 extern "C" int ell_lap_matvec_launch(const void* X, const void* idx,
                                      const void* w, int n, int d, int k,
-                                     int bf16, int layout, void* out,
-                                     void* stream) {
+                                     int bf16, int layout, int rows,
+                                     int chunk, void* out, void* stream) {
   if (layout != 0 && layout != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(layout, X, idx, w, n, d, k, 0, n, bf16, out, stream);
+  return launch_any(layout, Shape{rows, chunk}, X, idx, w, n, d, k, 0, n,
+                    bf16, out, stream);
 }
 
 // The local-rows kernel: X (n_x, d) replicated, idx (n_rows, k) int32 with
 // global ids in [0, n_x) and w (n_rows, k) one rank's rows of the graph,
 // whose row r is row row0 + r of X (0 <= row0 <= n_x - n_rows).  out:
-// (n_rows, d) float32.  Otherwise as `ell_lap_matvec_launch`.
+// (n_rows, d) float32.  rows, chunk: the launch shape, as for "vmem".
+// Otherwise as `ell_lap_matvec_launch`.
 extern "C" int ell_lap_matvec_local_launch(const void* X, const void* idx,
                                            const void* w, int n_x, int d,
                                            int k, int row0, int n_rows,
-                                           int bf16, void* out, void* stream) {
-  return launch_any(kLocal, X, idx, w, n_x, d, k, row0, n_rows, bf16, out,
-                    stream);
+                                           int bf16, int rows, int chunk,
+                                           void* out, void* stream) {
+  return launch_any(kLocal, Shape{rows, chunk}, X, idx, w, n_x, d, k, row0,
+                    n_rows, bf16, out, stream);
 }

@@ -101,6 +101,13 @@
 // registers, and compacting the live slots of four steps into one pass of
 // the pair terms (through shared memory; also not bit-equal, as above).
 //
+// The launch shape is a runtime choice (`kernels/autotune.py` searches
+// it): rows a block, up to 512 threads (`bh_rows`: rows x S threads, by
+// default 256; `bh_tree`: a warp a row, by default 8 rows).  A row is
+// summed by its own group of lanes whatever the block, so every shape gives
+// the same bits.  `chunk` is not a launch shape: it sets the slices a
+// batch is summed in, and so the sum order.
+//
 // Built by `repro_torch/kernels/_build.py` with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes (`bh_interaction_launch`, `bh_tree_launch`,
@@ -114,7 +121,9 @@ namespace {
 // kinds in ref.py's order: ee, ssne, tsne, tee, epan
 enum Pair { GAUSS = 0, STUDENT = 1, EPAN = 2 };
 
-constexpr int kThreads = 256;          // 8 warps a block
+constexpr int kThreads = 256;          // default threads a block
+constexpr int kMaxThreads = 512;       // most threads a block
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 // bf16 is carried as its raw 16 bits; widening to f32 is exact.
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -170,13 +179,13 @@ __device__ __forceinline__ void add_slot(const float (&x)[D],
 }
 
 template <typename T, int PAIR, int D, int S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 bh_rows(const T* __restrict__ X, const int* __restrict__ idx, long long ld_idx,
         const float* __restrict__ w, long long ld_w,
         const T* __restrict__ table, int n, int width,
         float* __restrict__ s_out, float* __restrict__ f_out) {
   const int lane = threadIdx.x % S;
-  const long long r = (static_cast<long long>(blockIdx.x) * kThreads +
+  const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x +
                        threadIdx.x) / S;
   const bool live = r < n;   // dead lanes still join the shuffles
   float s = 0.f;
@@ -205,58 +214,64 @@ bh_rows(const T* __restrict__ X, const int* __restrict__ idx, long long ld_idx,
 }
 
 template <typename T, int PAIR, int D, int S>
-int launch(const T* X, const int* idx, long long ld_idx, const float* w,
-           long long ld_w, const T* table, int n, int width, float* s_out,
-           float* f_out, cudaStream_t st) {
-  const long long threads = static_cast<long long>(n) * S;
-  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
-  bh_rows<T, PAIR, D, S><<<grid, kThreads, 0, st>>>(
+int launch(int threads, const T* X, const int* idx, long long ld_idx,
+           const float* w, long long ld_w, const T* table, int n, int width,
+           float* s_out, float* f_out, cudaStream_t st) {
+  const long long lanes = static_cast<long long>(n) * S;
+  const dim3 grid(static_cast<unsigned>((lanes + threads - 1) / threads));
+  bh_rows<T, PAIR, D, S><<<grid, threads, 0, st>>>(
       X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // S: the lanes a row, the largest power of two <= width in [4, 32].
+// threads: rows x S (0 rows: 256 threads), a multiple of 32 up to 512.
 template <typename T, int PAIR, int D>
-int launch_s(const T* X, const int* idx, long long ld_idx, const float* w,
-             long long ld_w, const T* table, int n, int width, float* s_out,
-             float* f_out, cudaStream_t st) {
-  if (width >= 32)
-    return launch<T, PAIR, D, 32>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
-  if (width >= 16)
-    return launch<T, PAIR, D, 16>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
-  if (width >= 8)
-    return launch<T, PAIR, D, 8>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
-  return launch<T, PAIR, D, 4>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+int launch_s(int rows, const T* X, const int* idx, long long ld_idx,
+             const float* w, long long ld_w, const T* table, int n, int width,
+             float* s_out, float* f_out, cudaStream_t st) {
+  const int S = width >= 32 ? 32 : width >= 16 ? 16 : width >= 8 ? 8 : 4;
+  const int t = rows ? rows * S : kThreads;
+  if (rows < 0 || rows > kMaxThreads || t < 32 || t > kMaxThreads || t % 32)
+    return kInvalid;
+  if (S == 32)
+    return launch<T, PAIR, D, 32>(t, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+  if (S == 16)
+    return launch<T, PAIR, D, 16>(t, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+  if (S == 8)
+    return launch<T, PAIR, D, 8>(t, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+  return launch<T, PAIR, D, 4>(t, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
 }
 
 template <typename T, int PAIR>
-int launch_d(const T* X, const int* idx, long long ld_idx, const float* w,
-             long long ld_w, const T* table, int n, int d, int width,
-             float* s_out, float* f_out, cudaStream_t st) {
+int launch_d(int rows, const T* X, const int* idx, long long ld_idx,
+             const float* w, long long ld_w, const T* table, int n, int d,
+             int width, float* s_out, float* f_out, cudaStream_t st) {
   switch (d) {
-    case 1: return launch_s<T, PAIR, 1>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
-    case 2: return launch_s<T, PAIR, 2>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
-    case 3: return launch_s<T, PAIR, 3>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
-    default: return launch_s<T, PAIR, 4>(X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+    case 1: return launch_s<T, PAIR, 1>(rows, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+    case 2: return launch_s<T, PAIR, 2>(rows, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+    case 3: return launch_s<T, PAIR, 3>(rows, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
+    default: return launch_s<T, PAIR, 4>(rows, X, idx, ld_idx, w, ld_w, table, n, width, s_out, f_out, st);
   }
 }
 
 template <typename T>
-int launch_kind(int kind, const void* Xv, const int* idx, long long ld_idx,
-                const float* w, long long ld_w, const void* tv, int n, int d,
-                int width, float* s_out, float* f_out, cudaStream_t st) {
+int launch_kind(int kind, int rows, const void* Xv, const int* idx,
+                long long ld_idx, const float* w, long long ld_w,
+                const void* tv, int n, int d, int width, float* s_out,
+                float* f_out, cudaStream_t st) {
   const T* X = static_cast<const T*>(Xv);
   const T* table = static_cast<const T*>(tv);
   if (kind <= 1)
-    return launch_d<T, GAUSS>(X, idx, ld_idx, w, ld_w, table, n, d, width, s_out, f_out, st);
+    return launch_d<T, GAUSS>(rows, X, idx, ld_idx, w, ld_w, table, n, d, width, s_out, f_out, st);
   if (kind <= 3)
-    return launch_d<T, STUDENT>(X, idx, ld_idx, w, ld_w, table, n, d, width, s_out, f_out, st);
-  return launch_d<T, EPAN>(X, idx, ld_idx, w, ld_w, table, n, d, width, s_out, f_out, st);
+    return launch_d<T, STUDENT>(rows, X, idx, ld_idx, w, ld_w, table, n, d, width, s_out, f_out, st);
+  return launch_d<T, EPAN>(rows, X, idx, ld_idx, w, ld_w, table, n, d, width, s_out, f_out, st);
 }
 
 // -- the fused evaluation ------------------------------------------------------
 
-constexpr int kWarps = kThreads / 32;  // rows (sorted positions) a block
+constexpr int kWarps = kThreads / 32;  // default rows (sorted positions) a block
 
 // The lanes `launch_s` gives a slice of `width` slots.
 __device__ __forceinline__ int slice_lanes(int width) {
@@ -311,7 +326,7 @@ __device__ __forceinline__ bool in_range(int v, int size) {
 }
 
 template <typename T, int PAIR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 bh_tree(const T* __restrict__ Xs, const int* __restrict__ cids,
         const int* __restrict__ perm, const int* __restrict__ starts,
         const int* __restrict__ counts, const int* __restrict__ lvl_counts,
@@ -321,7 +336,7 @@ bh_tree(const T* __restrict__ Xs, const int* __restrict__ cids,
         int r, int cap, int chunk, float* __restrict__ s_out,
         long long ld_s, float* __restrict__ f_out) {
   const int lane = threadIdx.x % 32;
-  const int p = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int p = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (p >= n) return;                      // the whole warp
   const float x[2] = {widen(__ldg(Xs + 2ll * p)),
                       widen(__ldg(Xs + 2ll * p + 1))};
@@ -398,26 +413,27 @@ bh_tree(const T* __restrict__ Xs, const int* __restrict__ cids,
 }
 
 template <typename T>
-int tree_kind(int kind, const void* Xs, const int* cids, const int* perm,
-              const int* starts, const int* counts, const int* lvl_counts,
-              const void* lvl_com, const int* res_cnt, const void* res_com,
-              const int2* far, int wf, const int2* near, int wn, int n,
-              int depth, int l1, int r, int cap, int chunk, float* s_out,
-              long long ld_s, float* f_out, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((n + kWarps - 1) / kWarps));
+int tree_kind(int kind, int rows, const void* Xs, const int* cids,
+              const int* perm, const int* starts, const int* counts,
+              const int* lvl_counts, const void* lvl_com, const int* res_cnt,
+              const void* res_com, const int2* far, int wf, const int2* near,
+              int wn, int n, int depth, int l1, int r, int cap, int chunk,
+              float* s_out, long long ld_s, float* f_out, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((n + rows - 1) / rows));
+  const int threads = 32 * rows;
   const T* X = static_cast<const T*>(Xs);
   const T* lc = static_cast<const T*>(lvl_com);
   const T* rc = static_cast<const T*>(res_com);
   if (kind <= 1)
-    bh_tree<T, GAUSS><<<grid, kThreads, 0, st>>>(
+    bh_tree<T, GAUSS><<<grid, threads, 0, st>>>(
         X, cids, perm, starts, counts, lvl_counts, lc, res_cnt, rc, far, wf,
         near, wn, n, depth, l1, r, cap, chunk, s_out, ld_s, f_out);
   else if (kind <= 3)
-    bh_tree<T, STUDENT><<<grid, kThreads, 0, st>>>(
+    bh_tree<T, STUDENT><<<grid, threads, 0, st>>>(
         X, cids, perm, starts, counts, lvl_counts, lc, res_cnt, rc, far, wf,
         near, wn, n, depth, l1, r, cap, chunk, s_out, ld_s, f_out);
   else
-    bh_tree<T, EPAN><<<grid, kThreads, 0, st>>>(
+    bh_tree<T, EPAN><<<grid, threads, 0, st>>>(
         X, cids, perm, starts, counts, lvl_counts, lc, res_cnt, rc, far, wf,
         near, wn, n, depth, l1, r, cap, chunk, s_out, ld_s, f_out);
   return static_cast<int>(cudaGetLastError());
@@ -429,14 +445,16 @@ int tree_kind(int kind, const void* Xs, const int* cids, const int* perm,
 // (bf16 != 0: bfloat16, else float32).  idx (n, width) int32 and w (n,
 // width) float32: unit column stride, row strides ld_idx and ld_w.  kind:
 // index into ("ee", "ssne", "tsne", "tee", "epan").  s_out (n,) and f_out
-// (n, d): float32, contiguous.  Enqueues on `stream` and returns the launch
-// status (cudaError_t as int).
+// (n, d): float32, contiguous.  rows: rows a block (rows x S threads, a
+// multiple of 32 up to 512; 0: 256 threads).  Enqueues on `stream` and
+// returns the launch status (cudaError_t as int; cudaErrorInvalidValue for
+// a shape out of range).
 extern "C" int bh_interaction_launch(const void* X, const void* idx,
                                      long long ld_idx, const void* w,
                                      long long ld_w, const void* table, int n,
                                      int m, int d, int width, int kind,
-                                     int bf16, void* s_out, void* f_out,
-                                     void* stream) {
+                                     int bf16, int rows, void* s_out,
+                                     void* f_out, void* stream) {
   if (n < 0 || m < 1 || d < 1 || d > 4 || width < 1 || kind < 0 ||
       kind > 4 || ld_idx < width || ld_w < width)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -446,10 +464,10 @@ extern "C" int bh_interaction_launch(const void* X, const void* idx,
   const float* wp = static_cast<const float*>(w);
   float* so = static_cast<float*>(s_out);
   float* fo = static_cast<float*>(f_out);
-  return bf16 ? launch_kind<uint16_t>(kind, X, ip, ld_idx, wp, ld_w, table, n,
-                                      d, width, so, fo, st)
-              : launch_kind<float>(kind, X, ip, ld_idx, wp, ld_w, table, n, d,
-                                   width, so, fo, st);
+  return bf16 ? launch_kind<uint16_t>(kind, rows, X, ip, ld_idx, wp, ld_w,
+                                      table, n, d, width, so, fo, st)
+              : launch_kind<float>(kind, rows, X, ip, ld_idx, wp, ld_w, table,
+                                   n, d, width, so, fo, st);
 }
 
 // One whole tree evaluation from the grid state (d = 2).  Xs (n, 2): X in
@@ -459,6 +477,7 @@ extern "C" int bh_interaction_launch(const void* X, const void* idx,
 // and lvl_com (4^l rows, l = l1..depth, concatenated; lvl_com (., 2) in
 // the storage type); res_com (G^2, 2) in the storage type; far (wf, 2) and
 // near (wn, 2) int32 window offsets.  All integers int32, all contiguous.
+// rows: rows (a warp each) a block, 1 to 16 (0: 8).
 // Writes s_out (depth - l1 + 3 rows of row stride ld_s >= n: far levels,
 // near, residual) and f_out (n, 2), float32, in point order.  kind: index
 // into ("ee", "ssne", "tsne", "tee", "epan").  Enqueues on `stream` and
@@ -470,11 +489,13 @@ extern "C" int bh_tree_launch(const void* Xs, const void* cids,
                               const void* res_com, const void* far, int wf,
                               const void* near, int wn, int n, int depth,
                               int l1, int r, int cap, int chunk, int kind,
-                              int bf16, void* s_out, long long ld_s,
+                              int bf16, int rows, void* s_out, long long ld_s,
                               void* f_out, void* stream) {
+  if (rows == 0) rows = kWarps;
   if (n < 0 || l1 < 1 || depth < l1 || depth > 14 || r < 1 || cap < 1 ||
-      chunk < 1 || wf < 1 || wn < 1 || kind < 0 || kind > 4 || ld_s < n)
-    return static_cast<int>(cudaErrorInvalidValue);
+      chunk < 1 || wf < 1 || wn < 1 || kind < 0 || kind > 4 || ld_s < n ||
+      rows < 1 || rows > kMaxThreads / 32)
+    return kInvalid;
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ci = static_cast<const int*>(cids);
@@ -487,10 +508,10 @@ extern "C" int bh_tree_launch(const void* Xs, const void* cids,
   const int2* ne = static_cast<const int2*>(near);
   float* so = static_cast<float*>(s_out);
   float* fo = static_cast<float*>(f_out);
-  return bf16 ? tree_kind<uint16_t>(kind, Xs, ci, pe, sa, co, lc, lvl_com,
-                                    rc, res_com, fa, wf, ne, wn, n, depth, l1,
-                                    r, cap, chunk, so, ld_s, fo, st)
-              : tree_kind<float>(kind, Xs, ci, pe, sa, co, lc, lvl_com, rc,
-                                 res_com, fa, wf, ne, wn, n, depth, l1, r, cap,
-                                 chunk, so, ld_s, fo, st);
+  return bf16 ? tree_kind<uint16_t>(kind, rows, Xs, ci, pe, sa, co, lc,
+                                    lvl_com, rc, res_com, fa, wf, ne, wn, n,
+                                    depth, l1, r, cap, chunk, so, ld_s, fo, st)
+              : tree_kind<float>(kind, rows, Xs, ci, pe, sa, co, lc, lvl_com,
+                                 rc, res_com, fa, wf, ne, wn, n, depth, l1, r,
+                                 cap, chunk, so, ld_s, fo, st);
 }

@@ -19,10 +19,16 @@
 //   * One warp owns one row n and streams its Wa and Wb rows once,
 //     coalesced, 16 bytes a thread (float4 / 8 x bf16), with streaming
 //     (evict-first) loads: the weights are touched once per call.
-//   * A block of 8 warps (8 rows) stages a tile of X columns in shared
-//     memory, in structure-of-arrays form so that each thread reads its
-//     columns with 16-byte shared loads.  X is small (N d floats) and sits
-//     in L2; the staging keeps it off the memory path of the weights.
+//   * A block of 8 warps (8 rows) stages a tile of 1024 X columns in
+//     shared memory, in structure-of-arrays form so that each thread reads
+//     its columns with 16-byte shared loads.  X is small (N d floats) and
+//     sits in L2; the staging keeps it off the memory path of the weights.
+//   * The launch shape is a runtime choice (`kernels/autotune.py` searches
+//     it): 1-16 rows a block and a tile of any multiple of 32 VEC columns
+//     (128 in f32, 256 in bf16), held in dynamic shared memory.  Lane l
+//     takes the columns lane VEC + 32 VEC j of each tile, so with such a
+//     tile every lane sums the same columns in the same order whatever the
+//     tile, and a row's sums are the same bits at every shape.
 //   * Per-row accumulators sum_m a (x_n - x_m), sum_m b (x_n - x_m), e_plus
 //     and s live in registers; d is a template parameter for d <= 4 (the
 //     paper embeds in d = 2), so nothing is padded to 128 lanes as on the
@@ -67,9 +73,11 @@ namespace {
 
 enum Kind { EE = 0, SSNE = 1, TSNE = 2, TEE = 3, EPAN = 4 };
 
-constexpr int kWarps = 8;                 // rows per block, one warp a row
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileCols = 1024;           // X columns staged per tile
+constexpr int kWarps = 8;                 // default rows a block, a warp a row
+constexpr int kMaxWarps = 16;             // most rows a block
+constexpr int kMaxThreads = kMaxWarps * 32;
+constexpr int kTileCols = 1024;           // default X columns staged a tile
+constexpr int kMaxSmem = 48 * 1024;       // dynamic shared memory, no opt-in
 constexpr int kReduceThreads = 1024;
 
 // bf16 is carried as its raw 16 bits; widening to f32 is exact.
@@ -166,17 +174,18 @@ __device__ __forceinline__ void smem_vec(const float* p, float* out) {
 }
 
 // d == D (1..4).  VEC = Storage<T>::kVec when every row is 16-byte aligned
-// (N % kVec == 0), else 1.
+// (N % kVec == 0), else 1.  A block of blockDim.x / 32 rows; `tile`
+// columns staged at a time (a multiple of 32 Storage<T>::kVec).
 template <typename T, int KIND, int D, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 pairwise_rows(const T* __restrict__ X, const T* __restrict__ Wa,
-              const T* __restrict__ Wb, int n, float* __restrict__ la,
-              float* __restrict__ lb, float* __restrict__ ep_part,
-              float* __restrict__ s_part) {
-  __shared__ __align__(16) float xs[D * kTileCols];   // xs[k][c], SoA
+              const T* __restrict__ Wb, int n, int tile,
+              float* __restrict__ la, float* __restrict__ lb,
+              float* __restrict__ ep_part, float* __restrict__ s_part) {
+  extern __shared__ __align__(16) float xs[];   // xs[k][c], SoA, D x tile
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   const bool active = row < n;
 
   float xi[D];
@@ -190,16 +199,16 @@ pairwise_rows(const T* __restrict__ X, const T* __restrict__ Wa,
   const T* wa_row = Wa + (size_t)(active ? row : 0) * n;
   const T* wb_row = Wb + (size_t)(active ? row : 0) * n;
 
-  for (int j0 = 0; j0 < n; j0 += kTileCols) {
-    const int cols = min(kTileCols, n - j0);
+  for (int j0 = 0; j0 < n; j0 += tile) {
+    const int cols = min(tile, n - j0);
     __syncthreads();                       // previous tile consumed
-    for (int e = threadIdx.x; e < cols * D; e += kThreads) {
+    for (int e = threadIdx.x; e < cols * D; e += blockDim.x) {
       const int c = e / D;
-      xs[(e - c * D) * kTileCols + c] = Storage<T>::x(X + (size_t)j0 * D + e);
+      xs[(e - c * D) * tile + c] = Storage<T>::x(X + (size_t)j0 * D + e);
     }
     __syncthreads();
     if (!active) continue;
-    // cols % VEC == 0 (N and kTileCols are multiples of VEC), so a chunk
+    // cols % VEC == 0 (N and the tile are multiples of VEC), so a chunk
     // is either wholly inside the row or wholly past its end
     for (int c0 = lane * VEC; c0 < cols; c0 += 32 * VEC) {
       float wa[VEC], wb[VEC];
@@ -212,7 +221,7 @@ pairwise_rows(const T* __restrict__ X, const T* __restrict__ Wa,
       }
       float xj[D][VEC];
 #pragma unroll
-      for (int k = 0; k < D; ++k) smem_vec<VEC>(xs + k * kTileCols + c0, xj[k]);
+      for (int k = 0; k < D; ++k) smem_vec<VEC>(xs + k * tile + c0, xj[k]);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
         float dx[D];
@@ -252,14 +261,14 @@ pairwise_rows(const T* __restrict__ X, const T* __restrict__ Wa,
 // dimensions [4 blockIdx.y, 4 blockIdx.y + 4).  Only blockIdx.y == 0 writes
 // the scalar partials.
 template <typename T, int KIND>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 pairwise_rows_any_d(const T* __restrict__ X, const T* __restrict__ Wa,
                     const T* __restrict__ Wb, int n, int d,
                     float* __restrict__ la, float* __restrict__ lb,
                     float* __restrict__ ep_part, float* __restrict__ s_part) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= n) return;                    // no shared memory, no barrier
   const int k0 = blockIdx.y * 4;
   const int nk = min(4, d - k0);
@@ -325,34 +334,42 @@ reduce_partials(const float* __restrict__ ep_part,
   if (tid == 0) { out[0] = se[0]; out[1] = ssum[0]; }
 }
 
+// The launch shape: `rows` rows a block (one warp each) and, for d <= 4,
+// `tile` X columns staged a tile.
+struct Shape {
+  int rows, tile;
+};
+
 template <typename T, int KIND, int D>
-void launch_d(const T* X, const T* Wa, const T* Wb, int n, float* la,
-              float* lb, float* ep_part, float* s_part, cudaStream_t st) {
-  const dim3 grid((n + kWarps - 1) / kWarps);
+void launch_d(const T* X, const T* Wa, const T* Wb, int n, Shape sh,
+              float* la, float* lb, float* ep_part, float* s_part,
+              cudaStream_t st) {
+  const dim3 grid((n + sh.rows - 1) / sh.rows);
+  const size_t smem = sizeof(float) * D * sh.tile;
   constexpr int V = Storage<T>::kVec;
   if (n % V == 0)
-    pairwise_rows<T, KIND, D, V><<<grid, kThreads, 0, st>>>(
-        X, Wa, Wb, n, la, lb, ep_part, s_part);
+    pairwise_rows<T, KIND, D, V><<<grid, 32 * sh.rows, smem, st>>>(
+        X, Wa, Wb, n, sh.tile, la, lb, ep_part, s_part);
   else
-    pairwise_rows<T, KIND, D, 1><<<grid, kThreads, 0, st>>>(
-        X, Wa, Wb, n, la, lb, ep_part, s_part);
+    pairwise_rows<T, KIND, D, 1><<<grid, 32 * sh.rows, smem, st>>>(
+        X, Wa, Wb, n, sh.tile, la, lb, ep_part, s_part);
 }
 
 template <typename T, int KIND>
 void launch_kind(const void* Xv, const void* Wav, const void* Wbv, int n,
-                 int d, float* la, float* lb, float* ep_part, float* s_part,
-                 cudaStream_t st) {
+                 int d, Shape sh, float* la, float* lb, float* ep_part,
+                 float* s_part, cudaStream_t st) {
   const T* X = static_cast<const T*>(Xv);
   const T* Wa = static_cast<const T*>(Wav);
   const T* Wb = static_cast<const T*>(Wbv);
   switch (d) {
-    case 1: launch_d<T, KIND, 1>(X, Wa, Wb, n, la, lb, ep_part, s_part, st); break;
-    case 2: launch_d<T, KIND, 2>(X, Wa, Wb, n, la, lb, ep_part, s_part, st); break;
-    case 3: launch_d<T, KIND, 3>(X, Wa, Wb, n, la, lb, ep_part, s_part, st); break;
-    case 4: launch_d<T, KIND, 4>(X, Wa, Wb, n, la, lb, ep_part, s_part, st); break;
+    case 1: launch_d<T, KIND, 1>(X, Wa, Wb, n, sh, la, lb, ep_part, s_part, st); break;
+    case 2: launch_d<T, KIND, 2>(X, Wa, Wb, n, sh, la, lb, ep_part, s_part, st); break;
+    case 3: launch_d<T, KIND, 3>(X, Wa, Wb, n, sh, la, lb, ep_part, s_part, st); break;
+    case 4: launch_d<T, KIND, 4>(X, Wa, Wb, n, sh, la, lb, ep_part, s_part, st); break;
     default: {
-      const dim3 grid((n + kWarps - 1) / kWarps, (d + 3) / 4);
-      pairwise_rows_any_d<T, KIND><<<grid, kThreads, 0, st>>>(
+      const dim3 grid((n + sh.rows - 1) / sh.rows, (d + 3) / 4);
+      pairwise_rows_any_d<T, KIND><<<grid, 32 * sh.rows, 0, st>>>(
           X, Wa, Wb, n, d, la, lb, ep_part, s_part);
     }
   }
@@ -360,15 +377,22 @@ void launch_kind(const void* Xv, const void* Wav, const void* Wbv, int n,
 
 template <typename T>
 int launch_storage(const void* X, const void* Wa, const void* Wb, int n,
-                   int d, int kind, float* la, float* lb, float* ep_part,
-                   float* s_part, cudaStream_t st) {
+                   int d, int kind, Shape sh, float* la, float* lb,
+                   float* ep_part, float* s_part, cudaStream_t st) {
+  // a tile of whole 32-lane strides keeps every lane's columns, and so the
+  // sum order, what it is at the default tile
+  constexpr int kStride = 32 * Storage<T>::kVec;
+  if (sh.rows < 1 || sh.rows > kMaxWarps || sh.tile < kStride ||
+      sh.tile % kStride ||
+      sizeof(float) * (d < 4 ? d : 4) * static_cast<size_t>(sh.tile) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (kind) {
     case EE:
     case SSNE:   // same pair terms as EE; s is normalised by the caller
-      launch_kind<T, EE>(X, Wa, Wb, n, d, la, lb, ep_part, s_part, st); break;
-    case TSNE: launch_kind<T, TSNE>(X, Wa, Wb, n, d, la, lb, ep_part, s_part, st); break;
-    case TEE: launch_kind<T, TEE>(X, Wa, Wb, n, d, la, lb, ep_part, s_part, st); break;
-    case EPAN: launch_kind<T, EPAN>(X, Wa, Wb, n, d, la, lb, ep_part, s_part, st); break;
+      launch_kind<T, EE>(X, Wa, Wb, n, d, sh, la, lb, ep_part, s_part, st); break;
+    case TSNE: launch_kind<T, TSNE>(X, Wa, Wb, n, d, sh, la, lb, ep_part, s_part, st); break;
+    case TEE: launch_kind<T, TEE>(X, Wa, Wb, n, d, sh, la, lb, ep_part, s_part, st); break;
+    case EPAN: launch_kind<T, EPAN>(X, Wa, Wb, n, d, sh, la, lb, ep_part, s_part, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -379,20 +403,26 @@ int launch_storage(const void* X, const void* Wa, const void* Wb, int n,
 // X (n, d), Wa, Wb (n, n): row-major, contiguous, 16-byte aligned, all in
 // the storage type (bf16 != 0: bfloat16, else float32).  la, lb: (n, d)
 // float32.  partials: 2 n float32 scratch.  out: 2 float32 (e_plus, s).
-// Enqueues on `stream` and returns the launch status (cudaError_t as int).
+// rows: rows a block, 1..16 (0: 8); tile_cols: X columns staged a tile, a
+// multiple of 128 in float32 and of 256 in bfloat16 whose min(d, 4) x
+// tile_cols floats fit in 48 KB (0: 1024).  Every shape gives the same
+// bits.  Enqueues on `stream` and returns the launch status (cudaError_t
+// as int; cudaErrorInvalidValue for a shape out of range).
 extern "C" int pairwise_terms_launch(const void* X, const void* Wa,
                                      const void* Wb, int n, int d, int kind,
-                                     int bf16, void* la, void* lb,
-                                     void* partials, void* out,
-                                     void* stream) {
-  if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                     int bf16, int rows, int tile_cols,
+                                     void* la, void* lb, void* partials,
+                                     void* out, void* stream) {
+  if (n < 1 || d < 1 || rows < 0 || tile_cols < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh{rows ? rows : kWarps, tile_cols ? tile_cols : kTileCols};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ep_part = static_cast<float*>(partials);
   float* s_part = ep_part + n;
   const int bad =
-      bf16 ? launch_storage<uint16_t>(X, Wa, Wb, n, d, kind, static_cast<float*>(la),
+      bf16 ? launch_storage<uint16_t>(X, Wa, Wb, n, d, kind, sh, static_cast<float*>(la),
                                       static_cast<float*>(lb), ep_part, s_part, st)
-           : launch_storage<float>(X, Wa, Wb, n, d, kind, static_cast<float*>(la),
+           : launch_storage<float>(X, Wa, Wb, n, d, kind, sh, static_cast<float*>(la),
                                    static_cast<float*>(lb), ep_part, s_part, st);
   if (bad) return bad;
   cudaError_t err = cudaGetLastError();

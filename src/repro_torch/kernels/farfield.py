@@ -10,7 +10,12 @@ tensors only and launch their kernel or raise; the CPU paths live in
 
 `launch_counts["bh_interaction"]` and `launch_counts["bh_tree"]` grow by one
 for every launch, so a run can show which kernel its main path went
-through.
+through; launches made by an autotune search are counted apart
+(`autotune.search_launches`).
+
+The launch shape, `block_rows` rows a block (None: 256 / S of them for
+`bh_interaction_cuda`, 8 for the fused kernel), changes no bit of the
+outputs (csrc/farfield.cu); `kernels.autotune` searches it.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import dataclasses
 import torch
 
 from . import _build
+from .autotune import count_launch
 from .ref import KINDS, TreeGrid
 
 #: kernel launches in this process, by kernel name
@@ -44,12 +50,12 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.bh_tree_launch
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 9
+                       + [ctypes.c_int] * 10
                        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -99,15 +105,13 @@ def _check(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                              f"be a column slice of a wider batch)")
 
 
-def bh_interaction_cuda(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-                        table: torch.Tensor, kind: str
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(s (N,), F (N, d)) of the ref.py contract by the CUDA kernel.
-
-    X (N, d) and table (M, d): contiguous CUDA tensors of one storage dtype
-    (float32 or bfloat16), d <= 4; idx (N, W) int32 with entries in [0, M)
-    and w (N, W) float32, each with unit column stride.  Outputs are float32,
-    enqueued on the current stream."""
+def bh_launcher(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                table: torch.Tensor, kind: str, *,
+                block_rows: int | None = None):
+    """Check the inputs once and allocate the outputs: (launch, (s, F)),
+    where each `launch()` enqueues the kernel on the current stream of X's
+    device (writing s and F again) and raises if the launch fails.
+    `bh_interaction_cuda` launches it once; an autotune search times it."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     _check(X, idx, w, table)
@@ -116,18 +120,39 @@ def bh_interaction_cuda(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     lib = _lib()
     s = torch.empty((n,), dtype=torch.float32, device=X.device)
     F = torch.empty((n, d), dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    status = lib.bh_interaction_launch(
-        X.data_ptr(), idx.data_ptr(), idx.stride(0), w.data_ptr(),
-        w.stride(0), table.data_ptr(), n, table.shape[0], d, width,
-        KINDS.index(kind), STORAGE[X.dtype], s.data_ptr(), F.data_ptr(),
-        stream)
-    if status != 0:
-        raise RuntimeError(f"bh_interaction kernel launch failed: CUDA error "
-                           f"{status} (n={n}, d={d}, width={width}, "
-                           f"kind={kind!r})")
-    launch_counts["bh_interaction"] += 1
-    return s, F
+    args = (X.data_ptr(), idx.data_ptr(), idx.stride(0), w.data_ptr(),
+            w.stride(0), table.data_ptr(), n, table.shape[0], d, width,
+            KINDS.index(kind), STORAGE[X.dtype], block_rows or 0,
+            s.data_ptr(), F.data_ptr(),
+            torch.cuda.current_stream(X.device).cuda_stream)
+
+    def launch() -> None:
+        status = lib.bh_interaction_launch(*args)
+        if status != 0:
+            raise RuntimeError(
+                f"bh_interaction kernel launch failed: CUDA error {status} "
+                f"(n={n}, d={d}, width={width}, kind={kind!r}, "
+                f"block_rows={block_rows})")
+        count_launch(launch_counts, "bh_interaction")
+
+    return launch, (s, F)
+
+
+def bh_interaction_cuda(X: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                        table: torch.Tensor, kind: str, *,
+                        block_rows: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s (N,), F (N, d)) of the ref.py contract by the CUDA kernel.
+
+    X (N, d) and table (M, d): contiguous CUDA tensors of one storage dtype
+    (float32 or bfloat16), d <= 4; idx (N, W) int32 with entries in [0, M)
+    and w (N, W) float32, each with unit column stride.  `block_rows` rows a
+    block (block_rows x S threads a multiple of 32 up to 512; None: 256
+    threads); a shape out of range raises.  Outputs are float32, enqueued on
+    the current stream."""
+    launch, out = bh_launcher(X, idx, w, table, kind, block_rows=block_rows)
+    launch()
+    return out
 
 
 def _check_tree(grid: TreeGrid) -> None:
@@ -231,12 +256,11 @@ def pack_tree(grid: TreeGrid) -> TreeArgs:
         chunk=grid.chunk, n_batches=grid.n_batches)
 
 
-def launch_tree(a: TreeArgs, kind: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the fused kernel on a packed grid state: (s_rows
-    (n_batches, N), F (N, 2)), float32, in point order, enqueued on the
-    current stream.  s_rows is a view of a buffer whose rows start 512-byte
-    aligned, as a fresh (N,) tensor does, so that a reduction over a row
-    runs as over one; F is contiguous."""
+def tree_launcher(a: TreeArgs, kind: str, *, block_rows: int | None = None):
+    """Allocate the fused kernel's outputs for a packed grid state:
+    (launch, (s_rows, F)), where each `launch()` enqueues the kernel on the
+    current stream of Xs's device and raises if the launch fails.
+    `launch_tree` launches it once; an autotune search times it."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     n = a.Xs.shape[0]
@@ -244,24 +268,43 @@ def launch_tree(a: TreeArgs, kind: str) -> tuple[torch.Tensor, torch.Tensor]:
     s_rows = torch.empty((a.n_batches, ld), dtype=torch.float32,
                          device=a.Xs.device)
     F = torch.empty((n, 2), dtype=torch.float32, device=a.Xs.device)
-    stream = torch.cuda.current_stream(a.Xs.device).cuda_stream
-    status = _lib().bh_tree_launch(
-        a.Xs.data_ptr(), a.cids.data_ptr(), a.perm.data_ptr(),
-        a.starts.data_ptr(), a.counts.data_ptr(), a.lvl_counts.data_ptr(),
-        a.lvl_com.data_ptr(), a.res_cnt.data_ptr(), a.res_com.data_ptr(),
-        a.far.data_ptr(), a.far.shape[0], a.near.data_ptr(), a.near.shape[0],
-        n, a.depth, a.l1, a.r, a.cap, a.chunk, KINDS.index(kind),
-        STORAGE[a.Xs.dtype], s_rows.data_ptr(), ld, F.data_ptr(), stream)
-    if status != 0:
-        raise RuntimeError(f"bh_tree kernel launch failed: CUDA error "
-                           f"{status} (n={n}, depth={a.depth}, r={a.r}, "
-                           f"cap={a.cap}, kind={kind!r})")
-    launch_counts["bh_tree"] += 1
-    return s_rows[:, :n], F
+    lib = _lib()
+    args = (a.Xs.data_ptr(), a.cids.data_ptr(), a.perm.data_ptr(),
+            a.starts.data_ptr(), a.counts.data_ptr(), a.lvl_counts.data_ptr(),
+            a.lvl_com.data_ptr(), a.res_cnt.data_ptr(), a.res_com.data_ptr(),
+            a.far.data_ptr(), a.far.shape[0], a.near.data_ptr(),
+            a.near.shape[0], n, a.depth, a.l1, a.r, a.cap, a.chunk,
+            KINDS.index(kind), STORAGE[a.Xs.dtype], block_rows or 0,
+            s_rows.data_ptr(), ld, F.data_ptr(),
+            torch.cuda.current_stream(a.Xs.device).cuda_stream)
+
+    def launch() -> None:
+        status = lib.bh_tree_launch(*args)
+        if status != 0:
+            raise RuntimeError(
+                f"bh_tree kernel launch failed: CUDA error {status} (n={n}, "
+                f"depth={a.depth}, r={a.r}, cap={a.cap}, kind={kind!r}, "
+                f"block_rows={block_rows})")
+        count_launch(launch_counts, "bh_tree")
+
+    return launch, (s_rows[:, :n], F)
 
 
-def bh_tree_cuda(grid: TreeGrid, kind: str
+def launch_tree(a: TreeArgs, kind: str, *, block_rows: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the fused kernel on a packed grid state: (s_rows
+    (n_batches, N), F (N, 2)), float32, in point order, enqueued on the
+    current stream.  s_rows is a view of a buffer whose rows start 512-byte
+    aligned, as a fresh (N,) tensor does, so that a reduction over a row
+    runs as over one; F is contiguous.  `block_rows` rows (a warp each) a
+    block, 1 to 16 (None: 8); a shape out of range raises."""
+    launch, out = tree_launcher(a, kind, block_rows=block_rows)
+    launch()
+    return out
+
+
+def bh_tree_cuda(grid: TreeGrid, kind: str, *, block_rows: int | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(s_rows (n_batches, N), F (N, 2)) of the `ref.bh_tree_ref` contract
     by one launch of the fused kernel (`pack_tree`, then `launch_tree`)."""
-    return launch_tree(pack_tree(grid), kind)
+    return launch_tree(pack_tree(grid), kind, block_rows=block_rows)

@@ -7,7 +7,12 @@ launches the kernel or raises; the CPU path and the choice between the two
 live in `ops.pairwise_terms`.
 
 `launch_counts["pairwise_terms"]` grows by one for every launch, so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel; launches made by an
+autotune search are counted apart (`autotune.search_launches`).
+
+The launch shape (`block_rows` rows a block, `block_cols` X columns staged
+a tile; None: the fixed 8 and 1024) changes no bit of the outputs
+(csrc/pairwise.cu); `kernels.autotune` searches it.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import ctypes
 import torch
 
 from . import _build
+from .autotune import count_launch
 from .ref import KINDS, PairwiseTerms
 
 #: kernel launches in this process, by kernel name
@@ -38,6 +44,7 @@ def _lib() -> ctypes.CDLL:
         fn = lib.pairwise_terms_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -70,12 +77,13 @@ def _check(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor) -> None:
             raise ValueError(f"{name} must share X's dtype and device")
 
 
-def pairwise_terms_cuda(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
-                        kind: str) -> PairwiseTerms:
-    """L(a)X, L(b)X, e_plus and s (ref.py contract) by the CUDA kernel.
-
-    X, Wa, Wb: contiguous CUDA tensors of one storage dtype (float32 or
-    bfloat16); outputs are float32.  Enqueued on the current stream."""
+def pairwise_launcher(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
+                      kind: str, *, block_rows: int | None = None,
+                      block_cols: int | None = None):
+    """Check the inputs once and allocate the outputs: (launch, terms),
+    where each `launch()` enqueues the kernel on the current stream of
+    X's device (writing `terms` again) and raises if the launch fails.
+    `pairwise_terms_cuda` launches it once; an autotune search times it."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     _check(X, Wa, Wb)
@@ -85,13 +93,36 @@ def pairwise_terms_cuda(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
     lb = torch.empty_like(la)
     partials = torch.empty(2 * n, dtype=torch.float32, device=X.device)
     out = torch.empty(2, dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    status = lib.pairwise_terms_launch(
-        X.data_ptr(), Wa.data_ptr(), Wb.data_ptr(), n, d, KINDS.index(kind),
-        STORAGE[X.dtype], la.data_ptr(), lb.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), stream)
-    if status != 0:
-        raise RuntimeError(f"pairwise_terms kernel launch failed: CUDA error "
-                           f"{status} (n={n}, d={d}, kind={kind!r})")
-    launch_counts["pairwise_terms"] += 1
-    return PairwiseTerms(la_x=la, lb_x=lb, e_plus=out[0], s=out[1])
+    args = (X.data_ptr(), Wa.data_ptr(), Wb.data_ptr(), n, d,
+            KINDS.index(kind), STORAGE[X.dtype], block_rows or 0,
+            block_cols or 0, la.data_ptr(), lb.data_ptr(),
+            partials.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(X.device).cuda_stream)
+
+    def launch() -> None:
+        status = lib.pairwise_terms_launch(*args)
+        if status != 0:
+            raise RuntimeError(
+                f"pairwise_terms kernel launch failed: CUDA error {status} "
+                f"(n={n}, d={d}, kind={kind!r}, block_rows={block_rows}, "
+                f"block_cols={block_cols})")
+        count_launch(launch_counts, "pairwise_terms")
+
+    return launch, PairwiseTerms(la_x=la, lb_x=lb, e_plus=out[0], s=out[1])
+
+
+def pairwise_terms_cuda(X: torch.Tensor, Wa: torch.Tensor, Wb: torch.Tensor,
+                        kind: str, *, block_rows: int | None = None,
+                        block_cols: int | None = None) -> PairwiseTerms:
+    """L(a)X, L(b)X, e_plus and s (ref.py contract) by the CUDA kernel.
+
+    X, Wa, Wb: contiguous CUDA tensors of one storage dtype (float32 or
+    bfloat16); outputs are float32.  `block_rows` (1-16) and `block_cols`
+    (a multiple of 128 in float32, of 256 in bfloat16, whose min(d, 4)
+    float columns fit in 48 KB) set the launch shape; None takes the fixed
+    8 and 1024.  A shape out of range raises.  Enqueued on the current
+    stream."""
+    launch, terms = pairwise_launcher(X, Wa, Wb, kind, block_rows=block_rows,
+                                      block_cols=block_cols)
+    launch()
+    return terms

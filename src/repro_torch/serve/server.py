@@ -33,23 +33,15 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.api.spec import TransformSpec
 from repro_torch.api.transform import (_resolve_k, resolve_transform_spec,
                                        transform_points)
+from repro_torch.kernels.autotune import device_kind
 from repro_torch.obs import RequestRecord, activate, resolve_telemetry, span
 
 from .batching import MicroBatcher
 from .metrics import LatencyStats
-
-
-def device_kind(device: torch.device) -> str:
-    """A stable, filename-safe id of the device a cache entry is for (the
-    counterpart of the reference's `kernels.autotune.device_kind`)."""
-    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else device.type)
-    return "".join(c if c.isalnum() else "-" for c in kind.lower())
 
 
 def batch_bucket(n: int, max_batch: int) -> int:

@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.analysis.guards import explicit_read
 from repro_torch.kernels import ops
 
 from .graph import NeighborGraph
@@ -157,6 +158,14 @@ def sparse_laplacian_eigenmaps(g: NeighborGraph,
 # -- preconditioned CG ----------------------------------------------------------
 
 
+def _above(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a > b read back to the host: PCG's one flag a CG step, the
+    reference's stopping rule (`analysis.guards.explicit_read`)."""
+    flag = a > b
+    with explicit_read():
+        return bool(flag)
+
+
 class PCGResult(NamedTuple):
     x: torch.Tensor             # (N, d)
     n_iters: int
@@ -185,7 +194,7 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], B: torch.Tensor,
     p = precond(r)
     rz = vdot(r, p)
     k = 0
-    while k < maxiter and bool(torch.linalg.norm(r) > tol * b_norm):
+    while k < maxiter and _above(torch.linalg.norm(r), tol * b_norm):
         Ap = matvec(p)
         alpha = rz / torch.clamp_min(vdot(p, Ap), 1e-30)
         x = x + alpha * p

@@ -284,7 +284,7 @@ def make_sharded_energy_grad(mesh: Mesh, row_axes: tuple[str, ...],
             if exhaustive or z_prev is None:
                 z = s_hat_g             # exact Z: nothing left to smooth
             else:
-                zd = torch.as_tensor(z_decay, dtype=dt, device=dev)
+                zd = torch.full((), z_decay, dtype=dt, device=dev)
                 z = torch.where(z_prev > 0,
                                 zd * z_prev + (1.0 - zd) * s_hat_g, s_hat_g)
         else:

@@ -119,7 +119,9 @@ def test_nested_state_with_python_scalars_round_trips(tmp_path):
     """A strategy state like L-BFGS's: tensors, python ints and bools,
     tuples and None, in `jax.tree_util`'s order; each leaf comes back in
     its example leaf's kind."""
-    state = {"S": torch.randn(2, 3, 2), "head": torch.tensor(1),
+    state = {"S": torch.randn(2, 3, 2,
+                              generator=torch.Generator().manual_seed(0)),
+             "head": torch.tensor(1),
              "pushes": 3, "started": True, "pair": (torch.ones(2), None),
              "alpha": np.asarray(0.25, np.float64)}
     ck = Checkpointer(str(tmp_path))

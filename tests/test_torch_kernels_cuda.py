@@ -226,9 +226,10 @@ def test_cuda_ell_kernel_rejects_what_it_cannot_take(cuda_device):
         ell_lap_matvec_cuda(X, idx[:32], w[:32])
     # the staged gather's rings do not grow with k: a row of 100000 slots
     # runs, with the direct gather's bits
+    g = torch.Generator(device=cuda_device).manual_seed(0)
     wide = torch.randint(0, 64, (64, 100000), dtype=torch.int32,
-                         device=cuda_device)
-    ww = torch.rand(wide.shape, device=cuda_device)
+                         device=cuda_device, generator=g)
+    ww = torch.rand(wide.shape, device=cuda_device, generator=g)
     assert torch.equal(ell_lap_matvec_cuda(X, wide, ww, layout="hbm"),
                        ell_lap_matvec_cuda(X, wide, ww, layout="vmem"))
     # a launch the library refuses raises and is not counted; nothing
@@ -734,3 +735,160 @@ def test_dense_mesh_tile_on_the_card_matches_the_cpu(cuda_device, kind):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+# -- launch shapes: every autotune candidate gives the fixed shape's bits -------
+
+
+def _terms(t):
+    return (t.la_x, t.lb_x, t.e_plus, t.s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_pairwise_candidates_bit_equal_to_fixed(cuda_device, storage):
+    """Every pairwise candidate (rows a block x staged tile) gives the fixed
+    shape's la_x, lb_x, e_plus and s bit for bit: aligned and ragged N, one
+    tile and several, d = 2, 3 and the generic d = 6."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.pairwise import pairwise_terms_cuda
+
+    for n, d in [(256, 2), (301, 3), (3000, 2), (200, 6)]:
+        X, Wa, Wb = (ops.to_storage(torch.from_numpy(a).to(cuda_device),
+                                    storage) for a in _problem(n, n, d))
+        for kind in ("ee", "tsne"):
+            fixed = _terms(pairwise_terms_cuda(X, Wa, Wb, kind))
+            for cfg in autotune.pairwise_candidates(d=d):
+                got = _terms(pairwise_terms_cuda(
+                    X, Wa, Wb, kind, block_rows=cfg.block_rows,
+                    block_cols=cfg.block_cols))
+                assert all(torch.equal(a, b) for a, b in zip(got, fixed)), (
+                    n, d, kind, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["vmem", "hbm", "local"])
+def test_cuda_ell_candidates_bit_equal_to_fixed(cuda_device, layout,
+                                                storage):
+    """Every candidate of the direct gather (threads a block x P), the
+    staged gather (warps x span) and the local-rows kernel gives the fixed
+    shape's bits, at every lane-group size and slot bucket."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.sparse_attractive import (
+        ell_lap_matvec_cuda, ell_lap_matvec_local_cuda)
+
+    for k in ELL_KS:
+        for d in (1, 2, 3, 6):
+            X, idx, w = _ell_graph(k + d, 1000, k, d, cuda_device)
+            Xs, ws = ops.to_storage(X, storage), ops.to_storage(w, storage)
+            if layout == "local":
+                def run(**shape):
+                    return ell_lap_matvec_local_cuda(
+                        Xs, idx[300:700].clone(), ws[300:700].clone(), 300,
+                        **shape)
+            else:
+                def run(**shape):
+                    return ell_lap_matvec_cuda(Xs, idx, ws, layout=layout,
+                                               **shape)
+            fixed = run()
+            lay = "hbm" if layout == "hbm" else "vmem"
+            for cfg in autotune.ell_candidates(k=k, layouts=[lay]):
+                got = run(block_rows=cfg.block_rows, chunk=cfg.chunk)
+                assert torch.equal(got, fixed), (k, d, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_cuda_bh_candidates_bit_equal_to_fixed(cuda_device, storage):
+    """The per-batch cell interaction at every block size, and the fused
+    tree kernel at every rows a block, give the fixed shape's bits."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.farfield import (bh_interaction_cuda,
+                                              bh_tree_cuda)
+    from repro_torch.sparse import farfield as ff
+
+    for n, width, m, d in [(300, 1, 16, 2), (301, 25, 64, 1),
+                           (1000, 96, 256, 2), (999, 128, 999, 3)]:
+        X, idx, w, table = _bh_batch(width, n, width, m, d, cuda_device)
+        Xs, tab = ops.to_storage(X, storage), ops.to_storage(table, storage)
+        for kind in ("ee", "tsne"):
+            fixed = bh_interaction_cuda(Xs, idx, w, tab, kind)
+            for cfg in autotune.bh_candidates(width=width):
+                got = bh_interaction_cuda(Xs, idx, w, tab, kind,
+                                          block_rows=cfg.block_rows)
+                assert all(torch.equal(a, b) for a, b in zip(got, fixed)), (
+                    n, width, kind, cfg)
+    X = ops.to_storage(torch.from_numpy(_tree_cloud(3000, seed=5))
+                       .to(cuda_device), storage)
+    grid = ff._grid_state(X, ff.make_grid_plan(3000, theta=0.5))
+    for kind in ("ee", "tsne"):
+        fixed = bh_tree_cuda(grid, kind)
+        for cfg in autotune.bh_tree_candidates():
+            got = bh_tree_cuda(grid, kind, block_rows=cfg.block_rows)
+            assert all(torch.equal(a, b) for a, b in zip(got, fixed)), (
+                kind, cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_out_of_range_launch_shapes_raise(cuda_device):
+    """A shape the entry point does not take returns cudaErrorInvalidValue,
+    and the wrapper raises: no fallback, no count."""
+    from repro_torch.kernels import pairwise
+    from repro_torch.kernels.farfield import bh_interaction_cuda, bh_tree_cuda
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
+    from repro_torch.sparse import farfield as ff
+
+    X, Wa, Wb = (torch.from_numpy(a).to(cuda_device)
+                 for a in _problem(0, 64, 2))
+    before = dict(launch_counts)
+    for shape in ({"block_rows": 17}, {"block_cols": 100},
+                  {"block_cols": 128 * 100}):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pairwise.pairwise_terms_cuda(X, Wa, Wb, "ee", **shape)
+    assert launch_counts == before
+    X, idx, w = _ell_graph(0, 64, 90, 2, cuda_device)
+    before = dict(sparse_attractive.launch_counts)
+    for layout, shape in (("vmem", {"chunk": 3}), ("vmem", {"block_rows": 17}),
+                          ("hbm", {"block_rows": 33, "chunk": 8}),
+                          ("hbm", {"block_rows": 16 * 8, "chunk": 8})):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ell_lap_matvec_cuda(X, idx, w, layout=layout, **shape)
+    X4, idx4, w4 = _ell_graph(0, 64, 4, 2, cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ell_lap_matvec_cuda(X4, idx4, w4, chunk=2)      # S = 4 has P = 1
+    assert sparse_attractive.launch_counts == before
+    X, idx, w, table = _bh_batch(0, 64, 25, 16, 2, cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bh_interaction_cuda(X, idx, w, table, "ee", block_rows=3)
+    grid = ff._grid_state(torch.from_numpy(_tree_cloud(256, 0))
+                          .to(cuda_device), ff.make_grid_plan(256))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bh_tree_cuda(grid, "ee", block_rows=17)
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_autotunes_and_counts_search_launches_apart(
+        cuda_device, monkeypatch):
+    """On CUDA tensors the dispatch searches once a key (its launches apart
+    from launch_counts), hits after, and gives the fixed shape's bits."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.sparse_attractive import ell_lap_matvec_cuda
+
+    monkeypatch.delenv(autotune.CACHE_ENV, raising=False)
+    autotune.clear_cache()
+    X, idx, w = _ell_graph(3, 4096, 90, 2, cuda_device)
+    before = dict(sparse_attractive.launch_counts)
+    searches = autotune.n_searches
+    out = ops.ell_lap_matvec(X, idx, w)
+    rec = dict(ops.last_dispatch("ell_lap_matvec"))
+    assert rec["autotuned"] and not rec["cache_hit"]
+    assert autotune.n_searches == searches + 1
+    assert autotune.search_launches.get("ell_lap_matvec_vmem", 0) >= 6
+    assert (sparse_attractive.launch_counts["ell_lap_matvec_vmem"]
+            == before["ell_lap_matvec_vmem"] + 1)
+    again = ops.ell_lap_matvec(X, idx, w)
+    assert ops.last_dispatch("ell_lap_matvec")["cache_hit"]
+    assert torch.equal(out, again)
+    assert torch.equal(out, ell_lap_matvec_cuda(X, idx, w))
+    autotune.clear_cache()
