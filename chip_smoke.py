@@ -277,6 +277,30 @@ Phases, each printing one line (or a few) and failing the run on error:
               telemetry=<dir>)`: 512 request records with status ok, one
               serve/batch span for each batch of its `stats()`, and rows
               bit-equal to the server's without telemetry.
+ 22. lm_serve — the LM scaffolding's serving path (`repro_torch.configs`,
+              `models`, `data.batch_for`, `launch/serve.py`), in a fresh
+              process of its own.  The ten archs' smoke configs at float32
+              compute on the card and the CPU, the same params and tokens:
+              a prefill and four teacher-forced decode steps (each from the
+              CPU's caches), float32 leaves within 1e-4 of the leaf's scale,
+              bf16 leaves within one ulp of the leaf's largest value, ints
+              exactly.  Then at full width,
+              each at the depth one card holds with f32 master weights
+              (printed): qwen2-7b (all 28 layers, 7.6 B params), rwkv6-7b
+              (32), zamba2-2.7b (54), musicgen-medium (48),
+              llama-3.2-vision-90b (one group of 5 layers) and grok-1-314b
+              (1 layer, capacity_factor 8), params drawn on the card: the
+              reference serve driver's loop (batch 4, prompt 32, 16 sampled
+              tokens at temperature 1) twice, printing the warm prefill ms,
+              decode p50 / p99 ms a step, tokens a second and peak memory;
+              finite logits; four teacher-forced decode steps against a
+              prefill over T + 4 within 5e-2 (qwen2-7b's gap also at depths
+              1, 7, 28).  A warmed qwen2-7b decode step runs under
+              `assert_compile_count(expected=0)` and
+              `no_implicit_transfers()`, and qwen2-7b once more with its
+              params cast to bf16 once (the reference's serve_param_dtype
+              knob).  The LM path launches none of the five kernels: their
+              counts in this process must not move, and the child's are 0.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -290,6 +314,7 @@ import dataclasses
 import datetime
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -4016,6 +4041,433 @@ def _serve_with_telemetry(est, tspec, Q: np.ndarray, served: np.ndarray
                  f"{np.median(c):.1f} ms")
 
 
+# -- phase lm_serve: the LM scaffolding's serving path -----------------------------
+
+# the reference serve driver's defaults (src/repro/launch/serve.py:34-38)
+LM_SERVE = {"batch": 4, "prompt_len": 32, "decode_tokens": 16,
+            "temperature": 1.0}
+LM_CHECK_STEPS = 4     # teacher-forced decode steps held against a prefill
+LM_PREFILL_TOL = 5e-2  # decode against prefill, tests/test_models_smoke.py:88
+LM_F32_TOL = 1e-4      # float32 leaves, card vs CPU (of the leaf's scale)
+# the families at full width, each at the depth one card holds with f32
+# master weights (None: every layer); MoE with capacity_factor 8, as the
+# reference's decode/prefill test (no capacity drops)
+LM_FULL = (("qwen2-7b", None), ("rwkv6-7b", None), ("zamba2-2.7b", None),
+           ("musicgen-medium", None), ("llama-3.2-vision-90b", 5),
+           ("grok-1-314b", 1))
+LM_SMOKE_ONLY = {
+    "llama4-maverick-400b-a17b": "one group (2 layers) is 74.2 GB in f32",
+    "nemotron-4-340b": "one layer is 51.6 GB in f32",
+    "yi-34b": "dense like qwen2-7b, which runs at full size",
+    "codeqwen1.5-7b": "dense like qwen2-7b, which runs at full size",
+}
+# the bf16 decode/prefill gap by depth (zamba2: whole groups of 6 layers)
+LM_DEPTHS = {"qwen2-7b": (1, 7, 28), "rwkv6-7b": (1, 8, 32),
+             "zamba2-2.7b": (6, 18, 54)}
+# families whose bf16 gap is held (the issue's qwen2-7b); every family's
+# float32 gap is held, every bf16 gap printed
+LM_HOLD_BF16 = ("dense",)
+LM_TIMEOUT_S = 900
+LM_DEVICE = "cuda"   # the card (a CPU rehearsal sets "cpu")
+
+
+def _lm_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _lm_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _lm_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _lm_map(fn, tree):
+    """`fn` over the tensor leaves of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _lm_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_lm_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _lm_to(tree, device):
+    return _lm_map(lambda t: t.to(device), tree)
+
+
+def _lm_rel(want, got) -> float:
+    a, b = want.detach().double().cpu(), got.detach().double().cpu()
+    return float((a - b).abs().max() / a.abs().max().clamp_min(1e-300))
+
+
+def _lm_held(tag: str, want, got) -> float:
+    """The CPU's tree against the card's: the same leaves, shapes and
+    dtypes; float32 within LM_F32_TOL of the leaf's scale, bf16 within
+    one ulp of it, ints exactly.  Returns the largest float32 gap."""
+    w, g = dict(_lm_leaves(want)), dict(_lm_leaves(got))
+    if w.keys() != g.keys():
+        raise AssertionError(f"lm_serve {tag}: leaves {w.keys() ^ g.keys()}")
+    worst = 0.0
+    for path, a in w.items():
+        b = g[path].cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"lm_serve {tag}{path}: {a.dtype} "
+                                 f"{tuple(a.shape)} vs {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"lm_serve {tag}{path}: ints differ")
+            continue
+        scale = float(a.abs().max())
+        gap = _lm_rel(a, b) if scale > 0 else float(b.abs().max())
+        # bf16: one ulp of the leaf's largest value, 2^(e - 7) for a largest
+        # value in [2^e, 2^(e + 1)): between 2^-8 and 2^-7 of it
+        tol = (2.0 ** (math.floor(math.log2(scale)) - 7) / scale
+               if a.dtype == torch.bfloat16 and scale > 0 else LM_F32_TOL)
+        if not gap <= tol:
+            raise AssertionError(f"lm_serve {tag}{path}: gap {gap:.3e} of "
+                                 f"the leaf's scale > {tol:.3e}")
+        if a.dtype == torch.float32:
+            worst = max(worst, gap)
+    return worst
+
+
+def _lm_smoke_vs_cpu(arch: str) -> str:
+    """A smoke config at float32 compute on the card and the CPU, the same
+    params and tokens: a prefill and LM_CHECK_STEPS teacher-forced decode
+    steps, each step from the CPU's caches and the next token."""
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import build_model
+
+    dev = torch.device(LM_DEVICE)
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    model = build_model(cfg, RunConfig(remat="none"))
+    params, _ = model.init_params(0, device="cpu")
+    gparams = _lm_to(params, dev)
+    T, K = 10, LM_CHECK_STEPS
+    full = batch_for(cfg, ShapeConfig("p", "prefill", T + K, 2), device="cpu")
+    head = {**full, "tokens": full["tokens"][:, :T]}
+    cl, cc = model.prefill(params, head, max_len=T + K)
+    gl, gc = model.prefill(gparams, _lm_to(head, dev), max_len=T + K)
+    worst = max(_lm_held(f"{arch} prefill logits", cl, gl),
+                _lm_held(f"{arch} prefill caches", cc, gc))
+    for i in range(K):
+        tok = full["tokens"][:, T + i][:, None]
+        gl, gc = model.decode_step(gparams, _lm_to(cc, dev), tok.to(dev))
+        cl, cc = model.decode_step(params, cc, tok)
+        worst = max(worst, _lm_held(f"{arch} step {i + 1} logits", cl, gl),
+                    _lm_held(f"{arch} step {i + 1} caches", cc, gc))
+    return f"{arch}: largest float32 gap {worst:.2e} of the leaf's scale"
+
+
+def _lm_decode_gap(model, params, cfg, depth=None, compute=None) -> float:
+    """The port's own chain: a prefill of T tokens, LM_CHECK_STEPS decode
+    steps on the next tokens, against a prefill over all T + K (the last
+    position's logits).  `depth` keeps the first layers of the stack
+    (whole groups), `compute` overrides the compute dtype."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import block_pattern
+
+    if compute is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+        n = block_pattern(cfg)[1]
+        params = {**params, "slots": _lm_map(lambda t: t[:n],
+                                             params["slots"])}
+    model = dataclasses.replace(model, cfg=cfg)
+    T, K, B = LM_SERVE["prompt_len"], LM_CHECK_STEPS, LM_SERVE["batch"]
+    full = batch_for(cfg, ShapeConfig("p", "prefill", T + K, B),
+                     device=LM_DEVICE)
+    want, _ = model.prefill(params, full)
+    _, caches = model.prefill(params, {**full, "tokens": full["tokens"][:, :T]},
+                              max_len=T + K)
+    for i in range(K):
+        got, caches = model.decode_step(params, caches,
+                                        full["tokens"][:, T + i][:, None])
+    return _lm_rel(want.float(), got.float())
+
+
+def _lm_guarded_decode(model, params, cfg) -> str:
+    """Warmed decode steps of the full model: one warm-up step, one under
+    the sync-debug mode "warn" (every unsanctioned host wait listed), one
+    under `assert_compile_count(expected=0)` and `no_implicit_transfers()`;
+    the sampled tokens' read is the step's one `explicit_read`."""
+    import traceback
+    import warnings
+
+    from repro_torch.analysis import (assert_compile_count, explicit_read,
+                                      no_implicit_transfers)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.launch.serve import SAMPLE_SEED, sample_tokens
+
+    B, T = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    batch = batch_for(cfg, ShapeConfig("p", "prefill", T, B), device=LM_DEVICE)
+    logits, caches = model.prefill(params, batch, max_len=T + 3)
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(SAMPLE_SEED)
+
+    def step(logits, caches):
+        tok = sample_tokens(logits.reshape(B, -1, cfg.vocab_size),
+                            LM_SERVE["temperature"], gen).reshape(B, 1)
+        logits, caches = model.decode_step(params, caches, tok)
+        with explicit_read():
+            tok.cpu()
+        return logits, caches
+
+    logits, caches = step(logits, caches)       # warm-up
+    torch.cuda.synchronize()
+    sites = set()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            frames = [f"{Path(f.filename).name}:{f.lineno}"
+                      for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename]
+            sites.add(" < ".join([f"{Path(filename).name}:{lineno}",
+                                  *frames[::-1][:4]]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        with no_implicit_transfers(mode="warn"):
+            logits, caches = step(logits, caches)
+    if sites:
+        raise AssertionError(f"lm_serve guard: unsanctioned host waits at "
+                             f"{'; '.join(sorted(sites))}")
+    t0 = time.perf_counter()
+    with assert_compile_count(expected=0, label="lm decode") as counter, \
+            no_implicit_transfers():
+        logits, caches = step(logits, caches)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("lm_serve guard: non-finite logits")
+    return (f"guard: a warmed {cfg.name} decode step under "
+            f"assert_compile_count(expected=0) and no_implicit_transfers(): "
+            f"{counter.count} builds or searches, no unsanctioned host wait "
+            f"(warn pass: none listed); {ms:.1f} ms")
+
+
+def _lm_profile(model, params, cfg, steps: int = 3) -> str:
+    """Where a warmed decode step's time goes: `steps` steps under
+    torch.profiler, device busy time, idle share, launches and the top
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+
+    B, T = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    batch = batch_for(cfg, ShapeConfig("p", "prefill", T, B),
+                      device=LM_DEVICE)
+    _, caches = model.prefill(params, batch, max_len=T + steps + 1)
+    tok = batch["tokens"][:, :1]
+    _, caches = model.decode_step(params, caches, tok)       # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, caches = model.decode_step(params, caches, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    if not rows:
+        return "torch.profiler recorded no device kernels: not measured"
+    busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[2] for r in rows) // steps
+    top = "; ".join(f"{us / 1e3 / steps:.2f} ms x{n // steps} {key[:60]}"
+                    for us, key, n in rows[:5])
+    return (f"profile of {steps} warmed {cfg.name} decode steps: "
+            f"{wall * 1e3 / steps:.2f} ms wall a step, device busy "
+            f"{busy * 1e3 / steps:.2f} ms, idle share "
+            f"{max(0.0, 1 - busy / wall):.2f}, {launches} kernels a step; "
+            f"top: {top}")
+
+
+def _lm_params_gb(params) -> tuple[float, float]:
+    n = sum(t.numel() for _, t in _lm_leaves(params))
+    return n / 1e9, sum(t.numel() * t.element_size()
+                        for _, t in _lm_leaves(params)) / 1e9
+
+
+def _lm_full(arch: str, depth, card: str) -> dict:
+    """One family at full width (its depth cut to `depth` groups' worth of
+    layers): the reference driver's serving loop twice (the first call
+    cold), the decode/prefill gap, finite logits, peak memory."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import build_model
+    from repro_torch.serve.metrics import percentiles
+
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, RunConfig(remat="none"))
+    params, _ = model.init_params(0, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_b, gb = _lm_params_gb(params)
+    say("lm_serve", f"{arch}: {cfg.num_layers} of {full_layers} layers "
+                    f"(depth cut: {'none' if depth is None else depth}), "
+                    f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+                    f"{n_b:.3f} B params, {gb:.2f} GB in {cfg.param_dtype}, "
+                    f"compute {cfg.compute_dtype}; drawn on the card in "
+                    f"{init_s:.2f} s")
+    runs = [serve_lm(cfg, params=params, device=LM_DEVICE, **LM_SERVE)
+            for _ in range(2)]
+    out = runs[1]
+    if not bool(torch.isfinite(out["logits"].float()).all()):
+        raise AssertionError(f"lm_serve {arch}: non-finite logits")
+    steps_ms = [s * 1e3 for s in out["step_s"]]
+    pct = percentiles(steps_ms, qs=(50, 99))
+    toks = LM_SERVE["batch"] * LM_SERVE["decode_tokens"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gap = _lm_decode_gap(model, params, cfg)
+    gap32 = _lm_decode_gap(model, params, cfg, compute="float32")
+    rec = {"arch": arch, "layers": cfg.num_layers, "params_b": n_b,
+           "params_gb": gb, "prefill_ms": out["prefill_s"] * 1e3,
+           "prefill_cold_ms": runs[0]["prefill_s"] * 1e3,
+           "decode_p50_ms": pct["p50"], "decode_p99_ms": pct["p99"],
+           "decode_tok_s": toks / out["decode_s"],
+           "prefill_tok_s": (LM_SERVE["batch"] * LM_SERVE["prompt_len"]
+                             / out["prefill_s"]),
+           "peak_gb": peak, "decode_vs_prefill": gap,
+           "decode_vs_prefill_f32": gap32,
+           "held": ["float32"] + (["bfloat16"] if cfg.family in LM_HOLD_BF16
+                                  else [])}
+    say("lm_serve", f"{arch} on {card}: batch {LM_SERVE['batch']} x "
+                    f"({LM_SERVE['prompt_len']} + "
+                    f"{LM_SERVE['decode_tokens']}) tokens: prefill "
+                    f"{rec['prefill_ms']:.2f} ms (first call "
+                    f"{rec['prefill_cold_ms']:.2f} ms), decode p50 "
+                    f"{pct['p50']:.2f} / p99 {pct['p99']:.2f} ms a step, "
+                    f"{rec['decode_tok_s']:.1f} tokens/s decoding, peak "
+                    f"memory {peak:.2f} GB; decode vs prefill over "
+                    f"{LM_CHECK_STEPS} steps: rel gap {gap:.3e} at "
+                    f"{cfg.compute_dtype}, {gap32:.3e} at float32 compute "
+                    f"(bound {LM_PREFILL_TOL}, held at "
+                    f"{' and '.join(rec['held'])})")
+    if arch in LM_DEPTHS:
+        gaps = {d: _lm_decode_gap(model, params, cfg, depth=d)
+                for d in LM_DEPTHS[arch]}
+        say("lm_serve", f"{arch} decode vs prefill gap at "
+                        f"{cfg.compute_dtype} by depth: " +
+            ", ".join(f"{d} layers {g:.3e}" for d, g in gaps.items()))
+    if arch == "qwen2-7b":
+        say("lm_serve", _lm_profile(model, params, cfg))
+        say("lm_serve", _lm_guarded_decode(model, params, cfg))
+        # the reference's serve_param_dtype knob: the params cast to bf16
+        # once, so _proj's per-call cast is a no-op (not the default path)
+        bf16 = _lm_map(lambda t: t.to(torch.bfloat16)
+                       if t.is_floating_point() else t, params)
+        del params
+        torch.cuda.empty_cache()
+        cast = serve_lm(cfg, params=bf16, device=LM_DEVICE, **LM_SERVE)
+        cast = serve_lm(cfg, params=bf16, device=LM_DEVICE, **LM_SERVE)
+        cp = percentiles([s * 1e3 for s in cast["step_s"]], qs=(50, 99))
+        rec["bf16_params_decode_p50_ms"] = cp["p50"]
+        say("lm_serve", f"qwen2-7b with its params cast to bf16 once "
+                        f"(serve_param_dtype), not the default path: "
+                        f"prefill {cast['prefill_s'] * 1e3:.2f} ms, decode "
+                        f"p50 {cp['p50']:.2f} / p99 {cp['p99']:.2f} ms a "
+                        f"step; weight bytes a decode step: {gb:.2f} GB "
+                        f"(f32 masters, {gb / PEAK_BYTES_PER_S * 1e12:.2f} "
+                        f"ms at {PEAK_BYTES_PER_S / 1e12} TB/s) or "
+                        f"{gb / 2:.2f} GB (bf16, "
+                        f"{gb / 2 / PEAK_BYTES_PER_S * 1e12:.2f} ms)")
+        del bf16
+    del runs, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_serve_child() -> int:
+    """Phase lm_serve's body, in a process of its own (so that its tens of
+    GB do not stack on the earlier phases' tensors): prints its lines and,
+    last, a JSON record for the parent."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+
+    card = smi()
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        say("lm_serve", "smoke, card vs CPU, f32 compute: "
+                        + _lm_smoke_vs_cpu(arch))
+    say("lm_serve", f"ten smoke archs on the card and the CPU: "
+                    f"{time.perf_counter() - t0:.1f} s")
+    for arch, why in LM_SMOKE_ONLY.items():
+        say("lm_serve", f"{arch}: smoke size only ({why})")
+    records = [_lm_full(arch, depth, card) for arch, depth in LM_FULL]
+    bad = [r["arch"] for r in records
+           if not r["decode_vs_prefill_f32"] < LM_PREFILL_TOL
+           or ("bfloat16" in r["held"]
+               and not r["decode_vs_prefill"] < LM_PREFILL_TOL)]
+    if bad:
+        raise AssertionError(f"lm_serve: decode vs prefill above "
+                             f"{LM_PREFILL_TOL} for {bad}")
+    counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
+              **farfield.launch_counts}
+    if any(counts.values()):
+        raise AssertionError(f"lm_serve launched a kernel: {counts}")
+    print(json.dumps({"lm_serve": records, "kernel_launches": counts}))
+    return 0
+
+
+def phase_lm_serve() -> list:
+    """The LM scaffolding's serving path (configs/, models/, batch_for,
+    launch/serve.py) in a fresh process; the five kernels' launch counts of
+    this process must not move."""
+    import os
+
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+
+    def counts():
+        return {**pairwise.launch_counts, **sparse_attractive.launch_counts,
+                **farfield.launch_counts}
+
+    before = counts()
+    torch.cuda.empty_cache()
+    say("lm_serve", f"{smi()}; this process holds "
+                    f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    code = ("import sys\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+            "import chip_smoke\n"
+            "sys.exit(chip_smoke.lm_serve_child())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True,
+                          timeout=LM_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"lm_serve: the child failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
+    out = json.loads(lines[-1])
+    if counts() != before:
+        raise AssertionError(f"lm_serve moved the kernels' launch counts: "
+                             f"{before} -> {counts()}")
+    say("lm_serve", f"the five kernels' launch counters of this process "
+                    f"read the same before and after the phase "
+                    f"({sum(before.values())} since their last reset); the "
+                    f"child launched none: {out['kernel_launches']}")
+    return out["lm_serve"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -4076,6 +4528,7 @@ def main() -> int:
     del dense_ref
     dist.destroy_process_group()
     run("serve", phase_serve, sparse["fits"]["tsne"], sparse["labels"])
+    run("lm_serve", phase_lm_serve)
     say("done", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()))
     say("done", f"{time.perf_counter() - t_start:.1f} s")

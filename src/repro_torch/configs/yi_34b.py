@@ -1,0 +1,17 @@
+"""yi-34b [dense]: 60L d_model=7168 56H GQA kv=8 d_ff=20480 vocab=64000,
+llama-arch GQA. [arXiv:2403.04652; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b", family="dense",
+    num_layers=60, d_model=7168, d_ff=20480, vocab_size=64000,
+    num_heads=56, num_kv_heads=8, head_dim=128,
+    mlp="swiglu", rope_theta=5_000_000.0,
+)
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-smoke", family="dense",
+        num_layers=3, d_model=64, d_ff=160, vocab_size=256,
+        num_heads=4, num_kv_heads=2, head_dim=16, mlp="swiglu",
+    )

@@ -7,7 +7,8 @@ these, both packages fit from identical affinities and starting points.
 The artifact format (`api/artifact.py`) crosses the other way too: it
 writes the port's `kernel_impl` in the reference's words
 (`KERNEL_IMPL_TO_JAX`) and reads a `repro` spec through
-`spec_from_jax_fields`.
+`spec_from_jax_fields`.  The LM scaffolding's params and caches cross
+through `lm_tree_from_numpy`.
 """
 from __future__ import annotations
 
@@ -80,3 +81,23 @@ def spec_from_jax_fields(fields: dict) -> EmbedSpec:
             value = dict(value)
         out[name] = value
     return EmbedSpec(**out)
+
+
+def lm_tree_from_numpy(tree, device):
+    """The JAX package's LM params or caches as numpy
+    (`jax.tree.map(np.asarray, ...)`: nested dicts and lists of arrays) ->
+    the same tree of tensors on `device`, every dtype kept.  JAX's bfloat16
+    reaches numpy as an extension dtype that `torch.tensor` does not take:
+    it is recognised by name and carried as its bits (uint16 viewed as
+    torch.bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: lm_tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_tree_from_numpy(v, device) for v in tree]
+    if tree is None:
+        return None
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)

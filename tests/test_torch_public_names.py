@@ -5,8 +5,9 @@ Compared here: each ported package's `__all__`, and the names that each
 ported module defines at its top level (functions, classes and
 constants, not the `Array = jnp.ndarray` type aliases of JAX's array type).
 A name the port lacks must be on `ALLOWED`, which holds ROADMAP's "Not
-ported" names and those of the item still to port (26, the LM
-scaffolding), and nothing else; each of them must still be missing.
+ported" names and those of the items still to port (26b, the LM training
+half; 26c, the production mesh's helpers), and nothing else; each of them
+must still be missing.
 The five Pallas wrappers are ported under their Hopper names (`HOPPER`).
 
 The three functions F1 found missing are held against JAX here, at the
@@ -35,8 +36,8 @@ from tests.conftest import three_loops
 SRC = Path(__file__).resolve().parents[1] / "src"
 #: the reference's packages that have an `__all__` (`repro` and
 #: `repro.launch` have none; launch/mesh.py's names are compared below)
-PACKAGES = (".analysis", ".api", ".ckpt", ".core", ".data", ".embed",
-            ".kernels", ".obs", ".serve", ".sparse")
+PACKAGES = (".analysis", ".api", ".ckpt", ".configs", ".core", ".data",
+            ".embed", ".kernels", ".models", ".obs", ".serve", ".sparse")
 #: ROADMAP "Not ported": the deprecation shims (`core.minimize.minimize`;
 #: `EmbedConfig`, `DistributedEmbedding`, `FitResult` and `to_fit_result` of
 #: embed/trainer.py; `UNSET`, the legacy transform kwargs' sentinel), the
@@ -50,8 +51,12 @@ NOT_PORTED = {"minimize", "EmbedConfig", "DistributedEmbedding", "FitResult",
               "vmem_x_budget", "VMEM_X_BUDGET_ENV", "shard_map_norep",
               "axis_types_kwargs", "make_abstract_mesh", "axis_size",
               "jit_cache_size", "no_tracer_leaks"}
-ITEM_26 = {"batch_for", "batch_specs", "make_production_mesh", "n_chips"}
-ALLOWED = NOT_PORTED | ITEM_26
+#: ROADMAP item 26b (the training half of models/train.py) and 26c
+#: (launch/mesh.py's production-mesh helpers)
+ITEM_26B = {"init_train_state", "make_train_step", "params_specs",
+            "train_state_specs"}
+ITEM_26C = {"make_production_mesh", "n_chips"}
+ALLOWED = NOT_PORTED | ITEM_26B | ITEM_26C
 #: the Pallas wrappers and the Hopper wrappers that replace them
 HOPPER = {"pairwise_terms_pallas": "pairwise_terms_cuda",
           "ell_lap_matvec_pallas": "ell_lap_matvec_cuda",
