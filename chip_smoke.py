@@ -301,6 +301,25 @@ Phases, each printing one line (or a few) and failing the run on error:
               params cast to bf16 once (the reference's serve_param_dtype
               knob).  The LM path launches none of the five kernels: their
               counts in this process must not move, and the child's are 0.
+ 23. lm_train — the LM scaffolding's training half (`optim/`,
+              `models.make_train_step`, `distributed/sharding.py`,
+              `launch/train.py`), in a fresh process of its own.  The ten
+              archs' smoke configs at float32 compute: one step
+              (microbatches 2, remat "full") on the card and the CPU from
+              the same state and batch, loss and grad_norm within 1e-5,
+              every param, m and v leaf within 1e-4 of its scale or 1e-5 of
+              its tree's (qwen2 also with int8 compression, and with bf16
+              moments); remat on against off on qwen2 and rwkv6.  Then
+              qwen2-7b at full width cut to 8 of its 28 layers (2.96 B
+              params, f32 masters and moments, bf16 compute) through
+              `launch.train.train_lm` on a one-rank NCCL mesh: six steps of
+              4 x 64 tokens, finite losses, ms a step, tokens a second,
+              peak memory, one warm step under torch.profiler, one under
+              `assert_compile_count(expected=0)` and
+              `no_implicit_transfers()`.  Then at the smoke size: three
+              steps, a save, a resume and step 4 against the uninterrupted
+              run; a save of two gloo ranks on a (2, 1) mesh restored onto
+              this one rank and a step.  No kernel of the five launches.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -4427,9 +4446,10 @@ def lm_serve_child() -> int:
     return 0
 
 
-def phase_lm_serve() -> list:
-    """The LM scaffolding's serving path (configs/, models/, batch_for,
-    launch/serve.py) in a fresh process; the five kernels' launch counts of
+def _lm_child_phase(phase: str, entry: str) -> dict:
+    """Run `chip_smoke.<entry>()` in a fresh process (so that its tens of
+    GB do not stack on the earlier phases' tensors), print its lines and
+    return the JSON record of its last; the five kernels' launch counts of
     this process must not move."""
     import os
 
@@ -4441,12 +4461,12 @@ def phase_lm_serve() -> list:
 
     before = counts()
     torch.cuda.empty_cache()
-    say("lm_serve", f"{smi()}; this process holds "
-                    f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    say(phase, f"{smi()}; this process holds "
+               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     code = ("import sys\n"
             f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
             "import chip_smoke\n"
-            "sys.exit(chip_smoke.lm_serve_child())\n")
+            f"sys.exit(chip_smoke.{entry}())\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True,
@@ -4455,17 +4475,563 @@ def phase_lm_serve() -> list:
     for line in lines[:-1]:
         print(line, flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"lm_serve: the child failed:\n"
+        raise AssertionError(f"{phase}: the child failed:\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
     out = json.loads(lines[-1])
     if counts() != before:
-        raise AssertionError(f"lm_serve moved the kernels' launch counts: "
+        raise AssertionError(f"{phase} moved the kernels' launch counts: "
                              f"{before} -> {counts()}")
-    say("lm_serve", f"the five kernels' launch counters of this process "
-                    f"read the same before and after the phase "
-                    f"({sum(before.values())} since their last reset); the "
-                    f"child launched none: {out['kernel_launches']}")
-    return out["lm_serve"]
+    say(phase, f"the five kernels' launch counters of this process read "
+               f"the same before and after the phase "
+               f"({sum(before.values())} since their last reset); the "
+               f"child launched none: {out['kernel_launches']}")
+    return out
+
+
+def phase_lm_serve() -> list:
+    """The LM scaffolding's serving path (configs/, models/, batch_for,
+    launch/serve.py) in a fresh process."""
+    return _lm_child_phase("lm_serve", "lm_serve_child")["lm_serve"]
+
+
+# -- phase lm_train: the LM scaffolding's training half -----------------------------
+
+# launch/train.py's defaults: RunConfig(num_microbatches=2, remat="full"),
+# AdamWConfig(warmup_steps=5, total_steps=max(steps, 10)), batch 4 x 64
+LM_TRAIN_RUN = {"num_microbatches": 2, "remat": "full"}
+LM_TRAIN_OPT = {"warmup_steps": 5, "total_steps": 10}
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 64
+LM_TRAIN_STEPS = 6
+# qwen2-7b at full width, depth cut to the layers whose f32 masters, f32
+# Adam moments and f32 gradient (16 bytes a parameter) fit one card with
+# room for the step's transients
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS = "qwen2-7b", 8
+LM_TRAIN_SMOKE = {"seq": 16, "batch": 4}   # tests/test_torch_lm_train.py's
+LM_TRAIN_TOL_LEAF = 1e-4   # of a leaf's scale
+LM_TRAIN_TOL_TREE = 1e-5   # of its tree's scale (the params, m or v)
+LM_TRAIN_TOL_SCALAR = 1e-5
+# the cross-attention K and V projections of bf16 vision embeddings run in
+# bf16 at any compute dtype: their m and v within two bf16 ulps
+LM_TRAIN_BF16_LEAVES = {"llama-3.2-vision-90b": ("/slots/0/attn/wk",
+                                                 "/slots/0/attn/wv")}
+# tests/test_elastic.py's bound on the loss after an elastic restore
+LM_ELASTIC_BOUND = 1.0
+LM_TRAIN_DIR = ROOT / "build" / "chip_smoke_lm_train"   # git-ignored
+
+
+def _lm_train_cfg(arch: str, smoke: bool = True):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if smoke:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        if cfg.num_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        return cfg
+    return dataclasses.replace(get_config(arch), num_layers=LM_TRAIN_LAYERS)
+
+
+def _lm_train_held(tag: str, want, got, bf16_leaves=(),
+                   quanta=None) -> float:
+    """The CPU's train state against the card's: the same leaves, dtypes and
+    shapes; ints exactly; a float leaf within LM_TRAIN_TOL_LEAF of its scale
+    or LM_TRAIN_TOL_TREE of its tree's, `bf16_leaves` within two bf16 ulps
+    of the leaf's scale, leaves under a prefix of `quanta` within that
+    fraction of their scale.  Returns the largest gap of a leaf's scale."""
+    w, g = dict(_lm_leaves(want)), dict(_lm_leaves(got))
+    if w.keys() != g.keys():
+        raise AssertionError(f"lm_train {tag}: leaves {w.keys() ^ g.keys()}")
+
+    def tree(path):
+        parts = path.split("/")
+        return "/".join(parts[:3] if parts[1] == "opt" else parts[:2])
+
+    tops: dict = {}
+    for path, a in w.items():
+        if a.is_floating_point():
+            tops[tree(path)] = max(tops.get(tree(path), 0.0),
+                                   float(a.abs().max()))
+    worst = 0.0
+    for path, a in w.items():
+        b = g[path].cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"lm_train {tag}{path}: {a.dtype} "
+                                 f"{tuple(a.shape)} vs {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"lm_train {tag}{path}: ints differ")
+            continue
+        err = float((a.double() - b.double()).abs().max())
+        scale = float(a.abs().max())
+        quantum = [f for pre, f in (quanta or {}).items()
+                   if path.startswith(pre)]
+        if any(path.endswith(x) for x in bf16_leaves):
+            bound = 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        elif quantum:
+            bound = quantum[0] * scale
+        else:
+            bound = max(LM_TRAIN_TOL_LEAF * scale,
+                        LM_TRAIN_TOL_TREE * tops[tree(path)])
+        if not err <= bound:
+            raise AssertionError(f"lm_train {tag}{path}: gap {err:.3e} > "
+                                 f"{bound:.3e} (scale {scale:.3e})")
+        if scale > 0:
+            worst = max(worst, err / scale)
+    return worst
+
+
+def _lm_train_scalars(tag: str, want: dict, got: dict) -> None:
+    for k in ("loss", "grad_norm"):
+        a, b = float(want[k]), float(got[k])
+        if not abs(a - b) <= LM_TRAIN_TOL_SCALAR * abs(a):
+            raise AssertionError(f"lm_train {tag}: {k} {b} vs {a}")
+
+
+def _lm_train_smoke_vs_cpu(arch: str, **run_kw) -> str:
+    """One step of a smoke config at float32 compute on the card and the
+    CPU from the same state and batch."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import (build_model, init_train_state,
+                                    make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dev = torch.device(LM_DEVICE)
+    cfg = _lm_train_cfg(arch)
+    run = RunConfig(**{**LM_TRAIN_RUN, **run_kw})
+    model = build_model(cfg, run)
+    state, _ = init_train_state(model, 0, device="cpu")
+    batch = batch_for(cfg, ShapeConfig("t", "train", LM_TRAIN_SMOKE["seq"],
+                                       LM_TRAIN_SMOKE["batch"]),
+                      device="cpu")
+    # copies: the step writes into its state's tensors
+    gstate = _lm_map(lambda t: t.to(dev, copy=True), state)
+    gbatch = _lm_to(batch, dev)
+    step = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))
+    cstate, cmet = step(state, batch)
+    gstate, gmet = step(gstate, gbatch)
+    _lm_train_scalars(arch, cmet, gmet)
+    quanta = ({"/opt/m/": 1 / 127, "/opt/v/": 2 / 127}
+              if run.grad_compress else None)
+    worst = _lm_train_held(f"{arch} {run_kw}", cstate, gstate,
+                           LM_TRAIN_BF16_LEAVES.get(arch, ()), quanta)
+    return (f"{arch}{' ' + str(run_kw) if run_kw else ''}: loss "
+            f"{float(gmet['loss']):.6f} (CPU {float(cmet['loss']):.6f}), "
+            f"grad_norm {float(gmet['grad_norm']):.6f}; largest leaf gap "
+            f"{worst:.2e} of its scale")
+
+
+def _lm_train_remat(arch: str) -> str:
+    """On the card: one step with remat "full" and one with "none" from the
+    same state and batch (smoke, float32 compute)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import (build_model, init_train_state,
+                                    make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = _lm_train_cfg(arch)
+    batch = batch_for(cfg, ShapeConfig("t", "train", LM_TRAIN_SMOKE["seq"],
+                                       LM_TRAIN_SMOKE["batch"]),
+                      device=LM_DEVICE)
+    out = {}
+    for remat in ("full", "none"):
+        model = build_model(cfg, RunConfig(**{**LM_TRAIN_RUN,
+                                              "remat": remat}))
+        state, _ = init_train_state(model, 0, device="cpu")
+        out[remat] = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))(
+            _lm_to(state, LM_DEVICE), batch)
+    _lm_train_scalars(f"{arch} remat", out["none"][1], out["full"][1])
+    worst = _lm_train_held(f"{arch} remat", _lm_to(out["none"][0], "cpu"),
+                           out["full"][0])
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        _lm_leaves(out["none"][0]), _lm_leaves(out["full"][0])))
+    return (f"remat full vs none on the card, {arch}: "
+            f"{'bit-equal' if same else f'largest leaf gap {worst:.2e}'}")
+
+
+def _lm_train_full(card: str) -> dict:
+    """qwen2-7b at full width, LM_TRAIN_LAYERS layers, through
+    `launch.train.train_lm`: six steps, their times, peak memory; then a
+    profiled warm step and a guarded one."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.train import train_lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.metrics import percentiles
+
+    cfg = _lm_train_cfg(LM_TRAIN_ARCH, smoke=LM_DEVICE == "cpu")
+    run = RunConfig(**LM_TRAIN_RUN)
+    opt = AdamWConfig(**LM_TRAIN_OPT)
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    lines = []
+    t0 = time.perf_counter()
+    out = train_lm(cfg, run, opt, steps=LM_TRAIN_STEPS,
+                   batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                   mesh=make_host_mesh(), device=LM_DEVICE, log=lines.append)
+    wall = time.perf_counter() - t0
+    for line in lines:
+        say("lm_train", f"train_lm: {line}")
+    state = out["state"]
+    losses = [float(x) for x in out["losses"]]
+    norms = [float(x) for x in out["grad_norms"]]
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"lm_train: non-finite losses {losses} or grad "
+                             f"norms {norms}")
+    if int(state["step"]) != LM_TRAIN_STEPS:
+        raise AssertionError(f"lm_train: step {int(state['step'])}")
+    moved = float((state["params"]["final_ln"]["scale"] - 1).abs().max())
+    if not moved > 0:
+        raise AssertionError("lm_train: the params did not move")
+    n_b, gb = _lm_params_gb(state["params"])
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    ms = [s * 1e3 for s in out["step_s"]]
+    warm = ms[1:]
+    pct = percentiles(warm, qs=(50,))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    rec = {"arch": LM_TRAIN_ARCH, "layers": cfg.num_layers,
+           "params_b": n_b, "params_gb": gb, "steps": LM_TRAIN_STEPS,
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "p50_ms": pct["p50"], "max_ms": max(warm),
+           "tokens_per_s": tokens / (pct["p50"] / 1e3), "peak_gb": peak,
+           "wall_s": wall}
+    say("lm_train", f"{LM_TRAIN_ARCH} on {card}: {cfg.num_layers} of 28 "
+                    f"layers (depth cut), d_model {cfg.d_model}, vocab "
+                    f"{cfg.vocab_size}, {n_b:.3f} B params, {gb:.2f} GB of "
+                    f"{cfg.param_dtype} masters (m, v and the gradient as "
+                    f"much again each), compute {cfg.compute_dtype}; "
+                    f"{LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x "
+                    f"{LM_TRAIN_SEQ} tokens, microbatches 2, remat full: "
+                    f"losses {[round(x, 4) for x in losses]}, grad norms "
+                    f"{[round(x, 3) for x in norms]}; ms a step "
+                    f"{[round(x, 1) for x in ms]} (p50 {pct['p50']:.1f}, max "
+                    f"{max(warm):.1f} over steps 2-{LM_TRAIN_STEPS}; the "
+                    f"first {ms[0]:.1f} cold), {rec['tokens_per_s']:.0f} "
+                    f"tokens/s, peak memory {peak:.2f} GB; train_lm "
+                    f"{wall:.1f} s with the init")
+    if cuda:
+        model_run = (cfg, run, opt, out["shardings"]["params"])
+        say("lm_train", _lm_train_profile(state, *model_run, rec))
+        say("lm_train", _lm_train_guarded(state, *model_run))
+    del out, state
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_train_step_fn(cfg, run, opt, shardings):
+    from repro_torch.models import build_model, make_train_step
+
+    return make_train_step(build_model(cfg, run), opt,
+                           grad_shardings=shardings)
+
+
+def _lm_train_batch(cfg, step: int):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+
+    return batch_for(cfg, ShapeConfig("train", "train", LM_TRAIN_SEQ,
+                                      LM_TRAIN_BATCH), step=step,
+                     device=LM_DEVICE)
+
+
+def _lm_train_profile(state, cfg, run, opt, shardings, rec) -> str:
+    """One warm step under torch.profiler: device busy, idle share,
+    kernels a step and the top five, and the device time under the step's
+    spans (`train/microbatch`, `train/optimizer`, as profiler
+    annotations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import SpanTracer, activate
+
+    step = _lm_train_step_fn(cfg, run, opt, shardings)
+    batch = _lm_train_batch(cfg, LM_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            activate(SpanTracer(profiler_annotations=True)):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in events
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0
+                   and not ev.key.startswith("train/")), reverse=True)
+    if not rows:
+        return "torch.profiler recorded no device kernels: not measured"
+    busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[2] for r in rows)
+    spans = {ev.key: getattr(ev, "device_time_total", 0) / 1e3
+             for ev in events if ev.key.startswith("train/")
+             and ev.device_type == DeviceType.CPU}
+    rec.update(profile_wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+               idle_share=max(0.0, 1 - busy / wall), kernels=launches,
+               span_device_ms=spans)
+    top = "; ".join(f"{us / 1e3:.2f} ms x{n} {key[:60]}"
+                    for us, key, n in rows[:5])
+    return (f"profile of one warm {cfg.name} step: {wall * 1e3:.1f} ms wall "
+            f"under the profiler, device busy {busy * 1e3:.1f} ms, idle "
+            f"share {rec['idle_share']:.2f}, {launches} kernels; device ms "
+            f"under the step's spans: "
+            f"{ {k: round(v, 1) for k, v in spans.items()} }; top: {top}")
+
+
+def _lm_train_guarded(state, cfg, run, opt, shardings) -> str:
+    """A warmed step under the sync-debug mode "warn" (every unsanctioned
+    host wait listed), then one under `assert_compile_count(expected=0)`
+    and `no_implicit_transfers()`; the loss read is the step's one
+    `explicit_read`."""
+    import traceback
+    import warnings
+
+    from repro_torch.analysis import (assert_compile_count, explicit_read,
+                                      no_implicit_transfers)
+
+    step = _lm_train_step_fn(cfg, run, opt, shardings)
+    # the batches' uploads (batch_for's) are the data pipeline's, made
+    # before the guarded steps
+    batches = [_lm_train_batch(cfg, LM_TRAIN_STEPS + i) for i in (1, 2)]
+
+    def one(state, i):
+        state, met = step(state, batches[i - 1])
+        with explicit_read():
+            float(met["loss"])
+        return state
+
+    torch.cuda.synchronize()
+    sites = set()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            frames = [f"{Path(f.filename).name}:{f.lineno}"
+                      for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename]
+            sites.add(" < ".join([f"{Path(filename).name}:{lineno}",
+                                  *frames[::-1][:4]]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        with no_implicit_transfers(mode="warn"):
+            state = one(state, 1)
+    if sites:
+        raise AssertionError(f"lm_train guard: unsanctioned host waits at "
+                             f"{'; '.join(sorted(sites))}")
+    t0 = time.perf_counter()
+    with assert_compile_count(expected=0, label="lm train step") as counter, \
+            no_implicit_transfers():
+        state = one(state, 2)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (f"guard: a warmed {cfg.name} train step under "
+            f"assert_compile_count(expected=0) and no_implicit_transfers(): "
+            f"{counter.count} builds or searches, no unsanctioned host wait "
+            f"(warn pass: none listed); {ms:.1f} ms")
+
+
+def _lm_train_rank(rank: int, world: int, store: str, ckdir: str) -> None:
+    """One of two gloo ranks on the CPU: the smoke run's first three steps
+    on a (2, 1) mesh, saved by rank 0."""
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.train import train_lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        train_lm(_lm_train_cfg("qwen2-7b"), RunConfig(**LM_TRAIN_RUN),
+                 AdamWConfig(**LM_TRAIN_OPT), steps=3, batch=LM_TRAIN_BATCH,
+                 seq=LM_TRAIN_SMOKE["seq"], mesh=make_host_mesh(),
+                 ckpt=Checkpointer(ckdir), device="cpu", log=lambda m: None)
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_train_resume() -> str:
+    """qwen2-smoke at float32 compute through train_lm: four steps straight
+    on the card and on the CPU; three steps on the card, a save, a resume
+    and step 4; three steps on two gloo CPU ranks, their save restored onto
+    this rank (the card) and step 4."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.train import train_lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = _lm_train_cfg("qwen2-7b")
+
+    def run(steps, device, ckdir=None):
+        return train_lm(cfg, RunConfig(**LM_TRAIN_RUN),
+                        AdamWConfig(**LM_TRAIN_OPT), steps=steps,
+                        batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SMOKE["seq"],
+                        mesh=make_host_mesh(),
+                        ckpt=Checkpointer(str(ckdir)) if ckdir else None,
+                        device=device, log=lambda m: None)
+
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    LM_TRAIN_DIR.mkdir(parents=True)
+    straight = run(4, LM_DEVICE)
+    cpu = run(4, "cpu")
+    run(3, LM_DEVICE, LM_TRAIN_DIR / "one")
+    resumed = run(4, LM_DEVICE, LM_TRAIN_DIR / "one")
+    if resumed["start"] != 3 or len(resumed["losses"]) != 1:
+        raise AssertionError(f"lm_train resume: started at "
+                             f"{resumed['start']}")
+    bits = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        _lm_leaves(straight["state"]), _lm_leaves(resumed["state"])))
+    gap = _lm_train_held("resume", _lm_to(straight["state"], "cpu"),
+                         resumed["state"])
+    l4, r4 = float(straight["losses"][3]), float(resumed["losses"][0])
+    if not abs(r4 - l4) <= LM_TRAIN_TOL_SCALAR * abs(l4):
+        raise AssertionError(f"lm_train resume: step 4 loss {r4} against "
+                             f"the uninterrupted {l4}")
+
+    ctx = mp.spawn(_lm_train_rank, args=(2, str(LM_TRAIN_DIR / "store"),
+                                        str(LM_TRAIN_DIR / "two")),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("lm_train: the 2-rank run ran past "
+                                 f"{SPAWN_TIMEOUT_S} s (a deadlock?)")
+    elastic = run(4, LM_DEVICE, LM_TRAIN_DIR / "two")
+    if elastic["start"] != 3:
+        raise AssertionError(f"lm_train elastic: started at "
+                             f"{elastic['start']}")
+    e4 = float(elastic["losses"][0])
+    c3, c4 = float(cpu["losses"][2]), float(cpu["losses"][3])
+    egap = _lm_train_held("elastic", cpu["state"], elastic["state"])
+    if not (abs(e4 - c3) < LM_ELASTIC_BOUND
+            and abs(e4 - c4) <= LM_TRAIN_TOL_SCALAR * abs(c4)):
+        raise AssertionError(f"lm_train elastic: step 4 loss {e4} (the "
+                             f"CPU's straight run: step 3 {c3}, step 4 {c4})")
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    return (f"resume (qwen2-smoke, float32 compute): step 4 after a save at "
+            f"3 and a resume, loss {r4:.7f} against the uninterrupted "
+            f"{l4:.7f}; the state {'bit-equal' if bits else 'not bit-equal'}"
+            f" (largest leaf gap {gap:.2e} of its scale); elastic: two gloo "
+            f"ranks on a (2, 1) mesh (CPU), restored onto this one rank: "
+            f"step 4 loss {e4:.7f} against the CPU's straight {c4:.7f} (step "
+            f"3 {c3:.7f}, bound {LM_ELASTIC_BOUND}), largest leaf gap "
+            f"{egap:.2e}")
+
+
+def _lm_nondeterministic_ops() -> str:
+    """The ops of a smoke step on the card that have no deterministic CUDA
+    implementation: `torch.use_deterministic_algorithms(True,
+    warn_only=True)` names each in a warning (the mode is restored)."""
+    import warnings
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import (build_model, init_train_state,
+                                    make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+
+    names = set()
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch in ("qwen2-7b", "llama4-maverick-400b-a17b"):
+            cfg = _lm_train_cfg(arch)
+            model = build_model(cfg, RunConfig(**LM_TRAIN_RUN))
+            state, _ = init_train_state(model, 0, device=LM_DEVICE)
+            batch = batch_for(cfg, ShapeConfig(
+                "t", "train", LM_TRAIN_SMOKE["seq"],
+                LM_TRAIN_SMOKE["batch"]), device=LM_DEVICE)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))(state,
+                                                                    batch)
+                if torch.device(LM_DEVICE).type == "cuda":
+                    torch.cuda.synchronize()
+            names |= {str(w.message).split(" does not have")[0]
+                      for w in caught
+                      if "does not have a deterministic" in str(w.message)}
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    return ("ops of a train step without a deterministic CUDA "
+            "implementation (torch.use_deterministic_algorithms, "
+            f"warn_only): {sorted(names) if names else 'none'}")
+
+
+def _start_lm_group() -> None:
+    """A one-rank group in this process: NCCL on the card (gloo for a CPU
+    rehearsal), through a file:// store under the build directory."""
+    LM_TRAIN_DIR.parent.mkdir(parents=True, exist_ok=True)
+    store = LM_TRAIN_DIR.parent / "lm-train-store"
+    store.unlink(missing_ok=True)
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def lm_train_child() -> int:
+    """Phase lm_train's body, in a process of its own: prints its lines and,
+    last, a JSON record for the parent."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+
+    card = smi()
+    _start_lm_group()
+    try:
+        t0 = time.perf_counter()
+        for arch in ARCH_IDS:
+            say("lm_train", "smoke, card vs CPU, f32 compute: "
+                            + _lm_train_smoke_vs_cpu(arch))
+        say("lm_train", "smoke, card vs CPU: "
+                        + _lm_train_smoke_vs_cpu("qwen2-7b",
+                                                 grad_compress=True))
+        say("lm_train", "smoke, card vs CPU: "
+                        + _lm_train_smoke_vs_cpu("qwen2-7b",
+                                                 moment_dtype="bfloat16"))
+        for arch in ("qwen2-7b", "rwkv6-7b"):
+            say("lm_train", _lm_train_remat(arch))
+        say("lm_train", f"smoke checks: {time.perf_counter() - t0:.1f} s")
+        say("lm_train", _lm_nondeterministic_ops())
+        t0 = time.perf_counter()
+        say("lm_train", _lm_train_resume())
+        say("lm_train", f"resume and elastic: {time.perf_counter() - t0:.1f}"
+                        f" s")
+        rec = _lm_train_full(card)
+    finally:
+        dist.destroy_process_group()
+    counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
+              **farfield.launch_counts}
+    if any(counts.values()):
+        raise AssertionError(f"lm_train launched a kernel: {counts}")
+    print(json.dumps({"lm_train": rec, "kernel_launches": counts}))
+    return 0
+
+
+def phase_lm_train() -> dict:
+    """The LM scaffolding's training half in a fresh process."""
+    return _lm_child_phase("lm_train", "lm_train_child")["lm_train"]
 
 
 def main() -> int:
@@ -4529,6 +5095,7 @@ def main() -> int:
     dist.destroy_process_group()
     run("serve", phase_serve, sparse["fits"]["tsne"], sparse["labels"])
     run("lm_serve", phase_lm_serve)
+    run("lm_train", phase_lm_train)
     say("done", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()))
     say("done", f"{time.perf_counter() - t_start:.1f} s")

@@ -106,10 +106,11 @@ def _kwargs(call: ast.Call) -> set[str | None]:
 
 #: functions whose bodies are per-iteration hot paths of the port: the
 #: engine loop and its line-search helpers, PCG, the per-iteration
-#: diagnostics, the telemetry memory poll and the serving rowwise solve.
+#: diagnostics, the telemetry memory poll, the serving rowwise solve and
+#: the LM's train step.
 HOT_SCOPE_NAMES = frozenset({
     "fit_loop", "_fit_loop", "initial_step", "host_backtrack", "pcg",
-    "diagnostics", "device_memory_stats", "rowwise_transform",
+    "diagnostics", "device_memory_stats", "rowwise_transform", "train_step",
 })
 
 #: no-argument tensor methods that copy to the host

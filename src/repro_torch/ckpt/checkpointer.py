@@ -17,9 +17,13 @@ A pytree here is what `jax.tree_util` flattens by default: dicts (keys in
 sorted order), lists and tuples (named tuples too) are nodes, None has no
 leaves, and everything else is a leaf, so that a dict of arrays numbers its
 ``arr_<i>.npy`` leaves as the reference does.  Tensors go to numpy through
-``.detach().cpu()``; a bfloat16 leaf raises (numpy has no such dtype).
-Leaves are stored in their logical (whole) layout: a sharded fit saves its
-replicated arrays, and any rank can restore them.  Under an active
+``.detach().cpu()``.  A bfloat16 leaf is saved as the reference saves an
+ml_dtypes bfloat16 array: its two-byte records under the ``.npy`` descr
+``'<V2'``, the manifest's dtype ``"bfloat16"``, the hash over the same
+bytes; it comes back as a bfloat16 tensor.  Leaves are stored in their
+logical (whole) layout, and any rank can restore them: `restore`'s
+`sharding_tree` cuts each leaf into this rank's block on restore (the
+elastic re-shard: the mesh need not be the one that saved).  Under an active
 telemetry tracer (`repro_torch.obs`) a save runs the spans
 ``checkpoint/device-to-host``, ``checkpoint/write`` (the ``.npy`` files)
 and ``checkpoint/hash``.
@@ -33,66 +37,49 @@ import shutil
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.obs import span
+from repro_torch.tree import flatten as _flatten
 
 
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
+#: the .npy descr of the reference's bfloat16 leaves (ml_dtypes' bfloat16
+#: reaches numpy's writer as two-byte void records); numpy itself has no
+#: bfloat16, so a host copy of one is a `np.dtype("V2")` array of its bits
+BF16_DESCR = "<V2"
 
 
-def _flatten(tree: Any) -> tuple[list, Callable[[list], Any], str]:
-    """(leaves, rebuild, treedef) of `tree`, in `jax.tree_util`'s order;
-    `rebuild(new_leaves)` makes the same structure around new leaves and
-    `treedef` is the structure as the reference's manifest writes it."""
-    if tree is None:
-        return [], lambda leaves: None, "None"
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-        spec = "{" + ", ".join(f"{k!r}: {p[2]}"
-                               for k, p in zip(keys, parts)) + "}"
-        return (*_join(parts, lambda vals: dict(zip(keys, vals))), spec)
-    if isinstance(tree, (list, tuple)):
-        parts = [_flatten(v) for v in tree]
-        inner = ", ".join(p[2] for p in parts)
-        if _is_namedtuple(tree):
-            cls = type(tree)
-            return (*_join(parts, lambda vals: cls(*vals)),
-                    f"CustomNode(namedtuple[{cls.__name__}], [{inner}])")
-        if isinstance(tree, list):
-            return (*_join(parts, list), f"[{inner}]")
-        return (*_join(parts, tuple),
-                f"({inner}{',' if len(parts) == 1 else ''})")
-    return [tree], lambda leaves: leaves[0], "*"
-
-
-def _join(parts, make):
-    leaves = [leaf for p in parts for leaf in p[0]]
-    sizes = [len(p[0]) for p in parts]
-
-    def rebuild(new):
-        out, off = [], 0
-        for (_, sub, _), size in zip(parts, sizes):
-            out.append(sub(new[off:off + size]))
-            off += size
-        return make(out)
-
-    return leaves, rebuild
-
-
-def _host(i: int, x) -> np.ndarray:
+def _host(x) -> np.ndarray:
     if torch.is_tensor(x):
+        x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
-            raise TypeError(
-                f"checkpoint leaf {i} is a bfloat16 tensor, which numpy (and "
-                f"so the .npy format) cannot hold; store it as float32")
-        return x.detach().cpu().numpy()
+            return x.view(torch.int16).numpy().view(np.dtype("V2"))
+        return x.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    """The manifest's dtype: the reference's ``str(arr.dtype)``, which
+    names an ml_dtypes bfloat16 array "bfloat16"."""
+    return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
+def _save(path: str, arr: np.ndarray) -> None:
+    """`np.save`, except that a bfloat16 leaf's header says ``'<V2'``, as
+    the reference's files do (numpy would write ``'|V2'``): the same bytes
+    on disk from either package."""
+    if arr.dtype != np.dtype("V2"):
+        np.save(path, arr)
+        return
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": BF16_DESCR, "fortran_order": False,
+                "shape": arr.shape})
+        f.write(arr.tobytes())
 
 
 def _hash(arr: np.ndarray) -> str:
@@ -113,11 +100,20 @@ def _hashes(arrays: list[np.ndarray]) -> list[str]:
         return list(pool.map(_hash, arrays))
 
 
-def _like(example, arr: np.ndarray):
+def _like(example, arr: np.ndarray, dtype: str, sharding=None):
     """A restored leaf in the example leaf's kind: a tensor on the example's
-    device, a python scalar of its type, else the numpy array."""
+    device (bfloat16 where the manifest says so; with a `sharding`, this
+    rank's block of it, cut before the upload), a python scalar of its
+    type, else the numpy array."""
     if torch.is_tensor(example):
-        return torch.from_numpy(arr).to(example.device)
+        if dtype == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(
+                np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        if sharding is not None:
+            t = sharding.shard(t)
+        return t.to(example.device)
     if isinstance(example, (bool, int, float)):
         return type(example)(arr.item())
     return arr
@@ -139,7 +135,7 @@ class Checkpointer:
         on a thread (one in flight at a time, `wait()` joins it)."""
         leaves, _, treedef = _flatten(tree)
         with span("checkpoint/device-to-host"):
-            host_leaves = [_host(i, x) for i, x in enumerate(leaves)]
+            host_leaves = [_host(x) for x in leaves]
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(
@@ -166,11 +162,11 @@ class Checkpointer:
         try:
             with span("checkpoint/write"):
                 for i, arr in enumerate(leaves):
-                    np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
+                    _save(os.path.join(tmp, f"arr_{i}.npy"), arr)
             with span("checkpoint/hash"):
                 manifest["arrays"] = [
                     {"index": i, "shape": list(arr.shape),
-                     "dtype": str(arr.dtype), "hash": h}
+                     "dtype": _dtype_name(arr), "hash": h}
                     for i, (arr, h) in enumerate(zip(leaves,
                                                      _hashes(leaves)))]
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -203,12 +199,18 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, example_tree: Any) -> Any:
+    def restore(self, step: int, example_tree: Any,
+                sharding_tree: Any = None) -> Any:
         """The pytree saved at `step`, in `example_tree`'s structure.  Each
         leaf comes back in its example leaf's kind: a tensor on that
         tensor's device (the saved dtype), a python scalar of that type, or
-        a numpy array.  Raises ValueError when the leaf counts differ and
-        IOError when a leaf's hash does not match its manifest."""
+        a numpy array.  `sharding_tree` (optional: `example_tree`'s
+        structure, or one sharding for every leaf) places each tensor leaf
+        as its sharding says, this rank's block of the whole saved array
+        (`distributed.sharding.NamedSharding.shard`): the elastic re-shard,
+        onto whatever mesh restores.  Raises ValueError when the leaf counts
+        differ and IOError when a leaf's hash does not match its
+        manifest."""
         path = self._path(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -217,19 +219,27 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint has {len(manifest['arrays'])} arrays, "
                 f"example tree has {len(leaves)}")
+        if sharding_tree is None or hasattr(sharding_tree, "shard"):
+            shardings = [sharding_tree] * len(leaves)
+        else:
+            shardings = _flatten(sharding_tree)[0]
+            if len(shardings) != len(leaves):
+                raise ValueError(f"sharding_tree has {len(shardings)} "
+                                 f"leaves, example tree has {len(leaves)}")
         arrays = [np.load(os.path.join(path, f"arr_{meta['index']}.npy"))
                   for meta in manifest["arrays"]]
         for meta, h in zip(manifest["arrays"], _hashes(arrays)):
             if h != meta["hash"]:
                 raise IOError(f"checkpoint corruption: array "
                               f"{meta['index']} hash mismatch")
-        return rebuild([_like(example, arr)
-                        for example, arr in zip(leaves, arrays)])
+        return rebuild([_like(example, arr, meta["dtype"], sharding)
+                        for example, arr, meta, sharding in zip(
+                            leaves, arrays, manifest["arrays"], shardings)])
 
-    def restore_latest(self, example_tree: Any):
+    def restore_latest(self, example_tree: Any, sharding_tree: Any = None):
         """(step, tree) of the newest complete checkpoint, or (None, None)
         when there is none."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, example_tree)
+        return step, self.restore(step, example_tree, sharding_tree)

@@ -7,8 +7,10 @@ these, both packages fit from identical affinities and starting points.
 The artifact format (`api/artifact.py`) crosses the other way too: it
 writes the port's `kernel_impl` in the reference's words
 (`KERNEL_IMPL_TO_JAX`) and reads a `repro` spec through
-`spec_from_jax_fields`.  The LM scaffolding's params and caches cross
-through `lm_tree_from_numpy`.
+`spec_from_jax_fields`.  The LM scaffolding's params, caches and whole
+train states (params, the optimizer's m, v and count in float32 or
+bfloat16, the step; the int8 error feedback is the step's own and is not
+state) cross through `lm_tree_from_numpy`.
 """
 from __future__ import annotations
 
@@ -84,9 +86,10 @@ def spec_from_jax_fields(fields: dict) -> EmbedSpec:
 
 
 def lm_tree_from_numpy(tree, device):
-    """The JAX package's LM params or caches as numpy
-    (`jax.tree.map(np.asarray, ...)`: nested dicts and lists of arrays) ->
-    the same tree of tensors on `device`, every dtype kept.  JAX's bfloat16
+    """The JAX package's LM params, caches or train state as numpy
+    (`jax.tree.map(np.asarray, ...)`: nested dicts and lists of arrays,
+    0-d arrays for the int32 step and count) -> the same tree of tensors on
+    `device`, every dtype kept.  JAX's bfloat16
     reaches numpy as an extension dtype that `torch.tensor` does not take:
     it is recognised by name and carried as its bits (uint16 viewed as
     torch.bfloat16)."""

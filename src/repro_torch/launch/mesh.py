@@ -22,6 +22,9 @@ launcher does, as `torchrun` does:
 
     torch.distributed.init_process_group("nccl")     # one rank per GPU
     mesh = make_host_mesh()                          # {"data": world, "model": 1}
+
+`make_production_mesh` lays the reference's production shape over the
+default group, which must then have its 256 (512 with `multi_pod`) ranks.
 """
 from __future__ import annotations
 
@@ -179,3 +182,24 @@ def make_host_mesh(model_axis: int = 1) -> Mesh:
         raise ValueError(f"model_axis={model_axis} does not divide the "
                          f"process group's {n} ranks")
     return Mesh({"data": n // model_axis, "model": model_axis})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh over the default process group:
+    ``{"data": 16, "model": 16}``, or ``{"pod": 2, "data": 16, "model":
+    16}`` with `multi_pod`.  Raises when no group is started or when the
+    group has another size."""
+    _require_group()
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    need = math.prod(shape.values())
+    if world_size() != need:
+        raise ValueError(f"the production mesh {shape} needs {need} ranks; "
+                         f"the process group has {world_size()} (use "
+                         f"make_host_mesh for another size)")
+    return Mesh(shape)
+
+
+def n_chips(mesh: Mesh) -> int:
+    """The devices of the mesh: one a rank."""
+    return mesh.size

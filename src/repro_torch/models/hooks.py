@@ -3,8 +3,11 @@
 Port of `repro/models/hooks.py`.  A launcher installs a constraint function;
 the model calls `constrain(x, tag)` on the residual stream between layer
 groups (and on q/k/v and the MoE dispatch).  Without a constraint it is the
-identity, which is all serving on one card needs; item 26b's sharding rules
-set one.
+identity.  `launch/train.py` installs
+`distributed.sharding.make_activation_constraint`, which computes the
+reference's specs and returns `x` unchanged (as JAX's
+`with_sharding_constraint` changes no value); tests install one that
+injects JAX's MoE routing.
 """
 from __future__ import annotations
 

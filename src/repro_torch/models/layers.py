@@ -10,7 +10,7 @@ Port of `repro/models/layers.py`.  Conventions, as the reference's:
     the f32 masters are the only weights held).
   * attention head projections use the FLATTENED (H * head_dim) output dim.
   * the init functions take a `torch.Generator` where the reference takes a
-    PRNG key, and draw on its device.
+    PRNG key, and draw on its device (or `_MetaKey`: shapes only).
 """
 from __future__ import annotations
 
@@ -33,10 +33,24 @@ def pdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+class _MetaKey:
+    """The key of a shapes-only init (`models.train.params_specs`): a
+    `torch.Generator` has no `meta` device, so `_randn` makes empty `meta`
+    tensors from this one and never draws."""
+
+    device = torch.device("meta")
+
+
+def _randn(key, shape) -> torch.Tensor:
+    """A standard normal draw of `shape` from `key` on its device."""
+    if isinstance(key, _MetaKey):
+        return torch.empty(shape, device=key.device)
+    return torch.randn(shape, generator=key, device=key.device)
+
+
 def _dense_init(key: torch.Generator, shape, dtype, in_axis=0):
     fan_in = shape[in_axis]
-    return (torch.randn(shape, generator=key, device=key.device)
-            / math.sqrt(fan_in)).to(dtype)
+    return (_randn(key, shape) / math.sqrt(fan_in)).to(dtype)
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -296,7 +310,7 @@ def init_embedding(key, cfg: ModelConfig, n_tables: int = 1):
         ax = ("codebooks", "vocab", "embed")
     else:
         ax = ("vocab", "embed")
-    table = torch.randn(shape, generator=key, device=key.device).to(dt) * 0.02
+    table = _randn(key, shape).to(dt) * 0.02
     return {"table": table}, {"table": ax}
 
 

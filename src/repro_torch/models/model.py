@@ -12,7 +12,7 @@ repeated n_groups times over stacked parameters:
                  block params are SHARED across groups)
 
 Entry points (built by `build_model`):
-  train_loss(params, batch)                 -> scalar loss (forward only)
+  train_loss(params, batch)                 -> scalar loss (autograd)
   prefill(params, batch, max_len)           -> (logits_last, caches)
   decode_step(params, caches, tokens)       -> (logits, caches)
 
@@ -20,11 +20,15 @@ The contract is the reference's: params and caches are nested dicts and
 lists of tensors with the reference's keys, every per-slot leaf stacked
 with a leading "layers" axis of n_groups, and `init_params` returns
 (params, axes).  The group loop is a Python loop that indexes the stacked
-tensors (`t[g]`, views, no copy).  `RunConfig.scan_layers` and `remat`
-change nothing here: the reference's `lax.scan` and `jax.checkpoint` only
-shape its compiled program and its backward pass, and these entry points
-run eagerly and forward only.  Every call is functional: a decode step
-returns new caches and leaves its inputs unchanged.
+tensors (`t[g]`, views, no copy).  `RunConfig.scan_layers` changes no
+value: the reference's `lax.scan` only shapes its compiled program.
+`RunConfig.remat == "full"` is the reference's `jax.checkpoint(...,
+nothing_saveable)` around one group's body: in a differentiated train
+forward each group runs under `torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)`, which keeps only the group's input and recomputes
+the rest in the backward pass (the same values; the autograd graph of the
+SSM time loops stays one group deep).  Every call is functional: a decode
+step returns new caches and leaves its inputs unchanged.
 """
 from __future__ import annotations
 
@@ -32,13 +36,14 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.estimator import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 
 from . import hooks, ssm
 from .layers import (
-    KV_CACHE_AXES, _gqa_scores_to_out, _proj, attention, cdt,
+    KV_CACHE_AXES, _gqa_scores_to_out, _MetaKey, _proj, attention, cdt,
     decode_attention, embed_tokens, embed_tokens_onehot, init_attention,
     init_embedding, init_kv_cache, init_lm_head, init_mlp, init_rmsnorm,
     lm_logits, mlp, rmsnorm,
@@ -236,10 +241,13 @@ class Model:
         """(params, axes).  `key` is a seed or a `torch.Generator` (the
         reference's PRNG key): the draws run on the generator's device (a
         seed makes one on `device`) and the params land on `device`
-        (default: the current CUDA device).  The draws cannot match
+        (default: the current CUDA device).  On `meta` nothing is drawn:
+        empty tensors of the params' shapes and dtypes.  The draws cannot match
         `jax.random`'s; tests carry JAX's params over (`convert.py`)."""
         device = resolve_device(device)
-        if not isinstance(key, torch.Generator):
+        if device.type == "meta":
+            key = _MetaKey()          # shapes only: no draw (params_specs)
+        elif not isinstance(key, torch.Generator):
             key = torch.Generator(device=device).manual_seed(int(key))
         cfg = self.cfg
         pattern, n_groups = block_pattern(cfg)
@@ -308,8 +316,7 @@ class Model:
                        else [None for _ in pattern])
         shared_caches = caches.get("shared_attn") if caches else None
 
-        new_slots, new_shared = [], []
-        for g in range(n_groups):
+        def group(g, x):
             def take(t):
                 return _map(lambda a: a[g], t)
             x = hooks.constrain(x, "residual")
@@ -326,6 +333,20 @@ class Model:
                     vision_embeds=vision_embeds, cache=c, mode=mode,
                     run=run)
                 group_caches.append(nc)
+            return x, group_caches, sc
+
+        remat = (mode == "train" and run.remat == "full"
+                 and torch.is_grad_enabled())
+        new_slots, new_shared = [], []
+        for g in range(n_groups):
+            if remat:
+                # train mode keeps no per-layer KV or states, so the
+                # group's output is all it returns; it draws nothing, so
+                # there is no RNG state to stash
+                x = checkpoint(lambda x, g=g: group(g, x)[0], x,
+                               use_reentrant=False, preserve_rng_state=False)
+                continue
+            x, group_caches, sc = group(g, x)
             if mode != "train":
                 new_slots.append(group_caches)
                 new_shared.append(sc)
@@ -358,8 +379,18 @@ class Model:
         return logits, new_caches
 
     def train_loss(self, params, batch):
-        """batch: {"tokens": (B, S+1[, n_cb]) int32, "vision_embeds"?}.
-        Forward only here (the training step is item 26b)."""
+        """batch: {"tokens": (B, S+1[, n_cb]) int32, "vision_embeds"?}: the
+        mean next-token cross-entropy, plus 0.01 of the MoE load-balance
+        loss.  Differentiable by autograd for every family."""
+        loss = self._token_loss(params, batch)
+        if self.cfg.num_experts:
+            loss = loss + 0.01 * self._moe_aux(params, batch)
+        return loss
+
+    def _token_loss(self, params, batch):
+        """The cross-entropy part of `train_loss`: a mean over the batch's
+        positions, so the mean over equal row blocks is the batch's (the
+        data-parallel step, `models/train.py`, splits it so)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -376,10 +407,7 @@ class Model:
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.take_along_dim(
             logits, labels[..., None].long(), dim=-1)[..., 0]
-        loss = torch.mean(lse - picked)
-        if cfg.num_experts:
-            loss = loss + 0.01 * self._moe_aux(params, batch)
-        return loss
+        return torch.mean(lse - picked)
 
     def _moe_aux(self, params, batch):
         # the reference's surrogate: load-balance loss at the embedding

@@ -1,13 +1,199 @@
-"""Serve-step factories.
+"""Train-step and serve-step factories.
 
-Port of the serving half of `repro/models/train.py`: `make_prefill` and
-`make_decode_step`.  The training half (`init_train_state`,
-`make_train_step`, `params_specs`, `train_state_specs`) is ROADMAP item
-26b.
+Port of `repro/models/train.py`.  `train_step` = microbatched value and
+gradient (float32 accumulation in the reference's order, optional int8
+error-feedback compression) + AdamW.  The reference's step is one jitted
+program that donates its state; the port's runs eagerly and updates the
+state's tensors in place (`adamw.update(..., donate=True)`): the returned
+state holds the same tensors, and the caller keeps no older copy.
+
+Gradients.  A microbatch's loss is differentiated by autograd with respect
+to detached aliases of the params; without compression the microbatches'
+gradients accumulate in the aliases' ``.grad`` (the first microbatch's
+gradient is the accumulator, and each later one is added in float32, the
+reference's ``0 + g0 + g1 + ...`` bit for bit), so no second
+gradient-sized buffer is held.  With compression each microbatch's
+gradient is quantized before it is added, as the reference does.
+
+On a mesh (`grad_shardings`, a tree of `distributed.sharding.NamedSharding`
+matching the params) the state holds this rank's blocks of params and
+moments, and a step, the data-parallel form of the reference's GSPMD
+program:
+
+  1. all-gathers the whole params (`NamedSharding.gather`);
+  2. takes each microbatch of the global batch (every rank is handed the
+     same global batch) and computes the loss on this rank's rows of it
+     (`batch_shardings`; ranks that differ only on "model" take the same
+     rows), with the MoE load-balance term over the whole microbatch, so
+     that the mean over the FSDP group is the microbatch's loss;
+  3. averages the gradients over the FSDP group (once a step, or each
+     microbatch before its compression);
+  4. takes `global_norm` of the whole averaged gradient, and updates this
+     rank's blocks.
+
+The result is the reference's step up to the order of its sums.  Under an
+active telemetry tracer (`repro_torch.obs`) a step runs the spans
+``train/microbatch`` (a microbatch's forward and backward) and
+``train/optimizer``; they time the host's issue, and with
+`profiler_annotations` a `torch.profiler` capture attributes the device's
+kernels to them.
+Tensor-parallel compute (the GEMMs split over "model") is not ported: every
+rank computes its rows with whole params.
 """
 from __future__ import annotations
 
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import batch_shardings, fsdp_axes
+from repro_torch.obs import span
+from repro_torch.optim import adamw
+from repro_torch.optim.compress import compress_with_feedback, init_feedback
+from repro_torch.tree import flatten, leaves
+
 from .model import Model
+
+
+def init_train_state(model: Model, key, device=None) -> tuple[dict, dict]:
+    """Returns (state, axes). state = {params, opt, step}; `step` and the
+    optimizer's `count` are int32 scalars on the params' device.  `key` and
+    `device` as `Model.init_params`'s (on `meta`: shapes only)."""
+    params, axes = model.init_params(key, device=device)
+    opt = adamw.init(params, moment_dtype=model.run.moment_dtype)
+    state = {"params": params, "opt": opt,
+             "step": torch.zeros((), dtype=torch.int32,
+                                 device=leaves(params)[0].device)}
+    return state, axes
+
+
+def train_state_specs(model: Model, key=None):
+    """`init_train_state` on the `meta` device (the reference's
+    `jax.eval_shape`: shapes and dtypes, no allocation, no draw) + the
+    logical axes tree."""
+    return init_train_state(model, key or 0, device="meta")
+
+
+def params_specs(model: Model, key=None):
+    """`meta` tensors of the params' shapes and dtypes + the logical axes
+    tree (no allocation, no draw)."""
+    return model.init_params(key or 0, device="meta")
+
+
+def _microbatches(batch: dict, nmb: int) -> list[dict]:
+    """The reference's ``x.reshape((nmb, B // nmb) + ...)``: microbatch i
+    is rows [i B/nmb, (i + 1) B/nmb) of every leaf (views)."""
+    if nmb == 1:
+        return [batch]
+    size = {k: v.shape[0] // nmb for k, v in batch.items()}
+    return [{k: v[i * size[k]:(i + 1) * size[k]] for k, v in batch.items()}
+            for i in range(nmb)]
+
+
+class _DataParallel:
+    """What a step on a mesh needs of `grad_shardings`: the params'
+    shardings, the FSDP group, and this rank's rows of a batch."""
+
+    def __init__(self, grad_shardings):
+        self.shardings = leaves(grad_shardings)
+        self.mesh = self.shardings[0].mesh
+        axes = fsdp_axes(self.mesh)
+        self.group = self.mesh.axis_group(axes) if axes else None
+
+    @property
+    def n(self) -> int:
+        return self.group.size if self.group is not None else 1
+
+    def rows(self, batch: dict) -> dict:
+        sh = batch_shardings(self.mesh, batch)
+        return {k: sh[k].local_view(v) for k, v in batch.items()}
+
+    def mean(self, tensors) -> None:
+        """Each tensor (in place) averaged over the FSDP group."""
+        if self.n == 1:
+            return
+        for t in tensors:
+            dist.all_reduce(t, group=self.group.group)
+            t.div_(self.n)
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
+                    grad_shardings=None):
+    """The train step `(state, batch) -> (state, {"loss", "grad_norm",
+    "lr"})`.  `grad_shardings`: the params' `NamedSharding` tree on a mesh,
+    whose blocks the state then holds (the data-parallel step of the module
+    docstring); the reference constrains its gradients to the same
+    shardings (reduce-scatter onto the FSDP shards)."""
+    run = model.run
+    dp = _DataParallel(grad_shardings) if grad_shardings is not None else None
+
+    def loss_fn(p, mb):
+        if dp is None:
+            return model.train_loss(p, mb)
+        loss = model._token_loss(p, dp.rows(mb))
+        if model.cfg.num_experts:
+            loss = loss + 0.01 * model._moe_aux(p, mb)
+        return loss
+
+    def train_step(state, batch):
+        flat_p, rebuild, _ = flatten(state["params"])
+        whole = (flat_p if dp is None
+                 else [s.gather(p) for s, p in zip(dp.shardings, flat_p)])
+        alias = [p.detach().requires_grad_(True) for p in whole]
+        params = rebuild(alias)
+
+        nmb = run.num_microbatches
+        compress = run.grad_compress and nmb > 1
+        err = init_feedback(whole) if compress else None
+        gacc, lsum = None, None
+        for mb in _microbatches(batch, nmb):
+            with span("train/microbatch"):
+                loss = loss_fn(params, mb)
+                if compress:
+                    g = list(torch.autograd.grad(loss, alias))
+                    if dp is not None:
+                        dp.mean(g)
+                    g, err = compress_with_feedback(g, err)
+                    if gacc is None:
+                        gacc = g
+                    else:
+                        for a, x in zip(gacc, g):
+                            a.add_(x)
+                else:
+                    loss.backward(inputs=alias)
+            loss = loss.detach()
+            lsum = loss if lsum is None else lsum + loss
+        del err
+        if compress:
+            grads = gacc
+        else:
+            # a param the loss does not reach has no .grad: JAX's is zeros
+            grads = [a.grad if a.grad is not None else torch.zeros_like(a)
+                     for a in alias]
+            if dp is not None:
+                dp.mean(grads)
+        for a in alias:
+            a.grad = None
+        del alias, params
+        if nmb > 1:
+            for g in grads:
+                g.div_(nmb)
+            lsum = lsum / nmb
+        # the norm of the whole gradient, before a rank keeps its blocks
+        gnorm = adamw.global_norm(grads)
+        if dp is not None:
+            dp.mean([lsum])
+            grads = [s.local_view(g) for s, g in zip(dp.shardings, grads)]
+            del whole
+
+        with span("train/optimizer"):
+            new_p, new_opt, metrics = adamw.update(
+                opt_cfg, rebuild(grads), state["opt"], state["params"],
+                donate=True, gnorm=gnorm)
+        new_state = {"params": new_p, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": lsum, **metrics}
+
+    return train_step
 
 
 def make_prefill(model: Model):

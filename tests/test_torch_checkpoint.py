@@ -106,13 +106,22 @@ def test_manifest_contents(tmp_path):
 
 
 def test_leaf_count_mismatch_and_bfloat16_refused(tmp_path):
+    """A tree of another leaf count is refused, on restore and in
+    `sharding_tree`.  A bfloat16 leaf, refused before the checkpointer
+    learnt the reference's bfloat16 records, now saves and comes back bit
+    for bit (its cross-package form: tests/test_torch_checkpoint_lm.py)."""
     ck = Checkpointer(str(tmp_path))
     ck.save(1, _tree(1))
     with pytest.raises(ValueError, match="arrays"):
         ck.restore(1, {"X": torch.zeros(3, 4)})
-    with pytest.raises(TypeError, match="bfloat16"):
-        ck.save(2, {"X": torch.zeros(2, dtype=torch.bfloat16)})
-    assert ck.all_steps() == [1]
+    with pytest.raises(ValueError, match="sharding_tree"):
+        ck.restore(1, _tree(0), sharding_tree=[None])
+    x = torch.randn(5, generator=torch.Generator().manual_seed(3)).to(
+        torch.bfloat16)
+    ck.save(2, {"X": x})
+    assert ck.all_steps() == [1, 2]
+    got = ck.restore(2, {"X": torch.zeros(5, dtype=torch.bfloat16)})["X"]
+    assert got.dtype == torch.bfloat16 and torch.equal(got, x)
 
 
 def test_nested_state_with_python_scalars_round_trips(tmp_path):

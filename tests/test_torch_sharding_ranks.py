@@ -1,7 +1,8 @@
-"""Rank side of tests/test_torch_sharding.py and
-tests/test_torch_distributed_embed.py: the port's mesh backends (the
-row-sharded sparse one and the 2-D-sharded dense one) and its meshes run
-inside a gloo process group on the CPU.  It holds no tests itself.
+"""Rank side of tests/test_torch_sharding.py,
+tests/test_torch_distributed_embed.py and tests/test_torch_lm_sharding.py:
+the port's mesh backends (the row-sharded sparse one and the 2-D-sharded
+dense one), its meshes and the LM's data-parallel train step run inside a
+gloo process group on the CPU.  It holds no tests itself.
 
 Spawned by `spawn_ranks`, one process per rank; it imports only torch and
 repro_torch (JAX's side is computed in the test process and handed over as
@@ -353,9 +354,60 @@ def job_dense_mesh_api(Y, n_odd):
     }
 
 
+def job_lm_train(arch, compute, run, opt, state, batches, ckdir):
+    """The LM train step on a (2, 2) mesh from JAX's state, three of
+    JAX's batches, a save of the gathered state (rank 0), a restore onto a
+    (4, 1) mesh through `sharding_tree` and a fourth step: the losses and
+    the whole states after steps 3 and 4 (gathered on every rank)."""
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import (build_model, init_train_state,
+                                    make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=compute)
+    model = build_model(cfg, RunConfig(**run))
+    opt = AdamWConfig(**opt)
+    _, axes = init_train_state(model, 0, device="meta")
+    whole = convert.lm_tree_from_numpy(state, "cpu")
+    batches = [convert.lm_tree_from_numpy(b, "cpu") for b in batches]
+
+    def gathered(st, sh):
+        return tree_map(lambda s, x: s.gather(x), sh, st)
+
+    mesh = Mesh({"data": 2, "model": 2})
+    sh = state_shardings(mesh, axes, whole)
+    st = tree_map(lambda s, x: s.shard(x), sh, whole)
+    step = make_train_step(model, opt, grad_shardings=sh["params"])
+    losses = []
+    for b in batches[:3]:
+        st, m = step(st, b)
+        losses.append(float(m["loss"]))
+    state3 = gathered(st, sh)
+    ck = Checkpointer(ckdir)
+    if mesh.rank == 0:
+        ck.save(3, state3)
+    dist.barrier()
+
+    mesh = Mesh({"data": 4, "model": 1})
+    fresh, _ = init_train_state(model, 1, device="cpu")
+    sh = state_shardings(mesh, axes, fresh)
+    st = ck.restore(3, tree_map(lambda s, x: s.shard(x), sh, fresh),
+                    sharding_tree=sh)
+    step3 = int(st["step"])
+    step = make_train_step(model, opt, grad_shardings=sh["params"])
+    st, m = step(st, batches[3])
+    losses.append(float(m["loss"]))
+    return {"losses": losses, "state3": state3, "state4": gathered(st, sh),
+            "step3": step3, "step4": int(st["step"])}
+
+
 JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "fit": job_fit, "budget": job_budget, "api": job_api,
         "resume": job_resume, "mesh_groups": job_mesh_groups,
         "dense_eg": job_dense_eg, "block_jacobi": job_block_jacobi,
         "dense_mesh_fits": job_dense_mesh_fits,
-        "dense_mesh_api": job_dense_mesh_api}
+        "dense_mesh_api": job_dense_mesh_api, "lm_train": job_lm_train}
