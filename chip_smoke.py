@@ -320,6 +320,29 @@ Phases, each printing one line (or a few) and failing the run on error:
               steps, a save, a resume and step 4 against the uninterrupted
               run; a save of two gloo ranks on a (2, 1) mesh restored onto
               this one rank and a step.  No kernel of the five launches.
+ 24. dryrun — the dry-run and cost modules (`launch/hlo_cost.py`'s op-stream
+              counter, `roofline.py`, `dryrun.py`, `profile_cell.py`), in a
+              fresh process of its own.  (a) phase lm_train's qwen2-7b step
+              without a mesh (8 of 28 layers, 4 x 64 tokens, two
+              microbatches, remat full, bf16 compute, f32 masters): a
+              warm-up, one step on the card under `CostCounter` and the same
+              step on `meta` from `train_state_specs`: the two op streams
+              ((op, shapes, dtype) multisets), FLOPs and bytes equal, the
+              live-bytes estimate (arguments + temp) within 10% of
+              `max_memory_allocated`, MODEL_FLOPS 2.864 TFLOP; then three
+              warm steps: ms a step, the compute and memory terms, the
+              roofline share and MFU.  (b) the dense-mesh tile at N = 20000
+              (EE, f32) in the one-rank group, with and without the
+              gradient: counted on the card, its ms, its roofline share and
+              kernel 1's bound.  (c) started together, each in a process
+              of its own: `python -m repro_torch.launch.dryrun`
+              for qwen2-7b train_4k (single and multi-pod meshes: fake
+              groups of 256 and 512 ranks), prefill_32k and decode_32k, the
+              embedding-mnist20k cell, and `profile_cell` for qwen2-7b
+              train_4k: every row printed; the train rows' all-gather bytes
+              are the param blocks a rank holds over the split leaves and
+              their all-reduce bytes the whole gradient plus the loss
+              scalar.  No kernel of the five launches.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -5034,6 +5057,338 @@ def phase_lm_train() -> dict:
     return _lm_child_phase("lm_train", "lm_train_child")["lm_train"]
 
 
+# -- phase dryrun: the dry-run and cost modules held against the card ---------------
+
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"   # git-ignored
+DRYRUN_MEM_TOL = 0.10      # live-bytes estimate against max_memory_allocated
+DRYRUN_TIMED_STEPS = 3
+DRYRUN_MESH_N = 20000      # the dense-mesh tile, EE, f32 (phase fit_dense_mesh)
+DRYRUN_CARD_BYTES = 80e9   # an H100's HBM
+# the reference's formula for phase lm_train's step (qwen2-7b, 8 layers, 4 x
+# 64 tokens): 6 N T with N the active non-embedding params
+DRYRUN_MODEL_TFLOP = 2.864
+DRYRUN_COMMANDS = (
+    ("dryrun", "--arch", "qwen2-7b", "--shape", "train_4k", "--mesh", "both"),
+    ("dryrun", "--arch", "qwen2-7b", "--shape", "prefill_32k"),
+    ("dryrun", "--arch", "qwen2-7b", "--shape", "decode_32k"),
+    ("dryrun", "--arch", "embedding-mnist20k", "--mesh", "single"),
+    ("profile_cell", "--arch", "qwen2-7b", "--shape", "train_4k"),
+)
+
+
+def _op_stream(records) -> "collections.Counter":
+    import collections
+    return collections.Counter((r.op, r.shapes, r.out_shapes, r.dtype)
+                               for r in records)
+
+
+def _dryrun_step(card: str) -> dict:
+    """(a) phase lm_train's qwen2-7b step without a mesh (full width, 8 of
+    28 layers, 4 x 64 tokens, two microbatches, remat full, bf16 compute,
+    f32 masters): a warm-up step, one step on the card under the counter,
+    the same step on `meta` from `train_state_specs`; the two op streams,
+    FLOPs and bytes must be equal and the meta count's live bytes within
+    DRYRUN_MEM_TOL of max_memory_allocated.  Then three warm steps timed
+    against the roofline."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_specs
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models import (build_model, init_train_state,
+                                    make_train_step, train_state_specs)
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    cfg = _lm_train_cfg(LM_TRAIN_ARCH, smoke=not cuda)
+    model = build_model(cfg, RunConfig(**LM_TRAIN_RUN))
+    step = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))
+    shape = ShapeConfig("train", "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+
+    def wait():
+        if cuda:
+            torch.cuda.synchronize()
+
+    state, _ = init_train_state(model, 0, device=LM_DEVICE)
+    state, _ = step(state, _lm_train_batch(cfg, 0))          # warm-up
+    batch = _lm_train_batch(cfg, 1)
+    wait()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with hlo_cost.CostCounter() as card_cc:
+        state, metrics = step(state, batch)
+        wait()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    card_cost, card_ops = card_cc.cost, _op_stream(card_cc.records)
+    del card_cc, metrics
+
+    specs, _ = train_state_specs(model)
+    mbatch = batch_specs(cfg, shape)
+    with hlo_cost.CostCounter() as cc:
+        mout = step(specs, mbatch)
+    mem = hlo_cost.memory_summary(cc, (specs, mbatch), mout)
+    meta_cost, meta_ops = cc.cost, _op_stream(cc.records)
+    del cc, mout, specs
+    if card_ops != meta_ops:
+        only_card = list((card_ops - meta_ops).items())[:5]
+        only_meta = list((meta_ops - card_ops).items())[:5]
+        raise AssertionError(f"dryrun: the card's op stream differs from "
+                             f"meta's: {sum(card_ops.values())} vs "
+                             f"{sum(meta_ops.values())} ops; on the card "
+                             f"only {only_card}; on meta only {only_meta}")
+    if card_cost != meta_cost:
+        raise AssertionError(f"dryrun: the card's cost {card_cost} differs "
+                             f"from meta's {meta_cost}")
+    est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    if cuda and abs(est / peak - 1) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"dryrun: live-bytes estimate {est / 1e9:.3f} "
+                             f"GB against max_memory_allocated "
+                             f"{peak / 1e9:.3f} GB (limit "
+                             f"{DRYRUN_MEM_TOL:.0%})")
+    mflops = rl.model_flops_for(cfg, shape)
+    if cuda and round(mflops / 1e12, 3) != DRYRUN_MODEL_TFLOP:
+        raise AssertionError(f"dryrun: MODEL_FLOPS {mflops:.4e}, the "
+                             f"reference's formula gives "
+                             f"{DRYRUN_MODEL_TFLOP} TFLOP")
+    say("dryrun", f"(a) {cfg.name} {cfg.num_layers} layers, {LM_TRAIN_BATCH}"
+                  f" x {LM_TRAIN_SEQ} tokens, microbatches 2, remat full, "
+                  f"{cfg.compute_dtype} compute, no mesh: the step on "
+                  f"{LM_DEVICE} and on meta dispatch the same "
+                  f"{sum(meta_ops.values())} ops ({len(meta_ops)} distinct "
+                  f"(op, shapes, dtype)); FLOPs {meta_cost.flops:.6e} and "
+                  f"bytes {meta_cost.bytes:.6e} equal on both; live-bytes "
+                  f"estimate (arguments {mem['argument_size_in_bytes'] / 1e9:.3f}"
+                  f" + temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB) "
+                  f"{est / 1e9:.3f} GB against max_memory_allocated "
+                  f"{peak / 1e9:.3f} GB "
+                  f"({(est / peak - 1) * 100 if peak else 0.0:+.2f}%, limit "
+                  f"{DRYRUN_MEM_TOL:.0%}); MODEL_FLOPS {mflops / 1e12:.4f} "
+                  f"TFLOP")
+    ms = []
+    for i in range(DRYRUN_TIMED_STEPS):
+        b = _lm_train_batch(cfg, 2 + i)
+        wait()
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        wait()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del state
+    roof = rl.analyze(meta_cost, 1, mflops)
+    step_ms = float(np.median(ms))
+    share = max(roof.compute_s, roof.memory_s, roof.collective_s) \
+        / (step_ms / 1e3)
+    mfu = mflops / (step_ms / 1e3 * rl.PEAK_FLOPS)
+    say("dryrun", f"(a) on {card}: {DRYRUN_TIMED_STEPS} warm steps "
+                  f"{[round(x, 1) for x in ms]} ms (median {step_ms:.1f}); "
+                  f"compute term {roof.compute_s * 1e3:.2f} ms "
+                  f"({meta_cost.flops / 1e12:.3f} TFLOP at "
+                  f"{rl.PEAK_FLOPS / 1e12:.0f} TFLOP/s), memory term "
+                  f"{roof.memory_s * 1e3:.2f} ms ({meta_cost.bytes / 1e9:.1f}"
+                  f" GB at {rl.HBM_BW / 1e12} TB/s), dominant "
+                  f"{roof.dominant}; roofline share {share:.3f}, MFU "
+                  f"{mfu * 100:.3f}%")
+    return {"ops": sum(meta_ops.values()), "flops": meta_cost.flops,
+            "bytes": meta_cost.bytes, "estimate_gb": est / 1e9,
+            "peak_gb": peak / 1e9, "model_flops": mflops, "step_ms": ms,
+            "compute_ms": roof.compute_s * 1e3,
+            "memory_ms": roof.memory_s * 1e3, "dominant": roof.dominant,
+            "share": share, "mfu": mfu}
+
+
+def _dryrun_tile() -> dict:
+    """(b) the dense-mesh tile (EE, f32, unit W-) at N = DRYRUN_MESH_N in
+    the one-rank group: one evaluation with the gradient and one without,
+    counted on the card and timed (CUDA events), against kernel 1's bound
+    on the same N."""
+    from repro_torch.embed.distributed import (default_mesh_spec,
+                                               make_distributed_energy_grad)
+    from repro_torch.launch import hlo_cost, make_host_mesh
+    from repro_torch.launch import roofline as rl
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    n = DRYRUN_MESH_N if cuda else 512
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(0)
+    X = torch.randn((n, 2), generator=gen, device=LM_DEVICE)
+    Wp = torch.rand((n, n), generator=gen, device=LM_DEVICE)
+    lam = torch.tensor(100.0, device=LM_DEVICE)
+    mesh = make_host_mesh()
+    eg = make_distributed_energy_grad(mesh, default_mesh_spec(mesh), "ee",
+                                      unit_wm=True)
+    bound_ms = 2 * n * n * 4 / PEAK_BYTES_PER_S * 1e3
+    out = {"n": n, "k1_bound_ms": bound_ms}
+    for with_grad in (True, False):
+        def call():
+            return eg(X, Wp, lam, with_grad=with_grad)
+        _, counted = hlo_cost.count(call)
+        if not counted.cost.flops > 0:
+            raise AssertionError(f"dryrun: the tile counted {counted.cost}")
+        ms = cuda_ms(call, reps=5) if cuda else float("nan")
+        roof = rl.analyze(counted.cost, 1, 6.0 * n * n * (2 + 4))
+        share = max(roof.compute_s, roof.memory_s) / (ms / 1e3)
+        tag = "with the gradient" if with_grad else "the energy alone"
+        say("dryrun", f"(b) the dense-mesh tile at N={n}, EE, f32, {tag}: "
+                      f"{counted.n_ops} ops, {counted.cost.flops / 1e9:.3f} "
+                      f"GFLOP, {counted.cost.bytes / 1e9:.3f} GB; "
+                      f"{ms:.3f} ms an evaluation; compute term "
+                      f"{roof.compute_s * 1e3:.4f} ms (bf16 peak: a lower "
+                      f"bound for f32), memory term "
+                      f"{roof.memory_s * 1e3:.3f} ms, dominant "
+                      f"{roof.dominant}, roofline share {share:.3f}; kernel "
+                      f"1's bound on the same N {bound_ms:.3f} ms (bytes)")
+        out["grad" if with_grad else "energy"] = {
+            "ops": counted.n_ops, "flops": counted.cost.flops,
+            "bytes": counted.cost.bytes, "ms": ms,
+            "memory_ms": roof.memory_s * 1e3, "share": share}
+    del X, Wp
+    return out
+
+
+def _dryrun_want(arch: str, mesh_kind: str) -> tuple[int, int]:
+    """A production train cell's collective identities: the bytes of the
+    param blocks a rank holds over the split leaves (one all-gather a leaf
+    a step) and the whole gradient's bytes plus the loss scalar (the
+    all-reduces), from the sharding rules alone."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import default_run_config
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import build_model, train_state_specs
+    from repro_torch.tree import leaves
+
+    shape = ({"pod": 2, "data": 16, "model": 16} if mesh_kind == "multi"
+             else {"data": 16, "model": 16})
+    mesh = types.SimpleNamespace(axis_names=tuple(shape), shape=shape,
+                                 coords={a: 0 for a in shape})
+    model = build_model(get_config(arch), default_run_config("train_4k"))
+    specs, axes = train_state_specs(model)
+    sh = state_shardings(mesh, axes, specs)
+    blocks = whole = 0
+    for s, p in zip(leaves(sh["params"]), leaves(specs["params"])):
+        whole += p.numel() * p.element_size()
+        if not s.is_whole:
+            blocks += s.local_view(p).numel() * p.element_size()
+    return blocks, whole + 4
+
+
+def _dryrun_commands() -> list:
+    """(c) the command lines, each in a process of its own with its own
+    fake group, all started together (each pays ~16 s of start-up on the
+    card's host); every row printed and the train rows' identities held."""
+    import os
+
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs, outs = [], []
+    for i, cmd in enumerate(DRYRUN_COMMANDS):
+        args = [sys.executable, "-m", f"repro_torch.launch.{cmd[0]}",
+                *cmd[1:]]
+        if cmd[0] == "dryrun":
+            outs.append(DRYRUN_DIR / f"rows-{i}.jsonl")
+            outs[-1].unlink(missing_ok=True)
+            args += ["--out", str(outs[-1])]
+        procs.append((cmd, subprocess.Popen(
+            args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    t0 = time.perf_counter()
+    try:
+        for cmd, proc in procs:
+            stdout, stderr = proc.communicate(timeout=LM_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun: {' '.join(cmd)} failed:\n"
+                                     f"{stdout[-2000:]}\n{stderr[-4000:]}")
+            say("dryrun", f"(c) python -m repro_torch.launch."
+                          f"{' '.join(cmd)}: done "
+                          f"{time.perf_counter() - t0:.1f} s after the start")
+            if cmd[0] == "profile_cell":
+                for line in stdout.strip().splitlines()[:12]:
+                    say("dryrun", f"(c)   {line}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rows = [json.loads(line) for path in outs
+            for line in path.read_text().splitlines()]
+    for r in rows:
+        mem = r["memory"]
+        rank_bytes = (mem["argument_size_in_bytes"]
+                      + mem["temp_size_in_bytes"])
+        coll = {k: f"{v:.4e}" for k, v in r["collectives"].items() if v}
+        say("dryrun", f"(c) {r['arch']} x {r['shape']} x {r['mesh']} "
+                      f"({r['chips']} chips; fitted {r['fitted']}; count "
+                      f"{r['compile_s']} s): flops/chip "
+                      f"{r['flops_per_chip']:.4e}, bytes/chip "
+                      f"{r['bytes_per_chip']:.4e}, collective bytes/chip "
+                      f"{coll or 0}; compute {r['compute_s']:.4f} s, memory "
+                      f"{r['memory_s']:.4f} s, collective "
+                      f"{r['collective_s']:.4f} s -> {r['dominant']}; "
+                      f"useful_ratio {r['useful_ratio']:.4f}; memory "
+                      f"{ {k: v for k, v in mem.items()} }; a rank's bytes "
+                      f"{rank_bytes / 1e9:.2f} GB "
+                      f"{'exceed' if rank_bytes > DRYRUN_CARD_BYTES else 'fit'}"
+                      f" the card's 80 GB")
+        if r["shape"] == "train_4k":
+            gather, reduce = _dryrun_want(r["arch"], r["mesh"])
+            got = (r["collectives"]["all-gather"],
+                   r["collectives"]["all-reduce"])
+            if got != (gather, reduce):
+                raise AssertionError(f"dryrun: {r['arch']} x {r['mesh']} "
+                                     f"collectives {got}, the sharding "
+                                     f"rules give {(gather, reduce)}")
+            say("dryrun", f"(c) {r['arch']} x {r['mesh']}: all-gather "
+                          f"{gather} bytes = the param blocks a rank holds "
+                          f"over the split leaves; all-reduce {reduce} = "
+                          f"the whole gradient + the loss scalar")
+    want = {("qwen2-7b", "train_4k", "single"),
+            ("qwen2-7b", "train_4k", "multi"),
+            ("qwen2-7b", "prefill_32k", "single"),
+            ("qwen2-7b", "decode_32k", "single"),
+            ("embedding-mnist20k", None, "single")}
+    got = {(r["arch"], r["shape"], r["mesh"]) for r in rows}
+    if got != want:
+        raise AssertionError(f"dryrun: rows {sorted(map(str, got))}")
+    return rows
+
+
+def dryrun_child() -> int:
+    """Phase dryrun's body, in a process of its own: prints its lines and,
+    last, a JSON record for the parent."""
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+
+    card = smi()
+    rec = {}
+    t0 = time.perf_counter()
+    _start_lm_group()
+    try:
+        rec["step"] = _dryrun_step(card)
+        if torch.device(LM_DEVICE).type == "cuda":
+            torch.cuda.empty_cache()
+        say("dryrun", f"(a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rec["tile"] = _dryrun_tile()
+        say("dryrun", f"(b) {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    rec["rows"] = _dryrun_commands()
+    say("dryrun", f"(c) {time.perf_counter() - t0:.1f} s")
+    counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
+              **farfield.launch_counts}
+    if any(counts.values()):
+        raise AssertionError(f"dryrun launched a kernel: {counts}")
+    print(json.dumps({"dryrun": rec, "kernel_launches": counts}))
+    return 0
+
+
+def phase_dryrun() -> dict:
+    """The dry-run and cost modules (launch/dryrun.py, hlo_cost.py,
+    roofline.py, profile_cell.py) held against the card, in a fresh
+    process."""
+    return _lm_child_phase("dryrun", "dryrun_child")["dryrun"]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
@@ -5096,6 +5451,7 @@ def main() -> int:
     run("serve", phase_serve, sparse["fits"]["tsne"], sparse["labels"])
     run("lm_serve", phase_lm_serve)
     run("lm_train", phase_lm_train)
+    run("dryrun", phase_dryrun)
     say("done", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()))
     say("done", f"{time.perf_counter() - t_start:.1f} s")

@@ -1,0 +1,405 @@
+"""Multi-chip dry run: the port's counterpart of `repro/launch/dryrun.py`.
+
+Counts every (architecture x input-shape x mesh) cell's step on `meta`
+tensors (no allocation, no arithmetic) as rank 0 of a fake process group of
+256 ranks (512 with the multi-pod mesh), under `hlo_cost.CostCounter`, and
+appends a JSONL row per cell with the memory summary and the roofline terms
+(`roofline.py`, against the H100's peaks):
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+
+Rows are keyed (arch, shape, mesh, tag); existing rows are skipped, so the
+full sweep is resumable.  The fake group (`torch.distributed`'s "fake"
+backend: collectives return at once and move nothing) exists only in this
+process, which it refuses to start beside a real process group.  The dry
+run never touches CUDA and needs no card: counting on `meta` is what it
+is, as the reference's runs on 512 forced host devices, not a fallback.
+
+What is counted is the port's own program, which differs from the
+reference's GSPMD program:
+
+  * train: the data-parallel step of `models/train.py` on this rank's
+    blocks of the state (`launch/train.py`'s `state_shardings`): it
+    all-gathers each split param leaf once a step, computes its rows of
+    each microbatch with whole params (tensor-parallel compute is not
+    ported, ROADMAP item L), and all-reduces the gradients over the FSDP
+    axes; ranks that differ only on "model" repeat the same work;
+  * prefill and decode: the port has no sharded serving: a rank holds the
+    whole params (cast by `serve_param_dtype`) and serves its rows of the
+    batch (`batch_shardings`' block), with no collective;
+  * the embedding cell: `embed/distributed.py`'s 2-D tile and its
+    all-reduces, on this rank's (N/R, N/C) tiles.
+
+A cell whose direct count would dispatch more than `DIRECT_BUDGET_OPS` ops
+(counted at its smallest fit point and scaled) is fitted (`hlo_cost.fit_cost`): its FLOPs,
+bytes and collective bytes are polynomials in the layer groups G
+(`models/model.py` `block_pattern`), of degree 1 for prefill and decode and
+2 for train (the backward of each group's `params[g]` select writes a
+gradient of the whole stacked leaf, and autograd adds the G of them: G^2
+leaf-sized passes), of degree 1 in the microbatches M (M >= 2: one
+microbatch skips the gradients' division), and, for the archs with a
+Python time loop (rwkv6, zamba2), of degree <= 2 in the sequence length S
+(attention scores are the quadratic term), as long as S stays on one side
+of every branch on it (attention chunking, the sliding window).  The fit
+evaluates them exactly at the cell's own G, M and S from G in {1, 2, 3}, M
+in {2, 3} at the cell's rows a microbatch and three values of S; the row's
+`fitted` names the points.  The sizes of arguments and outputs are exact
+too; the peak (`temp_size_in_bytes`) is then an estimate, extended from
+the largest point (the peak has a kink at G = 1, hence G's third point).
+"""
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+from typing import Callable
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import (ARCH_IDS, EMBEDDING_ARCHS, RunConfig, SHAPES,
+                                 get_config, shape_cells, skipped_cells)
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import batch_specs
+from repro_torch.distributed.sharding import (batch_shardings, fsdp_axes,
+                                              make_activation_constraint)
+from repro_torch.embed import EmbedMeshSpec, make_distributed_energy_grad
+from repro_torch.launch import hlo_cost
+from repro_torch.launch import roofline as rl
+from repro_torch.launch.mesh import make_production_mesh, n_chips
+from repro_torch.launch.train import state_shardings
+from repro_torch.models import (block_pattern, build_model, hooks,
+                                make_decode_step, make_prefill,
+                                make_train_step, params_specs,
+                                train_state_specs)
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.tree import tree_map
+
+DOC = __doc__
+
+DEFAULT_OUT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "results", "dryrun_torch.jsonl")
+#: a cell is fitted when its direct count would dispatch more ops (about
+#: 60 s at the ~100 us an op that a meta count takes on one host core)
+DIRECT_BUDGET_OPS = 600_000
+#: families whose models run a Python loop over the sequence (models/ssm.py)
+TIME_LOOP_FAMILIES = ("ssm", "hybrid")
+_SEQ_STEP = 8         # the S fit's spacing where no attention chunk sets it
+
+
+def default_run_config(shape_name: str, overrides: dict | None = None
+                       ) -> RunConfig:
+    kw = dict(num_microbatches=8, remat="full", scan_layers=True,
+              attn_q_chunk=1024, embed_onehot=True)
+    if shape_name == "prefill_32k":
+        kw.update(num_microbatches=1, attn_q_chunk=1024)
+    if shape_name in ("decode_32k", "long_500k"):
+        kw.update(num_microbatches=1, remat="none", attn_q_chunk=0)
+    if overrides:
+        kw.update(overrides)
+    return RunConfig(**kw)
+
+
+def _fake_group(world: int) -> None:
+    """Rank 0 of a fake process group of `world` ranks in this process (one
+    of another size that this module started is replaced); refuses a
+    process that has a real group."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"the dry run counts as rank 0 of a fake process group and "
+                f"will not run in a process with a real one (backend "
+                f"{dist.get_backend()!r}): run it in a process of its own")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    try:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    except ImportError:                 # a torch without the module
+        from torch._C._distributed_c10d import FakeProcessGroup
+        dist.Backend.register_backend(
+            "fake", lambda o, b: FakeProcessGroup._create_internal(
+                o.group_rank, o.group_size, b),
+            extended_api=True, devices=["cpu", "cuda"])
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=dist.HashStore())
+
+
+@dataclasses.dataclass
+class MetaCell:
+    """A cell prepared on `meta`: `prepare(values)` gives `(fn, args)` at the
+    loop counts `values` ({"groups", "microbatches", "seq"}: G, M, S), `at`
+    the cell's own, `grid` the fit points of each dim that may be fitted.
+    `count()` runs it under the counter, directly or fitted."""
+
+    prepare: Callable[[dict], tuple]
+    at: dict
+    grid: dict
+    grad: bool
+    mesh: object
+    run: RunConfig | None = None
+
+    def count_at(self, values: dict) -> hlo_cost.Counted:
+        """One direct count at `values`."""
+        fn, args = self.prepare(values)
+        hooks.set_activation_constraint(
+            make_activation_constraint(self.mesh, self.run)
+            if self.run is not None else None)
+        try:
+            with torch.set_grad_enabled(self.grad):
+                _, counted = hlo_cost.count(fn, *args)
+        finally:
+            hooks.set_activation_constraint(None)
+        return counted
+
+    def count(self) -> hlo_cost.Counted:
+        """Direct where that dispatches `DIRECT_BUDGET_OPS` ops or fewer
+        (the grid's smallest point's ops, scaled by the loop counts), else
+        the fit over the grid."""
+        plan = {d: pts for d, pts in self.grid.items()
+                if pts[-1] < self.at[d]}
+        if not plan:
+            return self.count_at(self.at)
+        small = dict(self.at, **{d: pts[0] for d, pts in plan.items()})
+        first = self.count_at(small)
+        if first.n_ops * math.prod(self.at[d] / small[d] for d in plan) \
+                <= DIRECT_BUDGET_OPS:
+            return self.count_at(self.at)
+        return hlo_cost.fit_cost(self.count_at, self.at, plan,
+                                 first=(small, first),
+                                 matmul_shapes="seq" not in plan)
+
+
+def _regime(cfg, run: RunConfig, S: int) -> tuple:
+    """The branches the models take on S: attention chunking and the
+    sliding window."""
+    q = run.attn_q_chunk
+    chunked = bool(q) and cfg.num_heads > 0 and S % q == 0 and S > q
+    return chunked, bool(cfg.attn_window) and S > cfg.attn_window
+
+
+def _seq_points(cfg, run: RunConfig, S: int) -> tuple[int, ...]:
+    """Three S values on the cell's side of every branch on S, the least
+    such: multiples of the attention chunk when chunking is on, above the
+    window when the cell's S is."""
+    chunked, windowed = _regime(cfg, run, S)
+    step = run.attn_q_chunk if chunked else _SEQ_STEP
+    lo = 2 * step if chunked else step
+    if windowed:
+        lo = max(lo, (cfg.attn_window // step + 1) * step)
+    pts = (lo, lo + step, lo + 2 * step)
+    if any(_regime(cfg, run, p) != (chunked, windowed) for p in pts):
+        return (S,)
+    return pts
+
+
+def _lm_cell(cfg, shape: ShapeConfig, run: RunConfig, mesh) -> MetaCell:
+    """The meta cell of one LM step: train (this rank's state blocks, the
+    global batch), prefill or decode (whole params, this rank's rows)."""
+    pattern, n_groups = block_pattern(cfg)
+    nmb = run.num_microbatches if shape.mode == "train" else 1
+    rows = shape.global_batch // nmb
+
+    def prepare(v: dict) -> tuple:
+        c = dataclasses.replace(cfg, num_layers=v["groups"] * len(pattern))
+        r = dataclasses.replace(run, num_microbatches=v["microbatches"])
+        sh_ = ShapeConfig(shape.name, shape.mode, v["seq"],
+                          rows * v["microbatches"])
+        model = build_model(c, r)
+        batch = batch_specs(c, sh_)
+        if shape.mode == "train":
+            specs, axes = train_state_specs(model)
+            sh = state_shardings(mesh, axes, specs)
+            state = tree_map(lambda s, x: s.shard(x), sh, specs)
+            # the port's step is data-parallel on any mesh, so it always
+            # takes the shardings (run.zero_grads has no meaning there)
+            step = make_train_step(
+                model, AdamWConfig(moment_dtype=r.moment_dtype),
+                grad_shardings=sh["params"])
+            return step, (state, batch)
+        params, _ = params_specs(model)
+        if r.serve_param_dtype != "float32":
+            sdt = getattr(torch, r.serve_param_dtype)
+            params = tree_map(lambda p: p.to(sdt)
+                              if p.dtype == torch.float32 else p, params)
+        bsh = batch_shardings(mesh, batch)
+        batch = {k: bsh[k].shard(x) for k, x in batch.items()}
+        if shape.mode == "prefill":
+            return make_prefill(model), (params, batch)
+        tokens = batch["tokens"]
+        caches = tree_map(
+            lambda x: x.contiguous(),         # whole caches, not broadcasts
+            model.init_caches(tokens.shape[0], sh_.seq_len, mode="decode",
+                              device="meta"))
+        return make_decode_step(model), (params, caches, tokens)
+
+    at = {"groups": n_groups, "microbatches": nmb, "seq": shape.seq_len}
+    grid = {"groups": (1, 2, 3)}
+    if nmb >= 2:
+        grid["microbatches"] = (2, 3)
+    if cfg.family in TIME_LOOP_FAMILIES and shape.mode != "decode":
+        grid["seq"] = _seq_points(cfg, run, shape.seq_len)
+    return MetaCell(prepare, at, grid, shape.mode == "train", mesh, run)
+
+
+def lower_cell(arch: str, shape_name: str, mesh, run_overrides=None):
+    """Returns (the prepared meta cell, MODEL_FLOPS).  Nothing is lowered:
+    the cell is run under the counter by `MetaCell.count`."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    run = default_run_config(shape_name, run_overrides)
+    return _lm_cell(cfg, shape, run, mesh), rl.model_flops_for(cfg, shape)
+
+
+def _embedding_cell(cfg, mesh, run_overrides=None) -> tuple:
+    """(meta cell, MODEL_FLOPS) of one distributed energy-and-gradient
+    evaluation of `cfg` (an `EmbeddingConfig`) on `mesh`."""
+    ov = run_overrides or {}
+    unit_wm = bool(ov.get("embed_unit_wm", False))
+    wp_dtype = getattr(torch, ov.get("embed_wp_dtype", "float32"))
+    rows = fsdp_axes(mesh)
+    spec = EmbedMeshSpec(row_axes=rows, col_axis="model")
+    row_groups = math.prod(mesh.shape[a] for a in rows)
+    cols = mesh.shape["model"]
+    lcm = math.lcm(row_groups, cols)
+    n = -(-cfg.n_points // lcm) * lcm     # pad N to a shardable size
+    eg = make_distributed_energy_grad(mesh, spec, cfg.kind, unit_wm=unit_wm)
+
+    def prepare(v: dict) -> tuple:
+        X = torch.empty((n, cfg.embed_dim), device="meta")
+        W = [torch.empty((n // row_groups, n // cols), dtype=wp_dtype,
+                         device="meta") for _ in range(1 if unit_wm else 2)]
+        lam = torch.empty((), device="meta")
+        return eg, (X, *W, lam)
+
+    # model flops: one fused pairwise pass = ~6 N^2 (d + kernel math)
+    mflops = 6.0 * n * n * (cfg.embed_dim + 4)
+    return MetaCell(prepare, {}, {}, False, mesh), mflops
+
+
+def lower_embedding_cell(arch: str, mesh, run_overrides=None):
+    """The paper's own workload on the production mesh: one distributed
+    energy-and-gradient evaluation (the 2-D tile, its all-reduces), the
+    reference's cell.  Returns (the prepared meta cell, MODEL_FLOPS).
+
+    Overrides (hillclimb knobs): {"embed_unit_wm": true} drops the O(N^2)
+    W- storage (recomputed from distances); {"embed_wp_dtype": "bfloat16"}
+    halves the W+ stream."""
+    return _embedding_cell(get_config(arch), mesh, run_overrides)
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: str,
+             tag: str = "baseline", run_overrides=None, verbose=True):
+    _fake_group(512 if mesh_kind == "multi" else 256)
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    t0 = time.perf_counter()
+    if arch in EMBEDDING_ARCHS:
+        cell, mflops = lower_embedding_cell(arch, mesh, run_overrides)
+    else:
+        cell, mflops = lower_cell(arch, shape_name, mesh, run_overrides)
+    t_lower = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counted = cell.count()
+    t_compile = time.perf_counter() - t0
+    roof = rl.analyze(counted.cost, n_chips(mesh), mflops)
+    mem = dict(counted.memory)
+    row = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind, "tag": tag,
+        "chips": int(n_chips(mesh)),
+        "lower_s": round(t_lower, 2), "compile_s": round(t_compile, 2),
+        "memory": mem,
+        **roof.as_dict(),
+        "fitted": counted.fitted,
+    }
+    if verbose:
+        print(f"== {arch} x {shape_name} x {mesh_kind} [{tag}] ==")
+        print(f"  prepare {t_lower:.1f}s count {t_compile:.1f}s "
+              f"({counted.n_ops:.0f} ops"
+              + (f", fitted over {counted.fitted}" if counted.fitted else "")
+              + ")")
+        print(f"  memory: {mem}")
+        print(f"  cost: flops/chip={roof.flops_per_chip:.3e} "
+              f"bytes/chip={roof.bytes_per_chip:.3e} "
+              f"coll bytes/chip={roof.collective_bytes_per_chip:.3e}")
+        print(f"  terms: compute={roof.compute_s:.4f}s "
+              f"memory={roof.memory_s:.4f}s "
+              f"collective={roof.collective_s:.4f}s -> {roof.dominant}")
+        print(f"  MODEL_FLOPS={mflops:.3e} useful_ratio={roof.useful_ratio:.3f}")
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "a") as f:
+        f.write(json.dumps(row) + "\n")
+    return row
+
+
+def existing_keys(out_path: str) -> set:
+    keys = set()
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            for line in f:
+                try:
+                    r = json.loads(line)
+                    keys.add((r["arch"], r["shape"], r["mesh"],
+                              r.get("tag", "baseline")))
+                except json.JSONDecodeError:
+                    continue
+    return keys
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=DOC.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--out", default="results/dryrun_torch.jsonl")
+    ap.add_argument("--overrides", default=None,
+                    help="JSON RunConfig overrides, e.g. "
+                         '\'{"num_microbatches": 16}\'')
+    args = ap.parse_args(argv)
+    overrides = json.loads(args.overrides) if args.overrides else None
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+
+    try:
+        if args.all:
+            done = existing_keys(args.out)
+            cells = []
+            for arch in ARCH_IDS:
+                for sc in shape_cells(arch):
+                    for mk in meshes:
+                        cells.append((arch, sc.name, mk))
+            for arch, sname, mk in cells:
+                if (arch, sname, mk, args.tag) in done:
+                    print(f"skip {arch} x {sname} x {mk} (done)")
+                    continue
+                try:
+                    run_cell(arch, sname, mk, args.out, tag=args.tag,
+                             run_overrides=overrides)
+                except Exception:
+                    print(f"FAILED {arch} x {sname} x {mk}")
+                    traceback.print_exc()
+            # record the assignment-mandated skips
+            for arch in ARCH_IDS:
+                for sc, why in skipped_cells(arch):
+                    print(f"SKIP-CELL {arch} x {sc.name}: {why}")
+            return 0
+
+        if not args.arch or not (args.shape or args.arch in EMBEDDING_ARCHS):
+            ap.error("--arch and --shape (or --all) are needed; an "
+                     "embedding arch needs no --shape")
+        for mk in meshes:
+            run_cell(args.arch, args.shape, mk, args.out, tag=args.tag,
+                     run_overrides=overrides)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,225 @@
+"""The port's dry run (repro_torch.launch.dryrun, profile_cell): the
+counterpart of tests/test_dryrun_smoke.py.
+
+In a subprocess, rank 0 of a fake process group of 8 ranks on a (2, 4)
+("data", "model") mesh counts the train and decode cells of the qwen2-7b,
+grok-1-314b and rwkv6-7b smoke configs on `meta`:
+
+  * FLOPs a chip > 0, finite terms, the memory keys present;
+  * train: the all-gather bytes are the bytes of the param blocks this rank
+    holds over the leaves that are split (one gather a leaf a step), the
+    all-reduce bytes the whole gradient's plus the step's loss scalar;
+  * decode: no collective (the port's serving is replicated);
+  * an embedding cell at the smoke N: MODEL_FLOPS is the reference's
+    6 N^2 (d + 4), the all-reduce bytes the layout's (N/R, 2d) block plus
+    its two scalars;
+  * the dry run refuses a process with a real process group.
+
+Then on a fake group of 256 ranks (the production mesh): a row's keys are
+the reference's `run_cell` row's plus `fitted`, `existing_keys` skips done
+rows, and `main` / `profile_cell.main` print their reports.  In a third
+process of its own (JAX's dryrun module forces 512 host devices when it
+is imported): `default_run_config` equals JAX's for every shape.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from repro.configs import SHAPES as JSHAPES
+from repro.launch import roofline as jrl
+from repro_torch.configs import SHAPES
+from repro_torch.launch import dryrun
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = ("qwen2-7b", "grok-1-314b", "rwkv6-7b")
+
+_PROG = textwrap.dedent("""
+    import contextlib, dataclasses, datetime, io, json, math, os, sys
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, profile_cell
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import build_model, train_state_specs
+    from repro_torch.tree import leaves
+
+    out = {}
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        dryrun._fake_group(8)
+        out["refused"] = ""
+    except RuntimeError as e:
+        out["refused"] = str(e)
+    dist.destroy_process_group()
+
+    dryrun._fake_group(8)
+    mesh = Mesh({"data": 2, "model": 4})
+
+    def row(counted, mflops):
+        r = rl.analyze(counted.cost, mesh.size, mflops).as_dict()
+        return dict(r, memory=counted.memory, fitted=counted.fitted)
+
+    for arch in sys.argv[1].split(","):
+        cfg = get_smoke_config(arch)
+        run = RunConfig(num_microbatches=2, remat="full")
+        shape = ShapeConfig("t", "train", 16, 16)
+        cell = dryrun._lm_cell(cfg, shape, run, mesh)
+        specs, axes = train_state_specs(build_model(cfg, run))
+        sh = state_shardings(mesh, axes, specs)
+        blocks = whole = 0
+        for s, p in zip(leaves(sh["params"]), leaves(specs["params"])):
+            whole += p.numel() * p.element_size()
+            if not s.is_whole:
+                blocks += s.local_view(p).numel() * p.element_size()
+        out[arch, "train"] = dict(
+            row(cell.count(), rl.model_flops_for(cfg, shape)),
+            want_gather=blocks, want_reduce=whole + 4)
+        dshape = ShapeConfig("d", "decode", 16, 8)
+        cell = dryrun._lm_cell(cfg, dshape, dryrun.default_run_config(
+            "decode_32k"), mesh)
+        out[arch, "decode"] = row(cell.count(), rl.model_flops_for(cfg, dshape))
+
+    ecfg = get_smoke_config("embedding-coil20")
+    cell, mflops = dryrun._embedding_cell(ecfg, mesh)
+    out["embedding", ecfg.n_points] = dict(row(cell.count(), mflops),
+                                           d=ecfg.embed_dim)
+
+    # the production mesh: a row, the skips, the two commands
+    path = os.path.join(tmp, "rows.jsonl")
+    out["row"] = dryrun.run_cell("embedding-coil20", None, "single", path,
+                                 verbose=False)
+    done = dryrun.existing_keys(path)
+    with open(path, "a") as f:
+        f.write("not json\\n")
+        for arch in dryrun.ARCH_IDS:
+            for sc in dryrun.shape_cells(arch):
+                f.write(json.dumps({"arch": arch, "shape": sc.name,
+                                    "mesh": "single"}) + "\\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun.main(["--all", "--out", path])
+        dryrun.main(["--arch", "embedding-coil20", "--out", path])
+        profile_cell.main(["--arch", "embedding-coil20", "--top", "3"])
+    out["done"] = sorted(done)
+    out["keys"] = len(dryrun.existing_keys(path))
+    out["printed"] = buf.getvalue()
+    print(json.dumps({"/".join(map(str, k)) if isinstance(k, tuple) else k:
+                      v for k, v in out.items()}))
+""")
+
+
+@pytest.fixture(scope="module")
+def counted():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", _PROG, ",".join(ARCHS)],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _finite_row(r):
+    assert r["flops_per_chip"] > 0
+    for k in ("compute_s", "memory_s", "collective_s", "useful_ratio"):
+        assert 0 <= r[k] < float("inf"), k
+    assert set(r["memory"]) >= {"argument_size_in_bytes",
+                                "output_size_in_bytes", "temp_size_in_bytes",
+                                "alias_size_in_bytes"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cell(counted, arch):
+    r = counted[f"{arch}/train"]
+    _finite_row(r)
+    assert r["fitted"] is None                  # smoke: counted directly
+    assert r["collectives"]["all-gather"] == r["want_gather"] > 0
+    assert r["collectives"]["all-reduce"] == r["want_reduce"]
+    assert r["collectives"]["reduce-scatter"] == 0
+    assert r["memory"]["alias_size_in_bytes"] > 0     # the state, in place
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_cell_has_no_collective(counted, arch):
+    r = counted[f"{arch}/decode"]
+    _finite_row(r)
+    assert r["collective_bytes_per_chip"] == 0
+    assert r["collective_s"] == 0
+
+
+def test_embedding_cell(counted):
+    (key,) = [k for k in counted if k.startswith("embedding/")]
+    n = int(key.split("/")[1])
+    r = counted[key]
+    _finite_row(r)
+    assert r["model_flops"] == 6.0 * n * n * (r["d"] + 4)
+    # (N/R, 2d) f32 over the row, (e_plus, s) over every rank; R = 2
+    assert r["collectives"]["all-reduce"] == (n // 2) * 2 * r["d"] * 4 + 8
+    assert r["collectives"]["all-gather"] == 0
+
+
+def test_refuses_a_real_process_group(counted):
+    assert "fake process group" in counted["refused"]
+    assert "'gloo'" in counted["refused"]
+
+
+def test_row_keys_are_the_references(counted):
+    """The reference's run_cell row: arch, shape, mesh, tag, chips,
+    lower_s, compile_s, memory and the Roofline's fields; the port adds
+    `fitted`."""
+    ref = {"arch", "shape", "mesh", "tag", "chips", "lower_s", "compile_s",
+           "memory"} | set(jrl.Roofline.__dataclass_fields__)
+    row = counted["row"]
+    assert set(row) == ref | {"fitted"}
+    assert row["chips"] == 256 and row["mesh"] == "single"
+    assert row["collectives"]["all-reduce"] > 0
+
+
+def test_existing_keys_skip_done_rows(counted):
+    assert counted["done"] == [["embedding-coil20", None, "single",
+                                "baseline"]]
+    printed = counted["printed"]
+    n_cells = sum(len(dryrun.shape_cells(a)) for a in dryrun.ARCH_IDS)
+    assert printed.count("skip ") == n_cells
+    assert "FAILED" not in printed and "SKIP-CELL" in printed
+    assert counted["keys"] == n_cells + 1
+    assert "== embedding-coil20 x None x single [baseline] ==" in printed
+    assert "MODEL_FLOPS" in printed and "summed flops" in printed
+
+
+#: `repro/launch/dryrun.py` forces 512 host devices when it is imported,
+#: so JAX's `default_run_config` is read in a process of its own
+_JAX_RUN_CONFIGS = textwrap.dedent("""
+    import dataclasses, json
+    from repro.configs import SHAPES
+    from repro.launch.dryrun import default_run_config
+    print(json.dumps({f"{name}/{i}": dataclasses.asdict(
+        default_run_config(name, ov)) for name in SHAPES
+        for i, ov in enumerate((None, {"num_microbatches": 16,
+                                       "attn_q_chunk": 512}))}))
+""")
+
+
+def test_default_run_config_matches_jax():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", _JAX_RUN_CONFIGS], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(SHAPES) == set(JSHAPES)
+    for name in SHAPES:
+        for i, ov in enumerate((None, {"num_microbatches": 16,
+                                       "attn_q_chunk": 512})):
+            got = dataclasses.asdict(dryrun.default_run_config(name, ov))
+            assert got == want[f"{name}/{i}"], name

@@ -5,10 +5,7 @@ Compared here: each ported package's `__all__`, and the names that each
 ported module defines at its top level (functions, classes and
 constants, not the `Array = jnp.ndarray` type aliases of JAX's array type).
 A name the port lacks must be on `ALLOWED`, which holds ROADMAP's "Not
-ported" names and nothing else; each of them must still be missing.  The
-modules of item 26c (launch/dryrun.py, hlo_cost.py, roofline.py,
-profile_cell.py) have no counterpart file yet, so none of their names is
-compared.
+ported" names and nothing else; each of them must still be missing.
 The five Pallas wrappers are ported under their Hopper names (`HOPPER`).
 
 The three functions F1 found missing are held against JAX here, at the
@@ -47,12 +44,16 @@ PACKAGES = (".analysis", ".api", ".ckpt", ".configs", ".core", ".data",
 #: launch/mesh.py (`axis_size` reads an axis inside a shard_map body), and
 #: the JAX guards of analysis/guards.py that have no torch meaning
 #: (`jit_cache_size` reads a jit's trace cache, `no_tracer_leaks` wraps
-#: jax.checking_leaks: PyTorch runs eagerly, with no jit and no tracer)
+#: jax.checking_leaks: PyTorch runs eagerly, with no jit and no tracer),
+#: and the HLO-text readers of launch/hlo_cost.py (`analyze_text`,
+#: `parse_module`, `loop_multipliers`, `Op`, `Computation`: PyTorch has
+#: no HLO; the port counts the op stream it dispatches instead)
 NOT_PORTED = {"minimize", "EmbedConfig", "DistributedEmbedding", "FitResult",
               "to_fit_result", "UNSET", "sublane", "legal_tile",
               "vmem_x_budget", "VMEM_X_BUDGET_ENV", "shard_map_norep",
               "axis_types_kwargs", "make_abstract_mesh", "axis_size",
-              "jit_cache_size", "no_tracer_leaks"}
+              "jit_cache_size", "no_tracer_leaks", "analyze_text",
+              "parse_module", "loop_multipliers", "Op", "Computation"}
 ALLOWED = NOT_PORTED
 #: the Pallas wrappers and the Hopper wrappers that replace them
 HOPPER = {"pairwise_terms_pallas": "pairwise_terms_cuda",
