@@ -5057,6 +5057,492 @@ def phase_lm_train() -> dict:
     return _lm_child_phase("lm_train", "lm_train_child")["lm_train"]
 
 
+# -- phase lm_train_mesh: the sharded train step on four gloo ranks of one card ------
+
+LM_MESH_SHAPES = ({"data": 2, "model": 2}, {"data": 1, "model": 4})
+# qwen2-7b at full width, depth cut to the layers at which the one-rank
+# reference's whole state (f32 params, m and v: 12 bytes a parameter, 70%
+# of them the embedding and head) and four ranks' blocks with their steps
+# share the one card: at 2 layers a (2, 2) rank ran out of memory (PR 26)
+LM_MESH_LAYERS = 1
+LM_MESH_STEPS = 3
+# compute dtypes run on each mesh, against the one-rank step: the float32
+# steps at phase lm_train's bounds, the bf16 ones at LM_MESH_BF16_*
+LM_MESH_COMPUTES = ("float32", "bfloat16")
+LM_MESH_HELD = ("float32",)
+# a param's floor besides phase lm_train's: this fraction of the learning
+# rates of the steps so far.  AdamW moves an element whose clipped gradient
+# is near eps (1e-8) by a fraction of the learning rate that its value
+# decides, and at full width the f32 sums' order moves such gradients by
+# ~1e-9: the embedding table's largest gap was 0.17-0.27 of the summed
+# rates at steps 1-3 (PR 26), the moments within phase lm_train's bounds
+LM_MESH_LR_FRACTION = 0.5
+# bf16 compute: the row-parallel partial sums round to bf16 before their
+# all-reduce, so the steps part from the one-rank step by more than at f32.
+# Limits at a few times the largest gaps read on the card (PR 26): the
+# loss 7e-5 and grad_norm 3.1e-5 of their one-rank values, the moments
+# 2.4e-2 of a leaf's scale.  A param is held within LM_MESH_BF16_LR of the
+# summed learning rates: AdamW's bias-corrected step moves an element by at
+# most 1.001 of the rate in each of three steps at b1 0.9, b2 0.95 (Cauchy-
+# Schwarz on its moments), so a near-zero gradient of the other sign parts
+# two runs by up to twice the summed rates (2.000 read in a CPU rehearsal
+# at the smoke size); a larger gap is an update that AdamW did not make
+LM_MESH_BF16_SCALAR = 5e-4
+LM_MESH_BF16_MOMENT = 0.1
+LM_MESH_BF16_LR = 2.01
+# qwen2-smoke on (1, 4), in the layouts that the full width does not reach
+# there: 4 heads (a rank's q head is half of its kv group: the per-head k
+# and v of `layers._kv_for_heads`) and 6 heads (1.5 heads a rank: q, k and
+# v gathered over "model"); each held on the card to give the same bits
+# twice, with no op that torch names nondeterministic
+LM_MESH_LAYOUTS = {"4 heads": {},
+                   "6 heads": {"num_heads": 6, "num_kv_heads": 2,
+                               "head_dim": 16}}
+LM_MESH_DIR = ROOT / "build" / "chip_smoke_lm_mesh"   # git-ignored
+LM_MESH_WAIT_S = 600     # a rank or the reference waiting on the other side
+
+
+def _lm_mesh_cfg(compute: str):
+    cfg = _lm_train_cfg(LM_TRAIN_ARCH, smoke=LM_DEVICE == "cpu")
+    if LM_DEVICE != "cpu":
+        cfg = dataclasses.replace(cfg, num_layers=LM_MESH_LAYERS)
+    return dataclasses.replace(cfg, compute_dtype=compute)
+
+
+def _lm_mesh_batch(cfg, step: int):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+
+    seq = LM_TRAIN_SMOKE["seq"] if LM_DEVICE == "cpu" else LM_TRAIN_SEQ
+    return batch_for(cfg, ShapeConfig("train", "train", seq, LM_TRAIN_BATCH),
+                     step=step, device=LM_DEVICE)
+
+
+def _lm_mesh_floats(tree, path: str = "") -> list:
+    """(path, leaf) of the params' and moments' float leaves, dict keys in
+    sorted order (a state and its shardings list alike)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _lm_mesh_floats(tree[k], f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _lm_mesh_floats(v, f"{path}/{i}")]
+    keep = path.startswith(("/params/", "/opt/m/", "/opt/v/"))
+    return [(path, tree)] if keep else []
+
+
+def _lm_mesh_rank(rank: int, world: int, store: str, shape: dict, ref: list,
+                  go, done, out_dir: str, device: str) -> None:
+    """One gloo rank of `shape` on the card: for each compute dtype, the
+    state's blocks from `launch.train.init_sharded_state`, then
+    LM_MESH_STEPS sharded steps in turn with the reference (a rank reports
+    when it holds its blocks and after each step, its transients released:
+    the reference steps on the same card in between), which shares
+    its whole state (`ref`, the float leaves in order, one buffer set for
+    every dtype: the reference writes each new run into it); after each
+    step this rank's blocks against their slices of the reference, the
+    largest gaps and scales reduced over the ranks."""
+    global LM_DEVICE
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.sharding import make_activation_constraint
+    from repro_torch.launch import Mesh
+    from repro_torch.launch.train import init_sharded_state
+    from repro_torch.models import build_model, hooks, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    LM_DEVICE = device
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=LM_MESH_WAIT_S))
+    out = {}
+    try:
+        mesh = Mesh(shape)
+        run = RunConfig(**LM_TRAIN_RUN)
+        for compute in LM_MESH_COMPUTES:
+            cfg = _lm_mesh_cfg(compute)
+            model = build_model(cfg, run)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            state, sh, _ = init_sharded_state(model, mesh, LM_DEVICE)
+            init_peak = torch.cuda.max_memory_allocated() if cuda else 0
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            done.put((rank, compute, "ready"))
+            step = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT),
+                                   grad_shardings=sh["params"])
+            shards = [s for _, s in _lm_mesh_floats(sh)]
+            rec = {"losses": [], "norms": [], "ms": [], "gaps": []}
+            hooks.set_activation_constraint(
+                make_activation_constraint(mesh, run))
+            try:
+                for k in range(LM_MESH_STEPS):
+                    if go.get(timeout=LM_MESH_WAIT_S) != (compute, k):
+                        raise RuntimeError("out of step with the reference")
+                    batch = _lm_mesh_batch(cfg, k)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, met = step(state, batch)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    rec["losses"].append(float(met["loss"]))
+                    rec["norms"].append(float(met["grad_norm"]))
+                    mine = [t for _, t in _lm_mesh_floats(state)]
+                    gaps = torch.stack([
+                        torch.stack([(b - s.local_view(r)).abs().max(),
+                                     s.local_view(r).abs().max()])
+                        for b, s, r in zip(mine, shards, ref)]).float()
+                    dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+                    rec["gaps"].append(gaps.cpu())
+                    del mine, gaps, batch, met
+                    if cuda:      # the reference steps next, on this card
+                        torch.cuda.empty_cache()
+                    done.put((rank, compute, k))
+            finally:
+                hooks.set_activation_constraint(None)
+            rec["init_peak"] = init_peak
+            rec["step_peak"] = torch.cuda.max_memory_allocated() if cuda \
+                else 0
+            out[compute] = rec
+            del state, step
+            if cuda:
+                torch.cuda.empty_cache()
+        if shape == {"data": 1, "model": 4}:
+            out["layouts"] = _lm_mesh_layouts(mesh, run)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_mesh_layouts(mesh, run) -> dict:
+    """Each of LM_MESH_LAYOUTS at each compute dtype on this rank: two
+    sharded steps from the same seeded state and batch under
+    `torch.use_deterministic_algorithms(True, warn_only=True)` (the mode
+    is restored).  Returns {"layout dtype": (whether the loss, the grad
+    norm and every block came out the same bits, the ops named
+    nondeterministic, the loss)}."""
+    import warnings
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.sharding import make_activation_constraint
+    from repro_torch.launch.train import init_sharded_state
+    from repro_torch.models import build_model, hooks, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    out = {}
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hooks.set_activation_constraint(make_activation_constraint(mesh, run))
+    try:
+        for name, kw in LM_MESH_LAYOUTS.items():
+            for compute in LM_MESH_COMPUTES:
+                cfg = dataclasses.replace(get_smoke_config(LM_TRAIN_ARCH),
+                                          compute_dtype=compute, **kw)
+                model = build_model(cfg, run)
+                batch = batch_for(cfg, ShapeConfig(
+                    "t", "train", LM_TRAIN_SMOKE["seq"],
+                    LM_TRAIN_SMOKE["batch"]), device=LM_DEVICE)
+                runs = []
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    for _ in range(2):
+                        state, sh, _ = init_sharded_state(model, mesh,
+                                                          LM_DEVICE)
+                        step = make_train_step(
+                            model, AdamWConfig(**LM_TRAIN_OPT),
+                            grad_shardings=sh["params"])
+                        state, met = step(state, batch)
+                        runs.append((float(met["loss"]),
+                                     float(met["grad_norm"]),
+                                     [t for _, t in _lm_mesh_floats(state)]))
+                ops = sorted({str(w.message).split(" does not have")[0]
+                              for w in caught if "does not have a "
+                              "deterministic" in str(w.message)})
+                same = runs[0][:2] == runs[1][:2] and all(
+                    torch.equal(a, b) for a, b in zip(runs[0][2],
+                                                      runs[1][2]))
+                out[f"{name} {compute}"] = (same, ops, runs[0][0])
+    finally:
+        hooks.set_activation_constraint(None)
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    return out
+
+
+def _lm_mesh_held(tag: str, paths: list, gaps, lr_sum: float,
+                  held: bool) -> tuple[float, float, float]:
+    """Bounds on the ranks' reduced (gap, scale) a leaf.  Float32
+    (`held`): `_lm_train_held`'s, within LM_TRAIN_TOL_LEAF of the leaf's
+    scale or LM_TRAIN_TOL_TREE of its tree's, a param also within
+    LM_MESH_LR_FRACTION of `lr_sum`, the learning rates of the steps so
+    far.  Bf16: a moment within LM_MESH_BF16_MOMENT of its leaf's scale, a
+    param within LM_MESH_BF16_LR of `lr_sum`.  Returns the largest gap of
+    a leaf's scale, of a moment leaf's scale and a param's of `lr_sum`."""
+    def tree(path):
+        parts = path.split("/")
+        return "/".join(parts[:3] if parts[1] == "opt" else parts[:2])
+
+    tops: dict = {}
+    for path, (_, scale) in zip(paths, gaps.tolist()):
+        tops[tree(path)] = max(tops.get(tree(path), 0.0), scale)
+    worst = worst_moment = worst_lr = 0.0
+    for path, (err, scale) in zip(paths, gaps.tolist()):
+        param = path.startswith("/params/")
+        if held:
+            bound = max(LM_TRAIN_TOL_LEAF * scale,
+                        LM_TRAIN_TOL_TREE * tops[tree(path)],
+                        LM_MESH_LR_FRACTION * lr_sum if param else 0.0)
+        else:
+            bound = (LM_MESH_BF16_LR * lr_sum if param
+                     else LM_MESH_BF16_MOMENT * scale)
+        if not err <= bound:
+            raise AssertionError(f"lm_train_mesh {tag}{path}: gap {err:.3e}"
+                                 f" > {bound:.3e} (scale {scale:.3e})")
+        if scale > 0:
+            worst = max(worst, err / scale)
+            if not param:
+                worst_moment = max(worst_moment, err / scale)
+        if param:
+            worst_lr = max(worst_lr, err / lr_sum)
+    return worst, worst_moment, worst_lr
+
+
+def _lm_mesh_gaps(paths: list, gaps) -> str:
+    """The largest gap of a leaf's scale and its leaf, per tree."""
+    best: dict = {}
+    for path, (err, scale) in zip(paths, gaps.tolist()):
+        t = "/".join(path.split("/")[:3])
+        rel = err / scale if scale > 0 else 0.0
+        if rel >= best.get(t, (-1.0, ""))[0]:
+            best[t] = (rel, path)
+    return ", ".join(f"{t} {r:.2e} ({p})" for t, (r, p) in best.items())
+
+
+def _lm_mesh_wait(done, procs, tag: str) -> None:
+    """Every rank's word that it has its blocks, or has stepped and
+    compared, and released its step's memory; raises at once when a rank
+    has died, or after LM_MESH_WAIT_S."""
+    import queue
+
+    deadline = time.monotonic() + LM_MESH_WAIT_S
+    for _ in procs:
+        while True:
+            try:
+                done.get(timeout=2.0)
+                break
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"lm_train_mesh {tag}: ranks "
+                                         f"exited {dead} or ran past "
+                                         f"{LM_MESH_WAIT_S} s") from None
+
+
+def _lm_mesh_run(shape: dict, card: str) -> list:
+    """The reference (this process: the one-rank unsharded step on the
+    card) and four spawned gloo ranks on `shape`, a step at a time."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import build_model, init_train_state
+    from repro_torch.models import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    world = math.prod(shape.values())
+    tag = "x".join(str(v) for v in shape.values())
+    run_dir = LM_MESH_DIR / tag
+    run_dir.mkdir(parents=True, exist_ok=True)
+    for f in run_dir.iterdir():
+        f.unlink()
+    run = RunConfig(**LM_TRAIN_RUN)
+    model = build_model(_lm_mesh_cfg(LM_MESH_COMPUTES[0]), run)
+    state, _ = init_train_state(model, 0, device=LM_DEVICE)
+    floats = _lm_mesh_floats(state)
+    paths = [p for p, _ in floats]
+    ref = [t for _, t in floats]
+    ctx = mp.get_context("spawn")     # torch's: CUDA tensors go by handle
+    go = [ctx.Queue() for _ in range(world)]
+    done = ctx.Queue()
+    procs = [ctx.Process(target=_lm_mesh_rank,
+                         args=(r, world, str(run_dir / "store"), shape, ref,
+                               go[r], done, str(run_dir), LM_DEVICE))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    lines, refs = [], {}
+    try:
+        for compute in LM_MESH_COMPUTES:
+            cfg = _lm_mesh_cfg(compute)
+            model = build_model(cfg, run)
+            if compute != LM_MESH_COMPUTES[0]:
+                # the same draw into the same buffers, fresh moments and step
+                fresh, _ = model.init_params(0, device=LM_DEVICE)
+                for dst, src in zip(leaves(state["params"]), leaves(fresh)):
+                    dst.copy_(src)
+                del fresh
+                for t in (*leaves(state["opt"]), state["step"]):
+                    t.zero_()
+            step = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))
+            rec = refs[compute] = {"losses": [], "norms": [], "ms": [],
+                                   "lrs": []}
+            if cuda:
+                torch.cuda.empty_cache()
+            _lm_mesh_wait(done, procs, tag)       # the ranks hold blocks only
+            for k in range(LM_MESH_STEPS):
+                batch = _lm_mesh_batch(cfg, k)
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["losses"].append(float(met["loss"]))
+                rec["norms"].append(float(met["grad_norm"]))
+                rec["lrs"].append(float(met["lr"]))
+                for q in go:
+                    q.put((compute, k))
+                _lm_mesh_wait(done, procs, tag)
+        for p in procs:
+            p.join(timeout=LM_MESH_WAIT_S)
+            if p.exitcode != 0:
+                raise AssertionError(f"lm_train_mesh {tag}: a rank exited "
+                                     f"with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = [torch.load(run_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    for compute in LM_MESH_COMPUTES:
+        got = [r[compute] for r in ranks]
+        want = refs[compute]
+        if any(g["losses"] != got[0]["losses"] or g["norms"] != got[0][
+                "norms"] for g in got):
+            raise AssertionError(f"lm_train_mesh {tag} {compute}: the "
+                                 f"ranks' losses or norms differ: "
+                                 f"{[g['losses'] for g in got]}")
+        held = compute in LM_MESH_HELD
+        worst, scalars = [], []
+        for k in range(LM_MESH_STEPS):
+            gaps = got[0]["gaps"][k]
+            for name, a, b in (("loss", want["losses"][k],
+                                got[0]["losses"][k]),
+                               ("grad_norm", want["norms"][k],
+                                got[0]["norms"][k])):
+                tol = LM_TRAIN_TOL_SCALAR if held else LM_MESH_BF16_SCALAR
+                scalars.append(abs(a - b) / abs(a))
+                if not abs(a - b) <= tol * abs(a):
+                    raise AssertionError(f"lm_train_mesh {tag} {compute} "
+                                         f"step {k + 1}: {name} {b} vs {a}")
+            say("lm_train_mesh", f"{tag} {compute} step {k + 1}: largest "
+                                 f"leaf gaps of their scale: "
+                                 f"{_lm_mesh_gaps(paths, gaps)}")
+            worst.append(_lm_mesh_held(
+                f"{tag} {compute} step {k + 1}", paths, gaps,
+                sum(want["lrs"][:k + 1]), held))
+            lines.append(f"{tag} {compute} step {k + 1}: loss "
+                         f"{got[0]['losses'][k]!r} on every rank (one rank "
+                         f"{want['losses'][k]!r}), grad_norm "
+                         f"{got[0]['norms'][k]!r} (one rank "
+                         f"{want['norms'][k]!r})")
+        ms = [max(g["ms"][k] for g in got) for k in range(LM_MESH_STEPS)]
+        lrs = [f"{x:.2e}" for x in want["lrs"]]
+        if held:
+            verdict = (f"held at phase lm_train bounds (a param also "
+                       f"within {LM_MESH_LR_FRACTION} of the summed "
+                       f"learning rates {lrs}), largest leaf gap "
+                       f"{max(w[0] for w in worst):.2e} of its scale")
+        else:
+            verdict = (f"held at the bf16 bounds: loss and grad_norm within "
+                       f"{LM_MESH_BF16_SCALAR:.0e} of the one-rank values, "
+                       f"a moment within {LM_MESH_BF16_MOMENT} of its "
+                       f"leaf's scale, a param within {LM_MESH_BF16_LR} of "
+                       f"the summed learning rates {lrs}")
+        verdict += (f"; largest gaps: loss or grad_norm {max(scalars):.2e} "
+                    f"of its value, a moment "
+                    f"{max(w[1] for w in worst):.2e} of its leaf's scale, "
+                    f"a param {max(w[2] for w in worst):.3f} of the summed "
+                    f"learning rates")
+        lines.append(
+            f"{tag} {compute} on {card}: {verdict}; losses bit-identical on "
+            f"the {world} ranks; ms a step (slowest rank; the four ranks "
+            f"share the card and gloo stages every collective through the "
+            f"host) {[round(x, 1) for x in ms]}, the one-rank step "
+            f"{[round(x, 1) for x in want['ms']]}; peak memory a rank "
+            f"{[round(g['step_peak'] / 1e9, 2) for g in got]} GB in the "
+            f"steps, {[round(g['init_peak'] / 1e9, 2) for g in got]} GB "
+            f"while cutting the whole params into blocks")
+    for key in ranks[0].get("layouts", {}):
+        recs = [r["layouts"][key] for r in ranks]
+        if not all(same and not ops for same, ops, _ in recs) or len(
+                {loss for _, _, loss in recs}) != 1:
+            raise AssertionError(f"lm_train_mesh {tag} qwen2-smoke {key}: "
+                                 f"two steps from one state (same bits, "
+                                 f"nondeterministic ops, loss) by rank: "
+                                 f"{recs}")
+        lines.append(f"{tag} qwen2-smoke {key} on {card}: a step twice from "
+                     f"one state, the same bits on every rank (loss "
+                     f"{recs[0][2]!r} on each); no op named "
+                     f"nondeterministic by torch.use_deterministic_algorithms")
+    del state, ref, floats
+    if cuda:
+        torch.cuda.ipc_collect()       # the ranks' handles on the reference
+        torch.cuda.empty_cache()
+    return lines
+
+
+def lm_train_mesh_child() -> int:
+    """Phase lm_train_mesh's body, in a process of its own: prints its
+    lines and, last, a JSON record for the parent."""
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+
+    card = smi()
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    cfg = _lm_mesh_cfg(LM_MESH_COMPUTES[0])
+    say("lm_train_mesh", f"{cfg.name}: {cfg.num_layers} layers (depth cut), "
+                         f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+                         f"{cfg.vocab_size}, {LM_TRAIN_BATCH} x "
+                         f"{LM_TRAIN_SEQ if cuda else LM_TRAIN_SMOKE['seq']}"
+                         f" tokens, microbatches 2, remat full, f32 masters;"
+                         f" four gloo ranks on one {'card' if cuda else 'CPU'}"
+                         f" against the one-rank unsharded step")
+    rec = {}
+    for shape in LM_MESH_SHAPES:
+        t0 = time.perf_counter()
+        lines = _lm_mesh_run(shape, card)
+        for line in lines:
+            say("lm_train_mesh", line)
+        tag = "x".join(str(v) for v in shape.values())
+        rec[tag] = lines
+        say("lm_train_mesh", f"{tag}: {time.perf_counter() - t0:.1f} s")
+    counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
+              **farfield.launch_counts}
+    if any(counts.values()):
+        raise AssertionError(f"lm_train_mesh launched a kernel: {counts}")
+    print(json.dumps({"lm_train_mesh": rec, "kernel_launches": counts}))
+    return 0
+
+
+def phase_lm_train_mesh() -> dict:
+    """The sharded train step on four gloo ranks of the card, in a fresh
+    process."""
+    return _lm_child_phase("lm_train_mesh",
+                           "lm_train_mesh_child")["lm_train_mesh"]
+
+
 # -- phase dryrun: the dry-run and cost modules held against the card ---------------
 
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"   # git-ignored
@@ -5243,38 +5729,31 @@ def _dryrun_tile() -> dict:
     return out
 
 
-def _dryrun_want(arch: str, mesh_kind: str) -> tuple[int, int]:
-    """A production train cell's collective identities: the bytes of the
-    param blocks a rank holds over the split leaves (one all-gather a leaf
-    a step) and the whole gradient's bytes plus the loss scalar (the
-    all-reduces), from the sharding rules alone."""
+def _dryrun_want(arch: str, mesh_kind: str) -> dict:
+    """A production train cell's collective identities: each kind's bytes
+    from the params' specs and the loop counts
+    (`launch.dryrun.train_collective_bytes`)."""
     import types
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import default_run_config
-    from repro_torch.launch.train import state_shardings
-    from repro_torch.models import build_model, train_state_specs
-    from repro_torch.tree import leaves
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import (default_run_config,
+                                           train_collective_bytes)
 
     shape = ({"pod": 2, "data": 16, "model": 16} if mesh_kind == "multi"
              else {"data": 16, "model": 16})
-    mesh = types.SimpleNamespace(axis_names=tuple(shape), shape=shape,
-                                 coords={a: 0 for a in shape})
-    model = build_model(get_config(arch), default_run_config("train_4k"))
-    specs, axes = train_state_specs(model)
-    sh = state_shardings(mesh, axes, specs)
-    blocks = whole = 0
-    for s, p in zip(leaves(sh["params"]), leaves(specs["params"])):
-        whole += p.numel() * p.element_size()
-        if not s.is_whole:
-            blocks += s.local_view(p).numel() * p.element_size()
-    return blocks, whole + 4
+    mesh = types.SimpleNamespace(axis_names=tuple(shape), shape=shape)
+    cell = SHAPES["train_4k"]
+    return train_collective_bytes(get_config(arch),
+                                  default_run_config("train_4k"), mesh,
+                                  cell.global_batch, cell.seq_len)
 
 
-def _dryrun_commands() -> list:
+def _dryrun_commands(during=None) -> tuple:
     """(c) the command lines, each in a process of its own with its own
     fake group, all started together (each pays ~16 s of start-up on the
-    card's host); every row printed and the train rows' identities held."""
+    card's host); every row printed and the train rows' identities held.
+    `during()` runs in this process while they count.  Returns the rows
+    and what `during` returned."""
     import os
 
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
@@ -5292,6 +5771,7 @@ def _dryrun_commands() -> list:
             stderr=subprocess.PIPE, text=True)))
     t0 = time.perf_counter()
     try:
+        meanwhile = during() if during is not None else None
         for cmd, proc in procs:
             stdout, stderr = proc.communicate(timeout=LM_TIMEOUT_S)
             if proc.returncode != 0:
@@ -5329,17 +5809,19 @@ def _dryrun_commands() -> list:
                       f"{'exceed' if rank_bytes > DRYRUN_CARD_BYTES else 'fit'}"
                       f" the card's 80 GB")
         if r["shape"] == "train_4k":
-            gather, reduce = _dryrun_want(r["arch"], r["mesh"])
-            got = (r["collectives"]["all-gather"],
-                   r["collectives"]["all-reduce"])
-            if got != (gather, reduce):
+            want = _dryrun_want(r["arch"], r["mesh"])
+            got = {k: r["collectives"][k] for k in want}
+            if got != want:
                 raise AssertionError(f"dryrun: {r['arch']} x {r['mesh']} "
-                                     f"collectives {got}, the sharding "
-                                     f"rules give {(gather, reduce)}")
-            say("dryrun", f"(c) {r['arch']} x {r['mesh']}: all-gather "
-                          f"{gather} bytes = the param blocks a rank holds "
-                          f"over the split leaves; all-reduce {reduce} = "
-                          f"the whole gradient + the loss scalar")
+                                     f"collectives {got}, the specs and "
+                                     f"loop counts give {want}")
+            say("dryrun", f"(c) {r['arch']} x {r['mesh']}: collective "
+                          f"bytes {want} = the sharded step's identities "
+                          f"(launch.dryrun.train_collective_bytes: the "
+                          f"groups' FSDP gathers in the forward and the "
+                          f"recompute, their reduce-scatters, the 'model' "
+                          f"all-reduces a layer, the vocab-parallel "
+                          f"embedding and loss, the step's two scalars)")
     want = {("qwen2-7b", "train_4k", "single"),
             ("qwen2-7b", "train_4k", "multi"),
             ("qwen2-7b", "prefill_32k", "single"),
@@ -5348,7 +5830,151 @@ def _dryrun_commands() -> list:
     got = {(r["arch"], r["shape"], r["mesh"]) for r in rows}
     if got != want:
         raise AssertionError(f"dryrun: rows {sorted(map(str, got))}")
-    return rows
+    return rows, meanwhile
+
+
+#: layer groups of (d)'s share of qwen2-7b train_4k: all 28 (no depth cut;
+#: cut it here, and say so, if the card's step ever runs past two minutes)
+DRYRUN_SHARE_GROUPS = 28
+
+
+def _dryrun_share(card: str) -> dict:
+    """(d) rank 0's share of qwen2-7b train_4k on the single (16, 16) mesh
+    on the card, as `launch/dryrun.py` lays it out (its state blocks, its
+    rows of the global batch, the sharded step), under the fake process
+    group of 256 ranks: its collectives move nothing, so the values are
+    not held.  The op stream on meta and on the card must be equal, the
+    card's max_memory_allocated below 80 GB and within DRYRUN_MEM_TOL of
+    the counter's estimate; a warm step is timed beside its memory term.
+    A CPU rehearsal counts the smoke config on a 64-token train cell."""
+    from repro_torch.configs import SHAPES, get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.sharding import make_activation_constraint
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import hooks
+    from repro_torch.tree import tree_map
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    dev = torch.device(LM_DEVICE)
+    cfg = get_config("qwen2-7b") if cuda else get_smoke_config("qwen2-7b")
+    shape = (SHAPES["train_4k"] if cuda
+             else ShapeConfig("train_4k", "train", 64, 256))
+    run = dr.default_run_config("train_4k")
+
+    def wait():
+        if cuda:
+            torch.cuda.synchronize()
+
+    dr._fake_group(256)
+    hooks.set_activation_constraint(None)
+    try:
+        mesh = make_production_mesh()
+        cell = dr._lm_cell(cfg, shape, run, mesh)
+        values = dict(cell.at, groups=min(cell.at["groups"],
+                                          DRYRUN_SHARE_GROUPS))
+        step, (specs, mbatch) = cell.prepare(values)
+        hooks.set_activation_constraint(make_activation_constraint(mesh, run))
+        t0 = time.perf_counter()
+        with hlo_cost.CostCounter() as cc:
+            mout = step(specs, mbatch)
+        mem = hlo_cost.memory_summary(cc, (specs, mbatch), mout)
+        meta_cost, meta_ops = cc.cost, _op_stream(cc.records)
+        meta_s = time.perf_counter() - t0
+        del cc, mout
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = tree_map(lambda x: (torch.randn(
+            x.shape, generator=gen, device=dev) * 0.02).to(x.dtype),
+            specs["params"])
+        state = {"params": params,
+                 "opt": tree_map(lambda x: torch.zeros(
+                     x.shape, dtype=x.dtype, device=dev), specs["opt"]),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        batch = batch_for(dataclasses.replace(
+            cfg, num_layers=values["groups"]), ShapeConfig(
+            shape.name, "train", shape.seq_len, shape.global_batch),
+            device=dev)
+        if {k: tuple(v.shape) for k, v in batch.items()} != {
+                k: tuple(v.shape) for k, v in mbatch.items()}:
+            raise AssertionError(f"dryrun (d): batch {batch} vs {mbatch}")
+        del specs, mbatch
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)                       # warm-up
+        wait()
+        warm_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with hlo_cost.CostCounter() as card_cc:
+            state, _ = step(state, batch)
+            wait()
+        counted_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        # the bytes the ops asked for, before the allocator rounds each
+        # block up (what the counter counts)
+        asked = (torch.cuda.memory_stats().get("requested_bytes.all.peak", 0)
+                 if cuda else 0)
+        card_cost, card_ops = card_cc.cost, _op_stream(card_cc.records)
+        del card_cc
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        wait()
+        ms = (time.perf_counter() - t0) * 1e3
+        del state, batch
+    finally:
+        hooks.set_activation_constraint(None)
+        dist.destroy_process_group()
+    if card_ops != meta_ops:
+        only_card = list((card_ops - meta_ops).items())[:5]
+        only_meta = list((meta_ops - card_ops).items())[:5]
+        raise AssertionError(f"dryrun (d): the card's op stream differs "
+                             f"from meta's: {sum(card_ops.values())} vs "
+                             f"{sum(meta_ops.values())} ops; on the card "
+                             f"only {only_card}; on meta only {only_meta}")
+    if card_cost != meta_cost:
+        raise AssertionError(f"dryrun (d): the card's cost {card_cost} "
+                             f"differs from meta's {meta_cost}")
+    est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    roof = rl.analyze(meta_cost, mesh.size, rl.model_flops_for(cfg, shape))
+    cut = ("" if values["groups"] == cell.at["groups"]
+           else f", depth cut to {values['groups']} of {cell.at['groups']} "
+                f"layer groups")
+    say("dryrun", f"(d) {cfg.name} {shape.name} on the single {dict(mesh.shape)}"
+                  f" mesh, rank 0's share ({values['microbatches']} "
+                  f"microbatches of {shape.global_batch // values['microbatches'] // 16}"
+                  f" of its rows x {shape.seq_len} tokens{cut}) on {card}, "
+                  f"under the fake group: card and meta dispatch the same "
+                  f"{sum(meta_ops.values())} ops ({len(meta_ops)} distinct),"
+                  f" FLOPs {meta_cost.flops:.6e} and bytes "
+                  f"{meta_cost.bytes:.6e} equal; max_memory_allocated "
+                  f"{peak / 1e9:.3f} GB (the ops' requested bytes at their "
+                  f"peak {asked / 1e9:.3f} GB) against the estimate "
+                  f"(arguments {mem['argument_size_in_bytes'] / 1e9:.3f} + "
+                  f"temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB) "
+                  f"{est / 1e9:.3f} GB ({(est / peak - 1) * 100 if peak else 0.0:+.2f}%"
+                  f" and {(est / asked - 1) * 100 if asked else 0.0:+.2f}%,"
+                  f" limit {DRYRUN_MEM_TOL:.0%}); a warm step {ms:.1f} ms "
+                  f"against its memory term {roof.memory_s * 1e3:.1f} ms "
+                  f"(share {roof.memory_s / (ms / 1e3):.3f}; compute term "
+                  f"{roof.compute_s * 1e3:.1f} ms, collective term "
+                  f"{roof.collective_s * 1e3:.1f} ms: nothing moves under "
+                  f"the fake group); the first step {warm_s:.1f} s, the "
+                  f"counted one {counted_s:.1f} s, the meta count "
+                  f"{meta_s:.1f} s")
+    if cuda and not (peak < DRYRUN_CARD_BYTES
+                     and abs(est / peak - 1) <= DRYRUN_MEM_TOL):
+        raise AssertionError(f"dryrun (d): max_memory_allocated "
+                             f"{peak / 1e9:.3f} GB against the estimate "
+                             f"{est / 1e9:.3f} GB (limit {DRYRUN_MEM_TOL:.0%}"
+                             f", and below {DRYRUN_CARD_BYTES / 1e9:.0f} GB)")
+    return {"ops": sum(meta_ops.values()), "groups": values["groups"],
+            "estimate_gb": est / 1e9, "peak_gb": peak / 1e9, "step_ms": ms,
+            "memory_ms": roof.memory_s * 1e3,
+            "compute_ms": roof.compute_s * 1e3}
 
 
 def dryrun_child() -> int:
@@ -5371,8 +5997,9 @@ def dryrun_child() -> int:
     finally:
         dist.destroy_process_group()
     t0 = time.perf_counter()
-    rec["rows"] = _dryrun_commands()
-    say("dryrun", f"(c) {time.perf_counter() - t0:.1f} s")
+    rec["rows"], rec["share"] = _dryrun_commands(
+        during=lambda: _dryrun_share(card))
+    say("dryrun", f"(c) and (d) {time.perf_counter() - t0:.1f} s")
     counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
               **farfield.launch_counts}
     if any(counts.values()):
@@ -5451,6 +6078,7 @@ def main() -> int:
     run("serve", phase_serve, sparse["fits"]["tsne"], sparse["labels"])
     run("lm_serve", phase_lm_serve)
     run("lm_train", phase_lm_train)
+    run("lm_train_mesh", phase_lm_train_mesh)
     run("dryrun", phase_dryrun)
     say("done", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()))

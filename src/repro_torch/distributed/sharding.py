@@ -19,13 +19,13 @@ JAX places a sharded array through GSPMD.  Here a sharding is the pair
 whole tensor into this rank's block (`shard`, by the mesh's row-major
 coordinates, as JAX lays a `PartitionSpec` over its devices) and gathers
 the blocks back (`gather`, one all-gather over `Mesh.axis_group` of the
-axes it names).  The data-parallel train step (`models/train.py`) keeps
-params and moments as such blocks.
+axes it names).  The sharded train step (`models/train.py`) keeps params,
+moments and gradients as such blocks.
 
-`make_activation_constraint` computes the reference's activation specs and
-returns its input unchanged: JAX's `with_sharding_constraint` changes no
-value either, and the eager step gathers whole params and computes on whole
-activation blocks (tensor-parallel compute is not ported).
+`make_activation_constraint` re-lays q, k and v over "model" to the
+reference's activation spec when the sharded step's tensor-parallel
+context (`collectives.TensorParallel`, the autograd collectives the step
+and the layers issue) is passed to it.
 """
 from __future__ import annotations
 
@@ -281,13 +281,37 @@ def activation_spec(mesh, shape: tuple, tag: str,
 
 def make_activation_constraint(mesh, run=None):
     """Constraint hook for the residual stream / QKV activations and the
-    MoE dispatch (models/hooks.py): the reference's specs
-    (`activation_spec`), the value unchanged."""
-    shard_embed = bool(run and getattr(run, "act_shard_embed", False))
+    MoE dispatch (models/hooks.py).  Called with the sharded step's
+    `collectives.TensorParallel` (`tp`), it re-lays q, k or v ("qkv") over
+    "model" to the reference's spec (`activation_spec`): it gathers the
+    heads when they leave "model" and keeps this rank's heads when they
+    enter it (the dim an activation holds split is the one
+    `collectives.mark` recorded; the batch dim is already this rank's
+    rows).  It returns its input on a mesh whose "model" axis is of size 1,
+    without `tp` (the port's serving is replicated), for the other tags
+    (the residual stream stays whole on "model", and expert parallelism is
+    not ported: the MoE layer computes whole) and for an activation whose
+    layout no tensor-parallel code recorded (the vision cross-attention's
+    q, k and v, computed whole).  `run` is the reference's argument: its
+    `act_shard_embed` lays out only the residual stream."""
+    from repro_torch.distributed.collectives import is_marked, model_split
 
-    def fn(x, tag):
-        if hasattr(x, "ndim") and x.ndim >= 2:
-            activation_spec(mesh, tuple(x.shape), tag, shard_embed)
-        return x
+    msize = mesh.shape.get("model", 1)
+
+    def fn(x, tag, tp=None):
+        if (msize == 1 or tp is None or tag != "qkv" or not is_marked(x)
+                or x.ndim != 4):
+            return x
+        cur = model_split(x)
+        shape = list(x.shape)
+        if cur is not None:
+            shape[cur] *= msize
+        spec = activation_spec(mesh, tuple(shape), tag)
+        target = 2 if spec[2] == "model" else None
+        if cur == target:
+            return x
+        if cur is not None:
+            x = tp.gather_from_model(x, cur)
+        return x if target is None else tp.scatter_to_model(x, target)
 
     return fn

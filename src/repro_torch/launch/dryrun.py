@@ -16,15 +16,18 @@ process, which it refuses to start beside a real process group.  The dry
 run never touches CUDA and needs no card: counting on `meta` is what it
 is, as the reference's runs on 512 forced host devices, not a fallback.
 
-What is counted is the port's own program, which differs from the
-reference's GSPMD program:
+What is counted is the port's own program:
 
-  * train: the data-parallel step of `models/train.py` on this rank's
-    blocks of the state (`launch/train.py`'s `state_shardings`): it
-    all-gathers each split param leaf once a step, computes its rows of
-    each microbatch with whole params (tensor-parallel compute is not
-    ported, ROADMAP item L), and all-reduces the gradients over the FSDP
-    axes; ranks that differ only on "model" repeat the same work;
+  * train: the sharded step of `models/train.py` on this rank's blocks of
+    the state (`launch/train.py`'s `state_shardings`), the reference's
+    GSPMD program computed eagerly: each microbatch gathers a layer group's
+    blocks over the FSDP axes as the group runs (and again in remat's
+    recompute), computes the projections on their "model" blocks (an
+    all-reduce over "model" after each row-parallel one and of the
+    gradient of each column-parallel input), the embedding and the loss
+    over the vocab blocks, and reduce-scatters the gradients onto the FSDP
+    blocks; `train_collective_bytes` gives each kind's bytes from the
+    specs and the loop counts, and the tests hold the count to it;
   * prefill and decode: the port has no sharded serving: a rank holds the
     whole params (cast by `serve_param_dtype`) and serves its rows of the
     batch (`batch_shardings`' block), with no collective;
@@ -36,8 +39,8 @@ A cell whose direct count would dispatch more than `DIRECT_BUDGET_OPS` ops
 bytes and collective bytes are polynomials in the layer groups G
 (`models/model.py` `block_pattern`), of degree 1 for prefill and decode and
 2 for train (the backward of each group's `params[g]` select writes a
-gradient of the whole stacked leaf, and autograd adds the G of them: G^2
-leaf-sized passes), of degree 1 in the microbatches M (M >= 2: one
+gradient of the whole stacked block, and autograd adds the G of them: G^2
+block-sized passes), of degree 1 in the microbatches M (M >= 2: one
 microbatch skips the gradients' division), and, for the archs with a
 Python time loop (rwkv6, zamba2), of degree <= 2 in the sequence length S
 (attention scores are the quadratic term), as long as S stays on one side
@@ -65,8 +68,10 @@ from repro_torch.configs import (ARCH_IDS, EMBEDDING_ARCHS, RunConfig, SHAPES,
                                  get_config, shape_cells, skipped_cells)
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import batch_specs
+from repro_torch.distributed.collectives import split_dims
 from repro_torch.distributed.sharding import (batch_shardings, fsdp_axes,
-                                              make_activation_constraint)
+                                              make_activation_constraint,
+                                              tree_shardings)
 from repro_torch.embed import EmbedMeshSpec, make_distributed_energy_grad
 from repro_torch.launch import hlo_cost
 from repro_torch.launch import roofline as rl
@@ -76,8 +81,9 @@ from repro_torch.models import (block_pattern, build_model, hooks,
                                 make_decode_step, make_prefill,
                                 make_train_step, params_specs,
                                 train_state_specs)
+from repro_torch.models.model import _WHOLE
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 DOC = __doc__
 
@@ -244,6 +250,117 @@ def _lm_cell(cfg, shape: ShapeConfig, run: RunConfig, mesh) -> MetaCell:
     if cfg.family in TIME_LOOP_FAMILIES and shape.mode != "decode":
         grid["seq"] = _seq_points(cfg, run, shape.seq_len)
     return MetaCell(prepare, at, grid, shape.mode == "train", mesh, run)
+
+
+def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
+                           seq: int) -> dict[str, int]:
+    """The bytes of each collective kind that a rank's sharded train step
+    moves (each op's operand bytes, as `hlo_cost` counts them), from the
+    params' specs on `mesh` (only its shape is read) and the loop counts:
+    M microbatches, G layer groups, remat's second forward (P = 2 passes,
+    else 1), b = this rank's rows of a microbatch, S, D, m = the "model"
+    axis, F = the FSDP axes' product, c = the compute dtype's bytes.
+
+      all-gather: a group leaf's FSDP block P M times (once a group: the
+        stacked block's bytes), the embedding, final norm and head blocks
+        M times; `whole` subtrees' leaves over "model" too (the FSDP-whole
+        block); attention's k and v (q too where H does not divide over
+        "model") of P M calls, and the gradient of the scattered output;
+      reduce-scatter: F times each FSDP gather's block M times, and k and
+        v whole where only q is on this rank's heads;
+      all-reduce: each row-parallel output (b, S, D) P M times (the
+        group's last, when an MLP's, M times: the recompute stops before
+        it), each
+        column-parallel input's gradient M times, the vocab-parallel
+        embedding, head input and the loss's three (b, S) f32 reductions M
+        times, the gradient of each FSDP-whole leaf M times, and the
+        step's loss and norm scalars.
+    """
+    model = build_model(cfg, run)
+    specs, axes = params_specs(model)
+    sh = tree_shardings(mesh, axes, specs)
+    fsdp = fsdp_axes(mesh)
+    F = math.prod(mesh.shape[a] for a in fsdp)
+    m = mesh.shape.get("model", 1)
+    pattern, G = block_pattern(cfg)
+    M = run.num_microbatches
+    P = 2 if run.remat == "full" else 1
+    rows = global_batch // M
+    b = rows // F if rows % F == 0 else rows
+    c = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                    ).element_size()
+    D, S, H, KV, hd = (cfg.d_model, seq, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim)
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+
+    def params(tree, shard_tree, fwd: int, bwd: int, whole=False,
+               per: int = 1):
+        for p, s in zip(leaves(tree), leaves(shard_tree)):
+            fdim, mdim = split_dims(s, p.ndim, fsdp)
+            block = p.numel() * p.element_size() // per
+            block //= (F if fdim is not None else 1) * (
+                m if mdim is not None else 1)
+            if fdim is not None:
+                out["all-gather"] += fwd * block
+                out["reduce-scatter"] += bwd * F * block
+            elif F > 1:
+                out["all-reduce"] += bwd * block
+            if mdim is not None and whole:
+                out["all-gather"] += fwd * block * (
+                    F if fdim is not None else 1)
+
+    for slot, p, s in zip(pattern, specs["slots"], sh["slots"]):
+        for k in p:
+            params(p[k], s[k], P * M, M, k in _WHOLE.get(slot, ()))
+    attn = G * sum(slot in ("attn", "moe") for slot in pattern)
+    mlps = G * sum(slot in ("attn", "cross") for slot in pattern)
+    if cfg.family == "hybrid":
+        params(specs["shared_attn"], sh["shared_attn"], P * M * G, M * G)
+        attn += G
+        mlps += G
+    for k in ("embed", "final_ln", "head"):
+        params(specs[k], sh[k], M, M)
+    bSD = b * S * D * c
+    if m > 1:
+        qs, ks = H * hd % m == 0, KV * hd % m == 0
+        act = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+        if qs != ks:
+            raise NotImplementedError(
+                "the q and kv projections split differently over 'model' "
+                "(their weights are gathered): not counted here")
+        if qs:
+            act["all-reduce"] += bSD                  # the input's gradient
+            if H % m:                                 # every head whole
+                act["all-gather"] += P * b * S * (H + 2 * KV) * hd // m * c
+                act["all-gather"] += b * S * H * hd // m * c  # out's grad
+            elif KV % m:                              # k and v whole
+                act["all-gather"] += P * b * S * 2 * KV * hd // m * c
+                act["reduce-scatter"] += b * S * 2 * KV * hd * c
+            act["all-reduce"] += P * bSD              # wo, row-parallel
+        for k, v in act.items():
+            out[k] += attn * M * v
+        if cfg.d_ff % m == 0:
+            out["all-reduce"] += mlps * M * (1 + P) * bSD
+            if P == 2 and pattern[-1] in ("attn", "cross"):
+                # remat's recompute stops at the group's last saved tensor
+                # (torch.utils.checkpoint's early stop): before the last
+                # MLP's output projection and its all-reduce
+                out["all-reduce"] -= G * M * bSD
+        if cfg.vocab_size % m == 0:
+            ncb = max(cfg.n_codebooks, 1)
+            emb = 1 if run.embed_onehot else ncb
+            out["all-reduce"] += M * (emb * bSD + bSD + 3 * b * S * ncb * 4)
+            if cfg.num_experts:
+                out["all-reduce"] += M * rows * S * D * c   # the aux lookup
+    if cfg.num_experts:                 # the aux loss's embedding and router
+        params(specs["embed"], sh["embed"], M, M)
+        i = pattern.index("moe")
+        params(specs["slots"][i]["ffn"]["router"],
+               sh["slots"][i]["ffn"]["router"], M, M, True, per=G)
+    if run.grad_compress and M > 1 and F * m > 1:
+        out["all-reduce"] += M * 4 * len(leaves(specs))
+    out["all-reduce"] += 4 * (F > 1) + 4 * (F * m > 1)
+    return out
 
 
 def lower_cell(arch: str, shape_name: str, mesh, run_overrides=None):

@@ -23,11 +23,15 @@ in the reference:
     `torch.utils.flop_counter`'s registry) by that formula, 2 M N K; every
     other op that makes an output, its output bytes / 4 (the reference's
     ~1 FLOP an f32-normalised element of a fusion's output);
-  * bytes: each op's operand bytes plus its output bytes.  Views
-    (`view`, `_unsafe_view`, `t`, `transpose`, `permute`, `expand`,
-    `slice`, `select`, `unsqueeze`, `squeeze`, `as_strided`, `detach`,
-    `alias`: every op whose schema returns an alias it does not write)
-    and `empty*` count 0.  A write into part of a tensor counts the update,
+  * bytes: each op's operand bytes plus its output bytes.  An op that
+    writes none of its arguments and returns only tensors on its inputs'
+    storages moves nothing and counts 0: the views (`view`, `t`,
+    `transpose`, `permute`, `expand`, `slice`, `select`, `unsqueeze`,
+    `squeeze`, `as_strided`, `detach`, `alias`: the schema says so,
+    `func.is_view`) and the ops whose schema does not say so but whose
+    output shares its input's storage all the same (`_unsafe_view`, which
+    `einsum` and `reshape` emit after a `clone`; the storages tell, as
+    they tell the live bytes below); `empty*` count 0 too.  A write into part of a tensor counts the update,
     not the buffer, as the reference's dynamic-update-slice: `copy_` reads
     its source and writes its destination (a slice's size), and
     `index_copy(_)` / `index_put(_)` read the indices and the update and
@@ -40,7 +44,11 @@ in the reference:
     bytes, as in the reference.
   * live bytes: a storage counts from the op output that creates it until
     it is released (a finalizer on the storage, which its views share);
-    storages the step is handed (its arguments) are apart.  `memory_summary`
+    storages the step is handed (its arguments) are apart.  The softmax
+    kernels copy a non-contiguous operand into a contiguous buffer for the
+    op's duration (`_CONTIGUOUS_COPIES`; no op makes it): such a copy
+    counts towards the peak alone (at qwen2-7b `train_4k`'s chunked
+    attention the backward's two copies are 1.88 GB).  `memory_summary`
     turns them into the reference's `memory_analysis` keys.
 
 A Python loop of L layers runs L times and is counted L times, so no
@@ -90,6 +98,10 @@ _C10D_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "lift_fresh", "detach_"}
 _MATMULS = {p.__name__ for p in flop_registry if hasattr(p, "__name__")}
+#: ops whose kernels (CPU and CUDA) copy each non-contiguous tensor operand
+#: into a contiguous buffer that lives for the op's duration
+_CONTIGUOUS_COPIES = {"_softmax", "_log_softmax", "_softmax_backward_data",
+                      "_log_softmax_backward_data"}
 #: writes into part of a buffer: the update's bytes, not the buffer's
 _PARTIAL_WRITES = {"index_copy", "index_copy_", "index_put", "index_put_",
                    "_index_put_impl_"}
@@ -155,6 +167,25 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _storage(t: torch.Tensor):
+    try:
+        return t.untyped_storage()
+    except (NotImplementedError, RuntimeError):
+        return None                      # no storage (a sparse tensor)
+
+
+def _aliases(func, ins, outputs) -> bool:
+    """True when `func` writes none of its arguments and every output lies
+    on an input's storage: it moved no byte (an in-place op returns its
+    written argument, and is not free)."""
+    if not outputs or any(a.alias_info is not None and a.alias_info.is_write
+                          for a in func._schema.arguments):
+        return False
+    keys = {st._cdata for st in map(_storage, ins) if st is not None}
+    return all((st := _storage(t)) is not None and st._cdata in keys
+               for t in outputs)
+
+
 def _where() -> str:
     """The innermost two `src/repro_torch/` frames of the op's issue, and
     in a backward the autograd node; the walk stops at autograd's engine,
@@ -205,11 +236,8 @@ class CostCounter(TorchDispatchMode):
     # -- storages ---------------------------------------------------------
 
     def _key(self, t: torch.Tensor):
-        try:
-            st = t.untyped_storage()
-        except (NotImplementedError, RuntimeError):
-            return None, None            # no storage (a sparse tensor)
-        return st._cdata, st
+        st = _storage(t)
+        return (None, None) if st is None else (st._cdata, st)
 
     def _see_inputs(self, ts) -> None:
         for t in ts:
@@ -248,7 +276,8 @@ class CostCounter(TorchDispatchMode):
             flops = 0
         else:
             outputs = _tensors(out)
-            if func.is_view or name in _FREE:
+            if func.is_view or name in _FREE or _aliases(func, ins,
+                                                         outputs):
                 operands, outputs, flops = [], [], 0
             else:
                 operands, outputs = self._traffic(name, args, ins, outputs)
@@ -265,6 +294,11 @@ class CostCounter(TorchDispatchMode):
         self.moved_bytes += nbytes
         out_ts = _tensors(out)
         self._see_outputs(out_ts)
+        if name in _CONTIGUOUS_COPIES:
+            copies = _nbytes(t for t in ins if not t.is_contiguous())
+            with self._lock:
+                self.peak_bytes = max(self.peak_bytes,
+                                      self.live_bytes + copies)
         self.n_ops += 1
         first = (out_ts or ins or [None])[0]
         self.records.append(OpRecord(

@@ -5,8 +5,9 @@ repeats.  Port of `repro/launch/profile_cell.py`:
         --shape prefill_32k [--overrides '{"attn_q_chunk": 0}']
 
 It counts the cell as `launch/dryrun.py` does (on `meta`, rank 0 of a fake
-process group; the embedding cell for an embedding arch; fitted where a
-direct count takes too long) and prints the totals a chip, MODEL_FLOPS
+process group: a train cell is the sharded step, its matmuls on this
+rank's "model" blocks; the embedding cell for an embedding arch; fitted
+where a direct count takes too long) and prints the totals a chip, MODEL_FLOPS
 against them, and `hlo_cost.top_flops`: the code location of each matmul
 (file:line:function in `src/repro_torch/`, the autograd node in a backward)
 where the reference prints the HLO computation.

@@ -9,6 +9,15 @@ the caller has none (one rank: gloo on the CPU, NCCL on a GPU):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
         --steps 20 --ckpt results/train_ckpt --device cpu
 
+On a mesh of several ranks the step is the sharded program of
+`models/train.py`: each rank holds its blocks of the params, moments and
+gradients (`state_shardings`), gathers a layer group's blocks over the
+FSDP axes ("pod", "data") as the group runs and computes the projections
+on their "model" blocks: `--model-axis m` lays the ranks out as
+(world / m, m) and splits the GEMMs m ways.  The ranks' processes are the
+caller's (torchrun, or `torch.multiprocessing` with a gloo group on the
+CPU).
+
 Elastic: train on one mesh, re-run on another (another `--model-axis`, or
 another number of ranks under `torchrun`): the checkpoint restores with the
 new mesh's shardings (`Checkpointer.restore(..., sharding_tree=)`), since
@@ -39,8 +48,8 @@ from repro_torch.data import batch_for
 from repro_torch.distributed.sharding import (make_activation_constraint,
                                               scalar_sharding, tree_shardings)
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-from repro_torch.models import (build_model, hooks, init_train_state,
-                                make_train_step)
+from repro_torch.models import build_model, hooks, make_train_step
+from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import leaves, tree_map
 
@@ -57,6 +66,22 @@ def state_shardings(mesh, axes, state):
     }
 
 
+def init_sharded_state(model, mesh, device) -> tuple[dict, dict, int]:
+    """(this rank's blocks of the initial train state, the state's
+    shardings, the number of params): params from `init_params(0)` on
+    `device`, cut into blocks leaf by leaf (the whole params exist only
+    until they are cut), moments made as blocks."""
+    params, axes = model.init_params(0, device=device)
+    n_params = sum(p.numel() for p in leaves(params))
+    sh = state_shardings(mesh, axes, {"params": params,
+                                      "opt": {"m": params, "v": params}})
+    params = tree_map(lambda s, x: s.shard(x), sh["params"], params)
+    state = {"params": params,
+             "opt": adamw.init(params, moment_dtype=model.run.moment_dtype),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    return state, sh, n_params
+
+
 def _wait(device: torch.device) -> None:
     if device.type == "cuda":
         with explicit_read():
@@ -70,17 +95,15 @@ def train_lm(cfg: ModelConfig, run: RunConfig, opt: AdamWConfig, *,
     `ckpt`, a `Checkpointer`, holds one) on `mesh`, a batch of `batch`
     sequences of `seq` tokens a step from `batch_for`.  Params start from
     `init_params(0)` on `device` (the reference's `PRNGKey(0)`); each rank
-    keeps its blocks of them; `log` takes the printed lines.
+    keeps its blocks of them (`init_sharded_state`); `log` takes the
+    printed lines.
     Returns the state (this rank's blocks), the losses and grad norms read
     (device tensors, a step each), the step seconds and the first step."""
     device = resolve_device(device)
     model = build_model(cfg, run)
     hooks.set_activation_constraint(make_activation_constraint(mesh, run))
     try:
-        state, axes = init_train_state(model, 0, device=device)
-        n_params = sum(p.numel() for p in leaves(state["params"]))
-        sh = state_shardings(mesh, axes, state)
-        state = tree_map(lambda s, x: s.shard(x), sh, state)
+        state, sh, n_params = init_sharded_state(model, mesh, device)
         start = 0
         if ckpt is not None:
             latest = ckpt.latest_step()

@@ -1,19 +1,30 @@
-"""Activation-sharding hook.
+"""Activation-sharding hook and the tensor-parallel context.
 
 Port of `repro/models/hooks.py`.  A launcher installs a constraint function;
 the model calls `constrain(x, tag)` on the residual stream between layer
 groups (and on q/k/v and the MoE dispatch).  Without a constraint it is the
 identity.  `launch/train.py` installs
-`distributed.sharding.make_activation_constraint`, which computes the
-reference's specs and returns `x` unchanged (as JAX's
-`with_sharding_constraint` changes no value); tests install one that
-injects JAX's MoE routing.
+`distributed.sharding.make_activation_constraint`, which re-lays q, k and v
+over "model" to the reference's spec under the tensor-parallel context;
+tests install one that injects JAX's MoE routing.
+
+The port adds the tensor-parallel context: the sharded train step
+(`models/train.py`) installs a `distributed.collectives.TensorParallel`
+around its forward and backward (`tensor_parallel_scope`).  The model then
+gathers each layer group's param blocks through it, and the layers ask
+`model_split` which dim of a weight is split over "model" (column- or
+row-parallel).  Without a context (`tensor_parallel()` is None) the layers
+compute with the whole params they are given, as before.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
+from repro_torch.distributed.collectives import model_split  # noqa: F401
+
 _ACT_CONSTRAINT: Callable | None = None
+_TENSOR_PARALLEL = None
 
 
 def set_activation_constraint(fn: Callable | None):
@@ -22,6 +33,28 @@ def set_activation_constraint(fn: Callable | None):
 
 
 def constrain(x, tag: str):
+    """`x` through the installed constraint; under the tensor-parallel
+    context the constraint also gets the `TensorParallel` (`fn(x, tag,
+    tp)`), else `fn(x, tag)`."""
     if _ACT_CONSTRAINT is None:
         return x
-    return _ACT_CONSTRAINT(x, tag)
+    if _TENSOR_PARALLEL is None:
+        return _ACT_CONSTRAINT(x, tag)
+    return _ACT_CONSTRAINT(x, tag, _TENSOR_PARALLEL)
+
+
+def tensor_parallel():
+    """The installed `TensorParallel`, or None."""
+    return _TENSOR_PARALLEL
+
+
+@contextlib.contextmanager
+def tensor_parallel_scope(tp):
+    """Install `tp` (a `distributed.collectives.TensorParallel`, or None)
+    for the block; the previous context comes back after it."""
+    global _TENSOR_PARALLEL
+    prev, _TENSOR_PARALLEL = _TENSOR_PARALLEL, tp
+    try:
+        yield tp
+    finally:
+        _TENSOR_PARALLEL = prev

@@ -11,6 +11,14 @@ Port of `repro/models/layers.py`.  Conventions, as the reference's:
   * attention head projections use the FLATTENED (H * head_dim) output dim.
   * the init functions take a `torch.Generator` where the reference takes a
     PRNG key, and draw on its device (or `_MetaKey`: shapes only).
+  * under the sharded step's tensor-parallel context (`hooks`), a weight
+    that is split over "model" is this rank's block, marked with its split
+    dim (`hooks.model_split`): `_proj` is column-parallel on a split
+    output dim and row-parallel (an all-reduce over "model") on a split
+    input dim, attention runs on this rank's heads where the splits hold
+    whole heads, the embedding looks up its vocab block and the logits stay
+    split over the vocab (`model.py`'s loss is vocab-parallel).  Unmarked
+    weights compute as without a context.
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import mark
+
+from . import hooks
 
 Params = dict
 Axes = dict
@@ -123,10 +134,28 @@ def init_attention(key, cfg: ModelConfig):
 
 
 def _proj(x, w, b=None):
+    """x @ w (+ b).  On a "model" block of w: column-parallel (split output
+    dim; `x` has passed `_model_input`, the result is marked split) or
+    row-parallel (split input dim; `x` is split alike, the partial products
+    are all-reduced over "model")."""
+    split = hooks.model_split(w)
     y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
-    return y
+    if split == 0:
+        if b is not None:
+            raise ValueError("a row-parallel projection takes no bias")
+        return hooks.tensor_parallel().reduce_from_model(y)
+    return mark(y, -1) if split == 1 else y
+
+
+def _model_input(x, *ws):
+    """`x` as the input of column-parallel projections (Megatron's f: the
+    identity, whose backward sums the ranks' partial gradients over
+    "model") when one of `ws` is split on its output dim; else `x`."""
+    if any(hooks.model_split(w) == 1 for w in ws if w is not None):
+        return hooks.tensor_parallel().copy_to_model(x)
+    return x
 
 
 def _gqa_scores_to_out(q, k, v, mask, compute_dtype):
@@ -158,17 +187,21 @@ def attention(p, cfg: ModelConfig, x, *, positions, kv_src=None,
     caller can build a decode cache.  kv_src != None => cross-attention (no
     RoPE on kv, no causal mask).
     """
-    from . import hooks
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = hooks.constrain(
-        _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd), "qkv")
     src = x if kv_src is None else kv_src
     Skv = src.shape[1]
-    k = hooks.constrain(
-        _proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KV, hd), "qkv")
-    v = hooks.constrain(
-        _proj(src, p["wv"], p.get("bv")).reshape(B, Skv, KV, hd), "qkv")
+    if any(hooks.model_split(p[w]) is not None for w in ("wq", "wk", "wv")):
+        q, k, v, q0 = _split_qkv(p, x, src, H, KV, hd)
+    else:
+        q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+        k = _proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KV, hd)
+        v = _proj(src, p["wv"], p.get("bv")).reshape(B, Skv, KV, hd)
+        q0 = None
+    q = hooks.constrain(q, "qkv")
+    k = hooks.constrain(k, "qkv")
+    v = hooks.constrain(v, "qkv")
+    heads_local = hooks.model_split(q) is not None
 
     cross = kv_src is not None
     if not cross:
@@ -176,18 +209,88 @@ def attention(p, cfg: ModelConfig, x, *, positions, kv_src=None,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
+    kq, vq = (k, v) if q0 is None else _kv_for_heads(k, v, q0, q.shape[2],
+                                                      H // KV)
     if cross:
         mask = torch.ones((1, 1, 1, S, Skv), dtype=torch.bool,
                           device=x.device)
-        out = _gqa_scores_to_out(q, k, v, mask, cdt(cfg))
+        out = _gqa_scores_to_out(q, kq, vq, mask, cdt(cfg))
     elif q_chunk and S % q_chunk == 0 and S > q_chunk:
-        out = _chunked_causal(q, k, v, positions, window, q_chunk, cdt(cfg))
+        out = _chunked_causal(q, kq, vq, positions, window, q_chunk,
+                              cdt(cfg))
     else:
         out = _gqa_scores_to_out(
-            q, k, v, _causal_mask(positions, positions, window), cdt(cfg))
+            q, kq, vq, _causal_mask(positions, positions, window), cdt(cfg))
 
-    y = _proj(out.reshape(B, S, H * hd), p["wo"])
+    out = out.reshape(B, S, q.shape[2] * hd)
+    if hooks.model_split(p["wo"]) == 0 and not heads_local:
+        # every head on every rank, a row-parallel output projection
+        out = hooks.tensor_parallel().scatter_to_model(out, -1)
+    y = _proj(out, p["wo"])
     return y, {"k": k, "v": v}
+
+
+def _split_qkv(p, x, src, H, KV, hd):
+    """q, k and v on a "model" mesh, in the reference's "qkv" layouts.
+    When wq, wk and wv are all column-parallel: q on this rank's heads when
+    H divides over "model", k and v when KV does too (a local q head's kv
+    group is then local); what stays whole is gathered over "model" from
+    the column blocks.  Otherwise the split weights are gathered over
+    "model" and every rank computes q, k and v whole.  Returns (q, k, v,
+    q0): q0 the first local q head where q is local and k, v whole, else
+    None."""
+    tp = hooks.tensor_parallel()
+    m = tp.model.size
+    B, S, Skv = x.shape[0], x.shape[1], src.shape[1]
+    if not all(hooks.model_split(p[w]) == 1 for w in ("wq", "wk", "wv")):
+        w = {n: (tp.gather_from_model(p[n], -1)
+                 if hooks.model_split(p[n]) is not None else p[n])
+             for n in ("wq", "wk", "wv", "bq", "bk", "bv") if n in p}
+        return (_proj(x, w["wq"], w.get("bq")).reshape(B, S, H, hd),
+                _proj(src, w["wk"], w.get("bk")).reshape(B, Skv, KV, hd),
+                _proj(src, w["wv"], w.get("bv")).reshape(B, Skv, KV, hd),
+                None)
+    q_local, kv_local = H % m == 0, KV % m == 0
+    xq = _model_input(x, p["wq"])
+    xkv = xq if src is x else _model_input(src, p["wk"])
+    q = _proj(xq, p["wq"], p.get("bq"))
+    k = _proj(xkv, p["wk"], p.get("bk"))
+    v = _proj(xkv, p["wv"], p.get("bv"))
+
+    def whole(t):
+        # read whole by split compute (this rank's q heads): the ranks'
+        # gradients of it differ and are summed; by repeated compute: sliced
+        return (tp.gather_over_model(t, -1) if q_local
+                else tp.gather_from_model(t, -1))
+
+    if not q_local:
+        q = whole(q)
+    if not kv_local:
+        k, v = whole(k), whole(v)
+    q = mark(q.reshape(B, S, -1, hd), 2 if q_local else None)
+    k = mark(k.reshape(B, Skv, -1, hd), 2 if kv_local else None)
+    v = mark(v.reshape(B, Skv, -1, hd), 2 if kv_local else None)
+    q0 = tp.model.index * (H // m) if q_local and not kv_local else None
+    return q, k, v, q0
+
+
+def _kv_for_heads(k, v, q0: int, nq: int, g: int):
+    """k and v (all KV heads) for the q heads [q0, q0 + nq), whose groups
+    of g share a kv head: a slice when the local heads are whole groups,
+    else one kv head a q head (groups of one): the kv heads that the local
+    heads cover, each repeated g times by `expand`, narrowed to the local
+    heads.  Its backward sums the g copies (a reduction, not an indexed
+    add: no atomics on the card)."""
+    k0, k1 = q0 // g, (q0 + nq - 1) // g + 1
+    if q0 % g == 0 and nq % g == 0:
+        return k[:, :, k0:k1], v[:, :, k0:k1]
+
+    def per_head(t):
+        B, T, _, hd = t.shape
+        t = t[:, :, k0:k1, None].expand(B, T, k1 - k0, g, hd)
+        return t.reshape(B, T, (k1 - k0) * g, hd).narrow(2, q0 - k0 * g, nq)
+
+    return per_head(k), per_head(v)
 
 
 def _causal_mask(q_pos, k_pos, window: int):
@@ -291,12 +394,14 @@ def init_mlp(key, cfg: ModelConfig):
 
 
 def mlp(p, cfg: ModelConfig, x):
+    """Column-parallel in, row-parallel out on "model" blocks."""
     if cfg.mlp == "swiglu":
+        x = _model_input(x, p["wi_gate"], p["wi_up"])
         g = F.silu(_proj(x, p["wi_gate"]))
         u = _proj(x, p["wi_up"])
         return _proj(g * u, p["wo"])
     # squared ReLU (nemotron-4)
-    h = torch.relu(_proj(x, p["wi"]))
+    h = torch.relu(_proj(_model_input(x, p["wi"]), p["wi"]))
     return _proj(h * h, p["wo"])
 
 
@@ -321,19 +426,56 @@ def embed_tokens(p, cfg: ModelConfig, tokens):
     reference's bits without a cast of the whole table."""
     table = p["table"]
     dt = cdt(cfg)
+    if hooks.model_split(table) is not None:
+        return _embed_vocab_parallel(table, tokens, dt)
     if tokens.ndim == 3:
         ncb = tokens.shape[-1]
         return sum(table[c][tokens[..., c]].to(dt) for c in range(ncb))
     return table[tokens].to(dt)
 
 
+def _vocab_block(table, tokens):
+    """(this rank's vocab block size, tokens made local to it, the mask of
+    the tokens it owns) for a table split over "model" on its vocab dim."""
+    tp = hooks.tensor_parallel()
+    vl = table.shape[-2]
+    local = tokens.long() - tp.model.index * vl
+    return vl, local, (local >= 0) & (local < vl)
+
+
+def _embed_vocab_parallel(table, tokens, dt):
+    """The vocab-parallel lookup: a rank gathers the rows of the tokens in
+    its vocab block, zeroes the rest and sums over "model" (exactly: one
+    rank holds each row), codebook tables summed after, in the whole
+    lookup's order."""
+    vl, local, own = _vocab_block(table, tokens)
+    idx = local.clamp(0, vl - 1)
+    if tokens.ndim == 3:
+        rows = torch.stack([table[c][idx[..., c]]
+                            for c in range(tokens.shape[-1])], dim=2)
+    else:
+        rows = table[idx]
+    rows = torch.where(own[..., None], rows.to(dt), 0)
+    rows = hooks.tensor_parallel().reduce_from_model(rows)
+    if tokens.ndim == 3:
+        return sum(rows[:, :, c] for c in range(tokens.shape[-1]))
+    return rows
+
+
 def embed_tokens_onehot(p, cfg: ModelConfig, tokens):
     """One-hot einsum embedding (shards over the vocab axis on a mesh)."""
+    split = hooks.model_split(p["table"]) is not None
     table = p["table"].to(cdt(cfg))
-    oh = _one_hot(tokens, cfg.vocab_size, table.dtype)
+    if split:   # this rank's vocab block: a partial sum over "model"
+        vl, local, _ = _vocab_block(table, tokens)
+        oh = _one_hot(local, vl, table.dtype)
+    else:
+        oh = _one_hot(tokens, cfg.vocab_size, table.dtype)
     if tokens.ndim == 3:  # (B,S,ncb) with stacked tables (ncb,V,D)
-        return torch.einsum("bscv,cvd->bsd", oh, table)
-    return torch.einsum("bsv,vd->bsd", oh, table)
+        y = torch.einsum("bscv,cvd->bsd", oh, table)
+    else:
+        y = torch.einsum("bsv,vd->bsd", oh, table)
+    return hooks.tensor_parallel().reduce_from_model(y) if split else y
 
 
 def init_lm_head(key, cfg: ModelConfig, n_heads: int = 1):
@@ -347,7 +489,14 @@ def init_lm_head(key, cfg: ModelConfig, n_heads: int = 1):
 
 
 def lm_logits(p, cfg: ModelConfig, x):
+    """On a vocab block of the head the logits stay split over the vocab
+    (marked): `model.py`'s loss is vocab-parallel."""
+    split = hooks.model_split(p["w"]) is not None
     w = p["w"].to(cdt(cfg))
+    if split:
+        x = hooks.tensor_parallel().copy_to_model(x)
     if w.ndim == 3:
-        return torch.einsum("bsd,cdv->bscv", x, w)
-    return x @ w
+        y = torch.einsum("bsd,cdv->bscv", x, w)
+    else:
+        y = x @ w
+    return mark(y, -1) if split else y

@@ -29,6 +29,17 @@ use_reentrant=False)`, which keeps only the group's input and recomputes
 the rest in the backward pass (the same values; the autograd graph of the
 SSM time loops stays one group deep).  Every call is functional: a decode
 step returns new caches and leaves its inputs unchanged.
+
+Under the sharded train step's tensor-parallel context (`hooks`,
+`models/train.py`) `params` holds this rank's blocks.  The group loop
+selects group g's blocks from the stacked leaves (`params[g]` on blocks)
+and gathers them over the FSDP axes inside the remat region, so that the
+recompute gathers them again and the backward reduce-scatters their
+gradients; the leaves that `moe.py`, `ssm.py` and the vision
+cross-attention read directly (`_WHOLE`) are gathered over "model" too.
+The embedding, the final norm and the head are gathered where the forward
+reads them, `_moe_aux`'s embedding and router where it reads them, and the
+loss is vocab-parallel over the logits' vocab blocks.
 """
 from __future__ import annotations
 
@@ -74,6 +85,28 @@ def _prepend_layers(axes):
 
 def _stack(trees: list):
     return _map(lambda *a: torch.stack(a), *trees)
+
+
+#: per slot, the subtrees whose leaves code reads directly (not through
+#: `_proj`, `mlp`, `attention` on its own projections): gathered over
+#: "model" as well as the FSDP axes, so that their compute stays whole
+#: (expert and SSM-head parallelism and the split vision cross-attention
+#: are not ported)
+_WHOLE = {"moe": ("ffn",), "cross": ("attn",), "rwkv": ("tm", "cm"),
+          "mamba": ("mixer",)}
+
+
+def _gathered(params, shardings, slot: str | None = None,
+              layers: bool = False):
+    """A slot's (or any) param subtree as this rank computes with it under
+    the tensor-parallel context: `params` itself without one."""
+    tp = hooks.tensor_parallel()
+    if tp is None:
+        return params
+    whole = _WHOLE.get(slot, ())
+    return {k: tp.gather_params(v, shardings[k], layers=layers,
+                                whole=k in whole)
+            for k, v in params.items()}
 
 
 # -- pattern construction ------------------------------------------------------
@@ -315,6 +348,9 @@ class Model:
         slot_caches = (caches["slots"] if caches is not None
                        else [None for _ in pattern])
         shared_caches = caches.get("shared_attn") if caches else None
+        tp = hooks.tensor_parallel()
+        sh = tp.shardings if tp is not None else {
+            "slots": [None] * len(pattern), "shared_attn": None}
 
         def group(g, x):
             def take(t):
@@ -323,11 +359,13 @@ class Model:
             sc = take(shared_caches)
             if cfg.family == "hybrid":
                 x, sc = _apply_block(
-                    "attn", shared_p, cfg, x, positions=positions,
-                    cache=sc, mode=mode, run=run, window=window)
+                    "attn", _gathered(shared_p, sh["shared_attn"]), cfg, x,
+                    positions=positions, cache=sc, mode=mode, run=run,
+                    window=window)
             group_caches = []
-            for slot, p, c in zip(pattern, take(params["slots"]),
-                                  take(slot_caches)):
+            slots = [_gathered(p, s, slot, layers=True) for slot, p, s in
+                     zip(pattern, take(params["slots"]), sh["slots"])]
+            for slot, p, c in zip(pattern, slots, take(slot_caches)):
                 x, nc = _apply_block(
                     slot, p, cfg, x, positions=positions,
                     vision_embeds=vision_embeds, cache=c, mode=mode,
@@ -361,10 +399,12 @@ class Model:
     def forward(self, params, tokens, *, vision_embeds=None, caches=None,
                 mode="train", positions=None):
         cfg = self.cfg
+        embed = self._outer(params, ("embed",))["embed"]
         if self.run.embed_onehot:
-            x = embed_tokens_onehot(params["embed"], cfg, tokens)
+            x = embed_tokens_onehot(embed, cfg, tokens)
         else:
-            x = embed_tokens(params["embed"], cfg, tokens)
+            x = embed_tokens(embed, cfg, tokens)
+        del embed
         x = hooks.constrain(x.to(cdt(cfg)), "residual")
         if positions is None:
             if mode == "decode":
@@ -374,9 +414,18 @@ class Model:
         x, new_caches = self._stack_forward(
             params, x, positions=positions, vision_embeds=vision_embeds,
             caches=caches, mode=mode)
-        x = rmsnorm(params["final_ln"], x, cfg.norm_eps)
-        logits = lm_logits(params["head"], cfg, x)
+        outer = self._outer(params, ("final_ln", "head"))
+        x = rmsnorm(outer["final_ln"], x, cfg.norm_eps)
+        logits = lm_logits(outer["head"], cfg, x)
         return logits, new_caches
+
+    @staticmethod
+    def _outer(params, keys) -> dict:
+        """The params outside the group loop, gathered under the
+        tensor-parallel context."""
+        tp = hooks.tensor_parallel()
+        return {k: _gathered(params[k], tp.shardings[k] if tp else None)
+                for k in keys}
 
     def train_loss(self, params, batch):
         """batch: {"tokens": (B, S+1[, n_cb]) int32, "vision_embeds"?}: the
@@ -403,7 +452,10 @@ class Model:
             params, inputs, vision_embeds=batch.get("vision_embeds"),
             caches=caches, mode="train")
         # CE as logsumexp(logits) - logits[label], no one-hot over the vocab
+        split = hooks.model_split(logits) is not None
         logits = logits.float()
+        if split:
+            return _vocab_parallel_ce(logits, labels)
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.take_along_dim(
             logits, labels[..., None].long(), dim=-1)[..., 0]
@@ -414,11 +466,17 @@ class Model:
         # output of the first MoE slot's router (group 0)
         cfg = self.cfg
         tokens = batch["tokens"][:, :-1]
-        x = embed_tokens(params["embed"], cfg, tokens).to(cdt(cfg))
+        embed = self._outer(params, ("embed",))["embed"]
+        x = embed_tokens(embed, cfg, tokens).to(cdt(cfg))
         pattern, _ = block_pattern(cfg)
         i = pattern.index("moe")
-        p0 = _map(lambda a: a[0], params["slots"][i])
-        return aux_load_balance_loss(p0["ffn"], cfg, x)
+        router = {"router": params["slots"][i]["ffn"]["router"][0]}
+        tp = hooks.tensor_parallel()
+        if tp is not None:
+            router = tp.gather_params(
+                router, {"router": tp.shardings["slots"][i]["ffn"]["router"]},
+                layers=True, whole=True)
+        return aux_load_balance_loss(router, cfg, x)
 
     def prefill(self, params, batch, max_len: int | None = None):
         """Returns (last-token logits, decode-ready caches).  `max_len`
@@ -500,6 +558,25 @@ class Model:
             params, tokens, caches=caches, mode="decode",
             positions=torch.zeros((1,), dtype=torch.int32,
                                   device=tokens.device))
+
+
+def _vocab_parallel_ce(logits, labels):
+    """The mean cross-entropy of float32 logits split over "model" on their
+    vocab dim: the max and the sum of exponentials reduced over "model",
+    the label's logit taken on the rank that owns it (zero elsewhere) and
+    summed; the max carries no gradient, as in `torch.logsumexp`."""
+    tp = hooks.tensor_parallel()
+    vl = logits.shape[-1]
+    mx = tp.max_over_model(logits.detach().amax(dim=-1))
+    sumexp = tp.reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(dim=-1))
+    lse = torch.log(sumexp) + mx
+    local = labels.long() - tp.model.index * vl
+    own = (local >= 0) & (local < vl)
+    picked = torch.take_along_dim(
+        logits, local.clamp(0, vl - 1)[..., None], dim=-1)[..., 0]
+    picked = tp.reduce_from_model(torch.where(own, picked, 0.0))
+    return torch.mean(lse - picked)
 
 
 def build_model(cfg: ModelConfig, run: RunConfig | None = None) -> Model:

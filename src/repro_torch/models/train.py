@@ -17,19 +17,26 @@ gradient is quantized before it is added, as the reference does.
 
 On a mesh (`grad_shardings`, a tree of `distributed.sharding.NamedSharding`
 matching the params) the state holds this rank's blocks of params and
-moments, and a step, the data-parallel form of the reference's GSPMD
-program:
+moments, and a step is the reference's GSPMD program, computed eagerly:
 
-  1. all-gathers the whole params (`NamedSharding.gather`);
-  2. takes each microbatch of the global batch (every rank is handed the
-     same global batch) and computes the loss on this rank's rows of it
-     (`batch_shardings`; ranks that differ only on "model" take the same
-     rows), with the MoE load-balance term over the whole microbatch, so
-     that the mean over the FSDP group is the microbatch's loss;
-  3. averages the gradients over the FSDP group (once a step, or each
-     microbatch before its compression);
-  4. takes `global_norm` of the whole averaged gradient, and updates this
-     rank's blocks.
+  1. every rank is handed the same global batch and computes the loss on
+     its rows of each microbatch (`batch_shardings`; ranks that differ only
+     on "model" take the same rows), with the MoE load-balance term over
+     the whole microbatch, so that the mean over the FSDP group is the
+     microbatch's loss;
+  2. under the tensor-parallel context (`hooks.tensor_parallel_scope`,
+     `distributed.collectives.TensorParallel`) the model gathers a layer
+     group's blocks over the FSDP axes just before the group runs (again
+     in remat's recompute), computes each projection on its "model" block
+     and the loss over the vocab blocks (`models/layers.py`,
+     `models/model.py`); no rank holds a whole leaf that its spec splits,
+     bar the leaves that `moe.py` and `ssm.py` read directly and the vision
+     cross-attention's, gathered over "model" at their group;
+  3. the backward reduce-scatters each gathered leaf's gradient onto its
+     FSDP blocks (summed over the FSDP group; divided by its size here):
+     each alias's ``.grad`` is this rank's block;
+  4. `global_norm` sums the blocks' squares, each block that several ranks
+     hold alike once, over every rank; the update runs on the blocks.
 
 The result is the reference's step up to the order of its sums.  Under an
 active telemetry tracer (`repro_torch.obs`) a step runs the spans
@@ -37,20 +44,20 @@ active telemetry tracer (`repro_torch.obs`) a step runs the spans
 ``train/optimizer``; they time the host's issue, and with
 `profiler_annotations` a `torch.profiler` capture attributes the device's
 kernels to them.
-Tensor-parallel compute (the GEMMs split over "model") is not ported: every
-rank computes its rows with whole params.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import batch_shardings, fsdp_axes
+from repro_torch.distributed.collectives import TensorParallel
+from repro_torch.distributed.sharding import batch_shardings
 from repro_torch.obs import span
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import compress_with_feedback, init_feedback
 from repro_torch.tree import flatten, leaves
 
+from . import hooks
 from .model import Model
 
 
@@ -89,19 +96,24 @@ def _microbatches(batch: dict, nmb: int) -> list[dict]:
             for i in range(nmb)]
 
 
-class _DataParallel:
-    """What a step on a mesh needs of `grad_shardings`: the params'
-    shardings, the FSDP group, and this rank's rows of a batch."""
+class _Sharded:
+    """What a step on a mesh needs of `grad_shardings`: the tensor-parallel
+    context, this rank's rows of a batch, the FSDP mean and the norm over
+    blocks."""
 
     def __init__(self, grad_shardings):
         self.shardings = leaves(grad_shardings)
         self.mesh = self.shardings[0].mesh
-        axes = fsdp_axes(self.mesh)
-        self.group = self.mesh.axis_group(axes) if axes else None
+        self.tp = TensorParallel(self.mesh, grad_shardings)
+        # a block counts towards the norm on the ranks at coordinate 0 of
+        # every axis of the mesh that its spec does not split it over
+        coords = self.mesh.coords
+        self.counted = [all(coords[a] == 0 for a in self.mesh.axis_names
+                            if a not in s.axes) for s in self.shardings]
 
     @property
     def n(self) -> int:
-        return self.group.size if self.group is not None else 1
+        return self.tp.fsdp.size
 
     def rows(self, batch: dict) -> dict:
         sh = batch_shardings(self.mesh, batch)
@@ -112,19 +124,44 @@ class _DataParallel:
         if self.n == 1:
             return
         for t in tensors:
-            dist.all_reduce(t, group=self.group.group)
+            dist.all_reduce(t, group=self.tp.fsdp.group)
             t.div_(self.n)
+
+    def divide(self, grads) -> None:
+        """The blocks' gradients, summed over the FSDP group by the
+        reduce-scatters, made its mean (in place)."""
+        if self.n > 1:
+            for g in grads:
+                g.div_(self.n)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """`adamw.global_norm` of the whole gradient from the blocks: this
+        rank's counted blocks' squares in leaf order, summed over every
+        rank (one all-reduce of a scalar; the same bits on each)."""
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g, c in zip(grads, self.counted) if c)
+        if not torch.is_tensor(sq):
+            sq = torch.zeros((), device=grads[0].device)
+        if self.mesh.size > 1:
+            dist.all_reduce(sq)
+        return torch.sqrt(sq)
+
+    def max_over_ranks(self, amax: torch.Tensor) -> torch.Tensor:
+        """The leaves' largest |g| (one a leaf) over every rank: each
+        whole leaf's, from its blocks (the int8 compression's scales)."""
+        if self.mesh.size > 1:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+        return amax
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                     grad_shardings=None):
     """The train step `(state, batch) -> (state, {"loss", "grad_norm",
     "lr"})`.  `grad_shardings`: the params' `NamedSharding` tree on a mesh,
-    whose blocks the state then holds (the data-parallel step of the module
-    docstring); the reference constrains its gradients to the same
-    shardings (reduce-scatter onto the FSDP shards)."""
+    whose blocks the state then holds and whose gradients the step
+    reduce-scatters onto them (the sharded step of the module docstring)."""
     run = model.run
-    dp = _DataParallel(grad_shardings) if grad_shardings is not None else None
+    dp = _Sharded(grad_shardings) if grad_shardings is not None else None
 
     def loss_fn(p, mb):
         if dp is None:
@@ -136,32 +173,32 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
 
     def train_step(state, batch):
         flat_p, rebuild, _ = flatten(state["params"])
-        whole = (flat_p if dp is None
-                 else [s.gather(p) for s, p in zip(dp.shardings, flat_p)])
-        alias = [p.detach().requires_grad_(True) for p in whole]
+        alias = [p.detach().requires_grad_(True) for p in flat_p]
         params = rebuild(alias)
 
         nmb = run.num_microbatches
         compress = run.grad_compress and nmb > 1
-        err = init_feedback(whole) if compress else None
+        err = init_feedback(flat_p) if compress else None
         gacc, lsum = None, None
-        for mb in _microbatches(batch, nmb):
-            with span("train/microbatch"):
-                loss = loss_fn(params, mb)
-                if compress:
-                    g = list(torch.autograd.grad(loss, alias))
-                    if dp is not None:
-                        dp.mean(g)
-                    g, err = compress_with_feedback(g, err)
-                    if gacc is None:
-                        gacc = g
+        with hooks.tensor_parallel_scope(dp.tp if dp else None):
+            for mb in _microbatches(batch, nmb):
+                with span("train/microbatch"):
+                    loss = loss_fn(params, mb)
+                    if compress:
+                        g = list(torch.autograd.grad(loss, alias))
+                        if dp is not None:
+                            dp.divide(g)
+                        g, err = compress_with_feedback(
+                            g, err, dp.max_over_ranks if dp else None)
+                        if gacc is None:
+                            gacc = g
+                        else:
+                            for a, x in zip(gacc, g):
+                                a.add_(x)
                     else:
-                        for a, x in zip(gacc, g):
-                            a.add_(x)
-                else:
-                    loss.backward(inputs=alias)
-            loss = loss.detach()
-            lsum = loss if lsum is None else lsum + loss
+                        loss.backward(inputs=alias)
+                loss = loss.detach()
+                lsum = loss if lsum is None else lsum + loss
         del err
         if compress:
             grads = gacc
@@ -170,7 +207,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             grads = [a.grad if a.grad is not None else torch.zeros_like(a)
                      for a in alias]
             if dp is not None:
-                dp.mean(grads)
+                dp.divide(grads)
         for a in alias:
             a.grad = None
         del alias, params
@@ -178,12 +215,11 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             for g in grads:
                 g.div_(nmb)
             lsum = lsum / nmb
-        # the norm of the whole gradient, before a rank keeps its blocks
-        gnorm = adamw.global_norm(grads)
-        if dp is not None:
+        if dp is None:
+            gnorm = adamw.global_norm(grads)
+        else:
+            gnorm = dp.global_norm(grads)
             dp.mean([lsum])
-            grads = [s.local_view(g) for s, g in zip(dp.shardings, grads)]
-            del whole
 
         with span("train/optimizer"):
             new_p, new_opt, metrics = adamw.update(

@@ -9,15 +9,20 @@ even, as `jnp.round`'s; the scale is ``max|x| / 127 + 1e-30`` in float32.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.tree import flatten, leaves
 
 
-def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.max(torch.abs(x)) / 127.0 + 1e-30
+def quantize(x: torch.Tensor, amax: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 values and the float32 scale of `x`; `amax` is max |x| (of the
+    whole leaf where `x` is a block of it), computed here by default."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
+    scale = amax / 127.0 + 1e-30
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -26,17 +31,23 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compress_with_feedback(grad: Any, err: Any) -> tuple[Any, Any]:
-    """Returns (dequantized grads to accumulate, new error feedback)."""
-
-    def one(g, e):
-        g32 = g.to(torch.float32) + e
-        q, s = quantize(g32)
-        deq = dequantize(q, s)
-        return deq, g32 - deq
-
+def compress_with_feedback(grad: Any, err: Any,
+                           reduce_max: Callable | None = None
+                           ) -> tuple[Any, Any]:
+    """Returns (dequantized grads to accumulate, new error feedback).
+    `reduce_max` takes the leaves' largest |g + e| (a float32 vector, one a
+    leaf) and returns each whole leaf's, where `grad` holds blocks (the
+    sharded step: the maxima over the ranks); the scales are then the whole
+    leaves' and a block quantizes as its whole leaf does."""
     flat_g, rebuild, _ = flatten(grad)
-    outs = [one(g, e) for g, e in zip(flat_g, leaves(err))]
+    g32 = [g.to(torch.float32) + e for g, e in zip(flat_g, leaves(err))]
+    amax = torch.stack([torch.max(torch.abs(x)) for x in g32])
+    if reduce_max is not None:
+        amax = reduce_max(amax)
+    outs = []
+    for i, x in enumerate(g32):
+        deq = dequantize(*quantize(x, amax[i]))
+        outs.append((deq, x - deq))
     return (rebuild([o[0] for o in outs]), rebuild([o[1] for o in outs]))
 
 

@@ -6,9 +6,12 @@ In a subprocess, rank 0 of a fake process group of 8 ranks on a (2, 4)
 grok-1-314b and rwkv6-7b smoke configs on `meta`:
 
   * FLOPs a chip > 0, finite terms, the memory keys present;
-  * train: the all-gather bytes are the bytes of the param blocks this rank
-    holds over the leaves that are split (one gather a leaf a step), the
-    all-reduce bytes the whole gradient's plus the step's loss scalar;
+  * train: each collective kind's bytes are `train_collective_bytes`',
+    the sharded step's identities from the params' specs and the loop
+    counts (a group's FSDP gathers in the forward and remat's recompute,
+    their reduce-scatters, the "model" all-reduces a layer, the
+    vocab-parallel embedding and loss); the all-gather and the
+    reduce-scatter move blocks, never a whole split leaf;
   * decode: no collective (the port's serving is replicated);
   * an embedding cell at the smoke N: MODEL_FLOPS is the reference's
     6 N^2 (d + 4), the all-reduce bytes the layout's (N/R, 2d) block plus
@@ -17,7 +20,12 @@ grok-1-314b and rwkv6-7b smoke configs on `meta`:
 
 Then on a fake group of 256 ranks (the production mesh): a row's keys are
 the reference's `run_cell` row's plus `fitted`, `existing_keys` skips done
-rows, and `main` / `profile_cell.main` print their reports.  In a third
+rows, and `main` / `profile_cell.main` print their reports.  In a process
+of its own, rank 0's share of qwen2-7b train_4k on the single mesh: no op
+of the step makes a tensor of a whole stacked leaf's shape, or of the
+whole shape of a leaf split over "model", and the counted rank peak is
+below the card's 80 GB and below PR 25's 91.7 GB by at least its 60.9 GB of
+whole params and whole gradient.  In a third
 process of its own (JAX's dryrun module forces 512 host devices when it
 is imported): `default_run_config` equals JAX's for every shape.
 """
@@ -47,9 +55,6 @@ _PROG = textwrap.dedent("""
     from repro_torch.launch import dryrun, profile_cell
     from repro_torch.launch import roofline as rl
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.train import state_shardings
-    from repro_torch.models import build_model, train_state_specs
-    from repro_torch.tree import leaves
 
     out = {}
     tmp = tempfile.mkdtemp()
@@ -75,16 +80,9 @@ _PROG = textwrap.dedent("""
         run = RunConfig(num_microbatches=2, remat="full")
         shape = ShapeConfig("t", "train", 16, 16)
         cell = dryrun._lm_cell(cfg, shape, run, mesh)
-        specs, axes = train_state_specs(build_model(cfg, run))
-        sh = state_shardings(mesh, axes, specs)
-        blocks = whole = 0
-        for s, p in zip(leaves(sh["params"]), leaves(specs["params"])):
-            whole += p.numel() * p.element_size()
-            if not s.is_whole:
-                blocks += s.local_view(p).numel() * p.element_size()
         out[arch, "train"] = dict(
             row(cell.count(), rl.model_flops_for(cfg, shape)),
-            want_gather=blocks, want_reduce=whole + 4)
+            want=dryrun.train_collective_bytes(cfg, run, mesh, 16, 16))
         dshape = ShapeConfig("d", "decode", 16, 8)
         cell = dryrun._lm_cell(cfg, dshape, dryrun.default_run_config(
             "decode_32k"), mesh)
@@ -143,9 +141,10 @@ def test_train_cell(counted, arch):
     r = counted[f"{arch}/train"]
     _finite_row(r)
     assert r["fitted"] is None                  # smoke: counted directly
-    assert r["collectives"]["all-gather"] == r["want_gather"] > 0
-    assert r["collectives"]["all-reduce"] == r["want_reduce"]
-    assert r["collectives"]["reduce-scatter"] == 0
+    got = r["collectives"]
+    for kind, want in r["want"].items():
+        assert got[kind] == want > 0, kind
+    assert got["all-to-all"] == got["collective-permute"] == 0
     assert r["memory"]["alias_size_in_bytes"] > 0     # the state, in place
 
 
@@ -195,6 +194,68 @@ def test_existing_keys_skip_done_rows(counted):
     assert counted["keys"] == n_cells + 1
     assert "== embedding-coil20 x None x single [baseline] ==" in printed
     assert "MODEL_FLOPS" in printed and "summed flops" in printed
+
+
+_SHARE = textwrap.dedent("""
+    import json
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, hlo_cost
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import hooks
+    from repro_torch.distributed.sharding import make_activation_constraint
+    from repro_torch.tree import leaves
+
+    dryrun._fake_group(256)
+    mesh = make_production_mesh()
+    cell, _ = dryrun.lower_cell("qwen2-7b", "train_4k", mesh)
+    step, (state, batch) = cell.prepare(cell.at)
+    hooks.set_activation_constraint(make_activation_constraint(mesh,
+                                                               cell.run))
+    with hlo_cost.CostCounter() as cc:
+        out = step(state, batch)
+    mem = hlo_cost.memory_summary(cc, (state, batch), out)
+    made = {r.out_shapes for r in cc.records}
+    made = {s for shapes in made for s in shapes}
+    # the whole shapes no op may make: a stacked leaf's, and a layer's (or
+    # an unstacked leaf's) where its spec splits it over "model"; a shape
+    # that an FSDP gather makes whole by design (a layer's norm) is not
+    from repro_torch.models import build_model, train_state_specs
+    specs, axes = train_state_specs(build_model(
+        dryrun.get_config("qwen2-7b"), cell.run))
+    sh = state_shardings(mesh, axes, specs)
+    banned, allowed = set(), set()
+    for key in specs["params"]:
+        stacked = key == "slots"
+        for s, p in zip(leaves(sh["params"][key]),
+                        leaves(specs["params"][key])):
+            shape = tuple(p.shape)
+            one = shape[1:] if stacked else shape
+            if "model" in s.axes:
+                banned.add(one)
+            else:
+                allowed.add(one)
+            if stacked and not s.is_whole:
+                banned.add(shape)
+    banned -= allowed
+    print(json.dumps({"memory": mem, "made": sorted(made & banned),
+                      "banned": len(banned), "ops": cc.n_ops}))
+    dist.destroy_process_group()
+""")
+
+
+def test_no_rank_materialises_a_whole_split_leaf():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", _SHARE], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["banned"] > 0 and got["made"] == []
+    mem = got["memory"]
+    peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    # PR 25's count of the data-parallel step: 91.7 GB, of which 60.9 GB
+    # were the whole f32 params and the whole f32 gradient
+    assert peak < 80e9 and peak <= 91.7e9 - 60.9e9
 
 
 #: `repro/launch/dryrun.py` forces 512 host devices when it is imported,

@@ -6,8 +6,11 @@ tests/test_roofline.py:45-78, counted from the ops the port dispatches (on
   * a 128x256 @ 256x64 matmul counts 2 * 128 * 256 * 64 FLOPs exactly;
   * a Python loop of L layers counts L times one layer, nested loops
     multiply;
-  * views move no bytes, a slice write moves its update's;
-  * the live-bytes peak of a known program is exact;
+  * views move no bytes, nor does an op that returns its input's storage
+    without writing it (`_unsafe_view`, after `einsum`'s `clone`: the
+    clone counts, the view not); a slice write moves its update's;
+  * the live-bytes peak of a known program is exact, a softmax kernel's
+    copy of a non-contiguous operand in it;
   * on rank 0 of a fake process group of 8 ranks, an all-gather of an
     f32[16, 512] block counts 16 * 512 * 4 bytes under all-gather and an
     all-reduce as much under all-reduce (tests/test_roofline.py:45-60);
@@ -98,6 +101,37 @@ def test_views_move_no_bytes():
     assert c.memory["temp_size_in_bytes"] == 0
 
 
+def test_einsum_clone_counts_the_clone_and_no_more():
+    """An `einsum` whose batch dims cannot be merged by a view clones its
+    first operand before the `bmm`, then `_unsafe_view`s the copy: the
+    clone moves its operand twice (read, write), the `bmm` its operands and
+    output, and the `_unsafe_view`, which shares the clone's storage,
+    nothing."""
+    a = _meta(3, 2, 5, 6).transpose(0, 1)           # (b, h) = (2, 3) strided
+    b = _meta(2, 3, 6, 4)
+    with CostCounter() as cc:
+        torch.einsum("bhij,bhjk->bhik", a, b)
+    ops = {r.op: r.bytes for r in cc.records}
+    assert "aten.clone.default" in ops and "aten._unsafe_view.default" in ops
+    clone = 2 * 2 * 3 * 5 * 6 * 4
+    bmm = (6 * 5 * 6 + 6 * 6 * 4 + 6 * 5 * 4) * 4
+    assert ops["aten.clone.default"] == clone
+    assert ops["aten._unsafe_view.default"] == 0
+    assert cc.cost.bytes == clone + bmm
+
+
+def test_an_op_that_aliases_its_input_moves_nothing():
+    """`_unsafe_view` is no view by its schema (`func.is_view` is False), but
+    its output shares its input's storage: 0 bytes, 0 FLOPs; an in-place op,
+    whose output shares its written input's storage, still counts."""
+    x = _meta(6, 4)
+    _, c = count(lambda x: torch.ops.aten._unsafe_view(x, [24]), x)
+    assert not torch.ops.aten._unsafe_view.default.is_view
+    assert c.n_ops == 1 and c.cost.bytes == 0 and c.cost.flops == 0
+    _, c = count(lambda x: x.mul_(2.0), torch.zeros(6, 4))
+    assert c.cost.bytes == 2 * 6 * 4 * 4
+
+
 def test_slice_write_counts_the_update():
     """The reference's dynamic-update-slice rule: a write into part of a
     buffer moves the update (read) and the slice (written), not the buffer;
@@ -133,6 +167,19 @@ def test_live_bytes_peak_exact():
     assert cc.live_bytes == B * D * 4          # the output alone
     del out
     assert cc.live_bytes == 0
+
+
+def test_a_kernels_contiguous_copy_counts_towards_the_peak():
+    """The softmax kernels copy a non-contiguous operand into a contiguous
+    buffer for the op's duration: the peak holds the output and the copy;
+    a contiguous operand needs none.  Neither moves a counted byte."""
+    x = _meta(64, 32)
+    with CostCounter() as cc:
+        torch.softmax(x.t(), dim=-1)
+    assert cc.peak_bytes == 2 * 64 * 32 * 4
+    with CostCounter() as cc:
+        torch.softmax(x, dim=-1)
+    assert cc.peak_bytes == 64 * 32 * 4
 
 
 def test_backward_and_remat_are_counted():

@@ -1,5 +1,5 @@
 """The port's sharding rules (repro_torch.distributed.sharding), its
-data-parallel train step on gloo ranks, and `launch/train.py`, against the
+sharded train step on gloo ranks, and `launch/train.py`, against the
 JAX reference.
 
   * `spec_for` through `tree_shardings`, and `batch_shardings`, against
@@ -7,7 +7,10 @@ JAX reference.
     and (2, 16, 16): every leaf of every arch's FULL config (the axes and
     shapes from `params_specs` on `meta`; JAX's from its `eval_shape`)
     and of its train batch.  The specs must be equal.
-  * `NamedSharding.shard` / `gather` on one process against slicing.
+  * `NamedSharding.shard` / `gather` on one process against slicing; the
+    activation constraint returns its input where nothing is split over
+    "model" (tests/test_torch_lm_tensor_parallel.py holds its re-lays on
+    a real mesh).
   * Four gloo ranks (tests/test_torch_sharding_ranks.py): three steps of
     qwen2-smoke (float32 compute) on a (2, 2) mesh against JAX's three
     unsharded steps
@@ -103,14 +106,31 @@ def test_spec_for_matches_jax(logical, shape):
 
 
 def test_activation_constraint_returns_its_input():
-    """JAX's `with_sharding_constraint` changes no value: neither does the
-    port's hook, which computes the reference's spec."""
-    mesh = _port_mesh((4, 2), ("data", "model"))
-    fn = sharding.make_activation_constraint(mesh, RunConfig(
-        act_shard_embed=True))
+    """The hook re-lays an activation over "model" only under the sharded
+    step's tensor-parallel context on a mesh whose "model" axis is wider
+    than 1: on a mesh whose axes are of size 1, and outside the context
+    (the port's serving is replicated: no `TensorParallel` is passed), it
+    returns its input; the specs it reads are the reference's."""
+    from repro_torch.distributed.collectives import TensorParallel
+    from repro_torch.models import hooks
+
     x = torch.randn(8, 6, 4, 4, generator=torch.Generator().manual_seed(0))
-    for tag in ("residual", "qkv", "moe_dispatch", "moe_expert"):
-        assert fn(x, tag) is x
+    ones = types.SimpleNamespace(shape={"data": 1, "model": 1},
+                                 axis_names=("data", "model"), rank=0,
+                                 axis_group=None)
+    for mesh in (_port_mesh((4, 2), ("data", "model")), ones):
+        fn = sharding.make_activation_constraint(mesh, RunConfig(
+            act_shard_embed=True))
+        for tag in ("residual", "qkv", "moe_dispatch", "moe_expert"):
+            assert fn(x, tag) is x
+    fn = sharding.make_activation_constraint(ones, RunConfig(
+        act_shard_embed=True))
+    tp = TensorParallel(ones, {})
+    with hooks.tensor_parallel_scope(tp):
+        for tag in ("residual", "qkv", "moe_dispatch", "moe_expert"):
+            assert fn(x, tag, tp) is x
+            assert hooks.constrain(x, tag) is x
+    mesh = _port_mesh((4, 2), ("data", "model"))
     assert tuple(sharding.activation_spec(mesh, (8, 6, 4, 4), "qkv")) == (
         "data", None, "model", None)
     assert tuple(sharding.activation_spec(mesh, (8, 6, 4), "residual",

@@ -1,8 +1,9 @@
 """Rank side of tests/test_torch_sharding.py,
-tests/test_torch_distributed_embed.py and tests/test_torch_lm_sharding.py:
-the port's mesh backends (the row-sharded sparse one and the 2-D-sharded
-dense one), its meshes and the LM's data-parallel train step run inside a
-gloo process group on the CPU.  It holds no tests itself.
+tests/test_torch_distributed_embed.py, tests/test_torch_lm_sharding.py and
+tests/test_torch_lm_tensor_parallel.py: the port's mesh backends (the
+row-sharded sparse one and the 2-D-sharded dense one), its meshes, the
+LM's sharded train step and its collectives run inside a gloo process
+group on the CPU.  It holds no tests itself.
 
 Spawned by `spawn_ranks`, one process per rank; it imports only torch and
 repro_torch (JAX's side is computed in the test process and handed over as
@@ -405,9 +406,167 @@ def job_lm_train(arch, compute, run, opt, state, batches, ckdir):
             "step3": step3, "step4": int(st["step"])}
 
 
+def _lm_mesh_state(arch, compute, run, state, cfg_kw):
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.models import build_model, init_train_state
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=compute,
+                              **cfg_kw)
+    if cfg.num_experts:        # tests/test_torch_lm_models.py's smoke()
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    model = build_model(cfg, RunConfig(**run))
+    _, axes = init_train_state(model, 0, device="meta")
+    # copies: the step writes into the blocks, and a whole block is the
+    # tensor itself, which may share the numpy array's memory
+    whole = convert.lm_tree_from_numpy(state, "cpu")
+    return model, axes, tree_map(lambda t: t.clone(), whole)
+
+
+def job_lm_mesh_steps(runs, opt):
+    """For each run ({name: (arch, config overrides, compute, run kwargs,
+    mesh shape, JAX's state, JAX's batches)}): the sharded step from JAX's
+    state on that
+    mesh, a step a batch, and after each step the losses, grad norms and
+    the whole state gathered from the blocks."""
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for name, (arch, cfg_kw, compute, run, shape, state,
+               batches) in runs.items():
+        model, axes, whole = _lm_mesh_state(arch, compute, run, state,
+                                            cfg_kw)
+        mesh = Mesh(shape)
+        sh = state_shardings(mesh, axes, whole)
+        st = tree_map(lambda s, x: s.shard(x), sh, whole)
+        step = make_train_step(model, AdamWConfig(**opt),
+                               grad_shardings=sh["params"])
+        rec = {"losses": [], "norms": [], "states": []}
+        for b in batches:
+            st, m = step(st, convert.lm_tree_from_numpy(b, "cpu"))
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+            # copies: a whole block is the state's own tensor, which the
+            # next step writes into
+            rec["states"].append(tree_map(lambda s, x: s.gather(x).clone(),
+                                          sh, st))
+        out[name] = rec
+    return out
+
+
+def job_collectives(seed):
+    """On a (2, 2) mesh: each collective's forward and backward (upstream
+    gradients drawn per rank from `seed + rank`), the vocab-parallel
+    embedding (gather and one-hot, one table and stacked codebook tables)
+    and cross-entropy under the tensor-parallel context against the whole
+    ones, `global_norm` over blocks with leaves replicated over "model" and
+    over every rank, and the activation constraint's re-lays."""
+    import types
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (make_activation_constraint,
+                                                  tree_shardings)
+    from repro_torch.models import hooks, layers, model as lm_model
+    from repro_torch.models.train import _Sharded
+    from repro_torch.optim.adamw import global_norm
+
+    mesh = Mesh({"data": 2, "model": 2})
+    tp = C.TensorParallel(mesh, {})
+    rank = mesh.rank
+    gen = torch.Generator().manual_seed(seed)
+    X = torch.randn(4, 6, generator=gen)                # the same on all
+    mine = torch.Generator().manual_seed(seed + 1 + rank)
+    G = torch.randn(4, 6, generator=mine)               # this rank's
+    out = {"rank": rank, "coords": mesh.coords, "G": G}
+
+    def run(name, fn, x, g):
+        x = x.detach().clone().requires_grad_(True)
+        y = fn(x)
+        y.backward(g)
+        out[name] = (y.detach(), x.grad)
+
+    blk = X.narrow(1, 3 * mesh.coords["model"], 3)
+    run("gather", lambda x: C.gather(x, 1, tp.model), blk, G)
+    run("copy_to", lambda x: C.copy_to(x, tp.model), X, G)
+    run("reduce_from", lambda x: C.reduce_from(x, tp.model), X + rank, G)
+    run("gather_from", lambda x: C.gather_from(x, 1, tp.model), blk, X)
+    run("scatter_to", lambda x: C.scatter_to(x, 1, tp.model), X,
+        G.narrow(1, 0, 3))
+    run("gather_fsdp", lambda x: C.gather(x, 0, tp.fsdp),
+        X.narrow(0, 2 * mesh.coords["data"], 2), G)
+
+    # the vocab-parallel embedding and loss ("model" = 2: vocab blocks of 8)
+    V, D = 16, 5
+    cfg = types.SimpleNamespace(vocab_size=V, compute_dtype="float32")
+    table = torch.randn(V, D, generator=gen)
+    tables = torch.randn(3, V, D, generator=gen)
+    tok = torch.randint(0, V, (2, 7), generator=gen)
+    tok3 = torch.randint(0, V, (2, 7, 3), generator=gen)
+    logits = torch.randn(2, 7, V, generator=gen)
+    vb = 8 * mesh.coords["model"]
+    emb = {}
+    with hooks.tensor_parallel_scope(tp):
+        for name, fn, t, tk in (
+                ("gather", layers.embed_tokens, table, tok),
+                ("onehot", layers.embed_tokens_onehot, table, tok),
+                ("codebooks", layers.embed_tokens, tables, tok3),
+                ("codebooks_onehot", layers.embed_tokens_onehot, tables,
+                 tok3)):
+            b = t.narrow(-2, vb, 8).clone().requires_grad_(True)
+            y = fn({"table": C.mark(b, b.ndim - 2)}, cfg, tk)
+            y.backward(torch.ones_like(y))
+            emb[name] = (y.detach(), b.grad)
+        lb = logits.narrow(-1, vb, 8).clone().requires_grad_(True)
+        labels = torch.randint(0, V, (2, 7), generator=gen)
+        ce = lm_model._vocab_parallel_ce(lb, labels)
+        ce.backward()
+        out["ce"] = (float(ce), lb.grad)
+        out["ce_inputs"] = (logits, labels)
+    out["embed"] = emb
+    out["embed_inputs"] = (table, tables, tok, tok3)
+
+    # global_norm over blocks: a leaf split over both axes, one over the
+    # FSDP axis only (held alike by the "model" ranks), one whole
+    shapes = {"a": torch.empty(8, 6), "b": torch.empty(8), "c": torch.empty(5)}
+    axes = {"a": ("embed", "mlp"), "b": ("embed",), "c": (None,)}
+    sh = tree_shardings(mesh, axes, shapes)
+    grads = {k: torch.randn(v.shape, generator=gen) for k, v in shapes.items()}
+    dp = _Sharded(sh)
+    blocks = [s.shard(grads[k]) for k, s in sorted(sh.items())]
+    out["norm"] = (float(dp.global_norm(blocks)), float(global_norm(grads)))
+
+    # the activation constraint: re-lays under the context on "model" = 2
+    fn = make_activation_constraint(mesh, RunConfig())
+    q = torch.randn(2, 3, 4, 5, generator=gen)      # 4 heads: split on 2
+    r = torch.randn(2, 3, 8, generator=gen)
+    relay = {"outside": fn(q, "qkv") is q}
+    hooks.set_activation_constraint(fn)
+    try:
+        with hooks.tensor_parallel_scope(tp):     # passes `tp` to `fn`
+            y = hooks.constrain(C.mark(q.clone(), None), "qkv")
+    finally:
+        hooks.set_activation_constraint(None)
+    relay["qkv"] = (y, C.model_split(y))
+    relay["unmarked"] = fn(q, "qkv", tp) is q
+    res = C.mark(r.narrow(-1, 4 * mesh.coords["model"], 4).clone(), 2)
+    relay["residual"] = fn(res, "residual", tp) is res
+    relay["moe"] = fn(q, "moe_dispatch", tp) is q
+    relay["same"] = fn(r, "residual", tp) is r
+    relay["inputs"] = (q, r)
+    out["relay"] = relay
+    return out
+
+
 JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "fit": job_fit, "budget": job_budget, "api": job_api,
         "resume": job_resume, "mesh_groups": job_mesh_groups,
         "dense_eg": job_dense_eg, "block_jacobi": job_block_jacobi,
         "dense_mesh_fits": job_dense_mesh_fits,
-        "dense_mesh_api": job_dense_mesh_api, "lm_train": job_lm_train}
+        "dense_mesh_api": job_dense_mesh_api, "lm_train": job_lm_train,
+        "lm_mesh_steps": job_lm_mesh_steps, "collectives": job_collectives}
