@@ -320,7 +320,18 @@ Phases, each printing one line (or a few) and failing the run on error:
               steps, a save, a resume and step 4 against the uninterrupted
               run; a save of two gloo ranks on a (2, 1) mesh restored onto
               this one rank and a step.  No kernel of the five launches.
- 24. dryrun — the dry-run and cost modules (`launch/hlo_cost.py`'s op-stream
+ 24. lm_serve_mesh — the LM's sharded serving program (`make_prefill`,
+              `make_decode_step` with the shardings), in a fresh process:
+              the one-rank prefill and 8 teacher-forced decode steps of
+              qwen2-7b at full width (2 of 28 layers, 4 x (32 + 8) tokens,
+              float32 and bf16), then four gloo ranks on one card on (2, 2)
+              and (1, 4): the same prefill and decode steps (each from the
+              one rank's caches; 2 steps on (2, 2)) on param and cache
+              blocks, the logits within 1e-4 (bf16: 5e-2) of the one
+              rank's, the gathered caches within one bf16 ulp, every rank's
+              logits the same bits; qwen2-smoke (2 kv heads: "kv_seq") on
+              (1, 4) past its slots, twice, the same bits.
+ 25. dryrun — the dry-run and cost modules (`launch/hlo_cost.py`'s op-stream
               counter, `roofline.py`, `dryrun.py`, `profile_cell.py`), in a
               fresh process of its own.  (a) phase lm_train's qwen2-7b step
               without a mesh (8 of 28 layers, 4 x 64 tokens, two
@@ -339,10 +350,13 @@ Phases, each printing one line (or a few) and failing the run on error:
               for qwen2-7b train_4k (single and multi-pod meshes: fake
               groups of 256 and 512 ranks), prefill_32k and decode_32k, the
               embedding-mnist20k cell, and `profile_cell` for qwen2-7b
-              train_4k: every row printed; the train rows' all-gather bytes
-              are the param blocks a rank holds over the split leaves and
-              their all-reduce bytes the whole gradient plus the loss
-              scalar.  No kernel of the five launches.
+              train_4k: every row printed, each row's collective bytes
+              those of `train_collective_bytes` / `serve_collective_bytes`.
+              (d) rank 0's share of qwen2-7b train_4k on the 256-rank mesh
+              on the card under the fake group, and (e) of decode_32k and
+              prefill_32k (2 of 28 groups): op streams equal to meta's,
+              `max_memory_allocated` within 10% of the estimate, warm calls
+              against the memory term.  No kernel of the five launches.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -5543,6 +5557,376 @@ def phase_lm_train_mesh() -> dict:
                            "lm_train_mesh_child")["lm_train_mesh"]
 
 
+# -- phase lm_serve_mesh: the LM's sharded serving program on four ranks ------------
+
+LM_SERVE_MESH_SHAPES = ({"data": 2, "model": 2}, {"data": 1, "model": 4})
+# qwen2-7b at full width, depth cut to 2 of 28 layers: 6.2 GB of f32
+# params, which each of the four ranks draws whole before it cuts them
+LM_SERVE_MESH_LAYERS = 2
+LM_SERVE_MESH_BATCH, LM_SERVE_MESH_PROMPT = 4, 32
+# teacher-forced decode steps a mesh, each from the one-rank step's caches
+# and the next token.  (2, 2) gathers its FSDP blocks (3.1 GB a rank a
+# call, the embedding and head 2.2 GB of it) through gloo's host staging,
+# seconds a call (phase lm_train_mesh's steps there: 13-19 s), so it decodes fewer
+LM_SERVE_MESH_STEPS = {"2x2": 2, "1x4": 8}
+LM_SERVE_MESH_COMPUTES = ("float32", "bfloat16")
+# the logits' bound a compute: tests/test_torch_lm_models.py's 1e-4 of
+# their scale at float32, the reference's 5e-2 at bf16; a cache leaf within
+# one bf16 ulp of its scale (phase lm_serve's `_lm_held`)
+LM_SERVE_MESH_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# qwen2-smoke (2 kv heads) on (1, 4), the "kv_seq" layout: a prompt into
+# max_len slots, then teacher-forced steps past them (the last slot,
+# on the last rank, overwritten), twice from the same blocks
+LM_SERVE_KVSEQ = {"prompt": 10, "max_len": 16, "steps": 12}
+LM_SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_lm_serve_mesh"  # ignored
+
+
+def _lm_serve_mesh_cfg(compute: str):
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if LM_DEVICE == "cpu":            # a rehearsal: the smoke width
+        cfg = get_smoke_config("qwen2-7b")
+    else:
+        cfg = dataclasses.replace(get_config("qwen2-7b"),
+                                  num_layers=LM_SERVE_MESH_LAYERS)
+    return dataclasses.replace(cfg, compute_dtype=compute)
+
+
+def _lm_serve_mesh_reference(path: Path) -> dict:
+    """The one-rank prefill and LM_SERVE_MESH_STEPS' most teacher-forced
+    decode steps (each from the last one's caches) on the card at each
+    compute dtype, from `init_params(0)`: saved to `path` on the CPU (the
+    batch, the logits and the caches after the prefill and each step).
+    Returns the one rank's ms."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import build_model, make_decode_step
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    n = max(LM_SERVE_MESH_STEPS.values())
+    T = LM_SERVE_MESH_PROMPT
+    ref, ms = {}, {}
+    params = None
+    for compute in LM_SERVE_MESH_COMPUTES:
+        cfg = _lm_serve_mesh_cfg(compute)
+        model = build_model(cfg, RunConfig(remat="none"))
+        if params is None:      # f32 masters: one draw serves both computes
+            params, _ = model.init_params(0, device=LM_DEVICE)
+        full = batch_for(cfg, ShapeConfig("p", "prefill", T + n,
+                                          LM_SERVE_MESH_BATCH),
+                         device=LM_DEVICE)
+        head = {**full, "tokens": full["tokens"][:, :T]}
+        decode = make_decode_step(model)
+        times = []
+        with torch.no_grad():
+            for i in range(n + 1):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    logits, caches = model.prefill(params, head,
+                                                   max_len=T + n)
+                    outs = []
+                else:
+                    logits, caches = decode(
+                        params, caches, full["tokens"][:, T + i - 1][:, None])
+                if cuda:
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                outs.append((logits.cpu(), _lm_to(caches, "cpu")))
+        ref[compute] = {"batch": _lm_to(full, "cpu"), "outs": outs}
+        ms[compute] = times
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    torch.save(ref, path)
+    return ms
+
+
+def _lm_serve_mesh_rank(rank: int, world: int, store: str, ref_path: str,
+                        out_dir: str, device: str) -> None:
+    """One gloo rank on the card: for each of LM_SERVE_MESH_SHAPES and
+    each compute, `init_params(0)` cut into this rank's blocks, the sharded
+    prefill of the reference's prompt, then LM_SERVE_MESH_STEPS decode
+    steps, each from the reference's caches cut into blocks and the next
+    token; every call timed, its logits (every row, gathered over the FSDP
+    axes) and caches (gathered) against the reference's, and rank 0's
+    gathered logits broadcast to hold the others' bit for bit.  On (1, 4)
+    also the "kv_seq" smoke (`_lm_serve_kvseq`)."""
+    global LM_DEVICE
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  tree_shardings)
+    from repro_torch.launch import Mesh
+    from repro_torch.models import build_model, make_decode_step, make_prefill
+    from repro_torch.tree import tree_map
+
+    LM_DEVICE = device
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=LM_MESH_WAIT_S))
+
+    def wait():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {}
+    try:
+        ref = torch.load(ref_path, weights_only=False)
+        T = LM_SERVE_MESH_PROMPT
+        for shape in LM_SERVE_MESH_SHAPES:
+            mesh = Mesh(shape)
+            tag = "x".join(str(v) for v in shape.values())
+            n = LM_SERVE_MESH_STEPS[tag]
+            for compute in LM_SERVE_MESH_COMPUTES:
+                cfg = _lm_serve_mesh_cfg(compute)
+                model = build_model(cfg, RunConfig(remat="none"))
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                params, axes = model.init_params(0, device=LM_DEVICE)
+                sh = tree_shardings(mesh, axes, params)
+                params = tree_map(lambda s, x: s.shard(x), sh, params)
+                init_peak = torch.cuda.max_memory_allocated() if cuda else 0
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                full = _lm_to(ref[compute]["batch"], LM_DEVICE)
+                head = {**full, "tokens": full["tokens"][:, :T]}
+                B = full["tokens"].shape[0]
+                max_len = T + max(LM_SERVE_MESH_STEPS.values())
+                csh = model.cache_shardings(mesh, B, max_len)
+                rows = batch_shardings(mesh, {"t": head["tokens"]})["t"]
+                prefill = make_prefill(model, sh, max_len)
+                decode = make_decode_step(model, sh, csh)
+                rec = {"ms": [], "gaps": [], "cache_gaps": [], "same": True,
+                       "spec": tuple(csh["slots"][0]["k"].spec)}
+                for i in range(n + 1):
+                    if i:
+                        caches = tree_map(
+                            lambda s, x: s.shard(x).to(LM_DEVICE), csh,
+                            ref[compute]["outs"][i - 1][1])
+                        tok = full["tokens"][:, T + i - 1][:, None]
+                    wait()
+                    t0 = time.perf_counter()
+                    if i == 0:
+                        logits, caches = prefill(params, head)
+                    else:
+                        logits, caches = decode(params, caches, tok)
+                    wait()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    logits = rows.gather(logits.cpu())
+                    caches = tree_map(lambda s, x: s.gather(x.cpu()), csh,
+                                      caches)
+                    want, want_c = ref[compute]["outs"][i]
+                    rec["gaps"].append(_lm_rel(want, logits))
+                    rec["cache_gaps"].append(_lm_held(
+                        f" {tag} {compute} call {i}", want_c, caches)
+                        if compute == "float32" else _lm_cache_gap(
+                            f"{tag} {compute} call {i}", want_c, caches))
+                    first = logits.clone()
+                    dist.broadcast(first, 0)
+                    rec["same"] &= torch.equal(first, logits)
+                    del caches
+                rec["peak"] = torch.cuda.max_memory_allocated() if cuda \
+                    else 0
+                rec["init_peak"] = init_peak
+                out[tag, compute] = rec
+                del params, prefill, decode
+            if shape == {"data": 1, "model": 4}:
+                out["kv_seq"] = _lm_serve_kvseq(mesh)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_cache_gap(tag: str, want, got) -> float:
+    """The largest gap of a float cache leaf of its scale (bf16 compute
+    rounds K and V apart, so none is held); the int leaves exactly."""
+    worst, g = 0.0, dict(_lm_leaves(got))
+    for path, a in _lm_leaves(want):
+        b = g[path]
+        if a.is_floating_point():
+            worst = max(worst, _lm_rel(a, b))
+        elif not torch.equal(a, b):
+            raise AssertionError(f"lm_serve_mesh {tag}{path}: ints differ")
+    return worst
+
+
+def _lm_serve_kvseq(mesh) -> dict:
+    """qwen2-smoke (2 kv heads, so the slots split over "model") at float32
+    compute on `mesh`: LM_SERVE_KVSEQ's prompt and teacher-forced steps
+    past max_len, twice from the same blocks.  Returns whether the two
+    runs gave the same bits (every step's logits and the last caches, as
+    this rank holds them), the cache spec and the last step's slot
+    positions."""
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.models import build_model, make_decode_step, make_prefill
+    from repro_torch.tree import leaves, tree_map
+
+    k = LM_SERVE_KVSEQ
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"),
+                              compute_dtype="float32")
+    model = build_model(cfg, RunConfig(remat="none"))
+    params, axes = model.init_params(0, device=LM_DEVICE)
+    sh = tree_shardings(mesh, axes, params)
+    params = tree_map(lambda s, x: s.shard(x), sh, params)
+    full = batch_for(cfg, ShapeConfig("p", "prefill", k["prompt"] + k["steps"],
+                                      4), device=LM_DEVICE)
+    head = {**full, "tokens": full["tokens"][:, :k["prompt"]]}
+    csh = model.cache_shardings(mesh, 4, k["max_len"])
+    prefill = make_prefill(model, sh, k["max_len"])
+    decode = make_decode_step(model, sh, csh)
+    runs = []
+    for _ in range(2):
+        logits, caches = prefill(params, head)
+        outs = [logits]
+        for i in range(k["steps"]):
+            logits, caches = decode(
+                params, caches, full["tokens"][:, k["prompt"] + i][:, None])
+            outs.append(logits)
+        runs.append(outs + leaves(caches))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    finite = all(bool(torch.isfinite(t).all()) for t in runs[0][:-1]
+                 if t.is_floating_point())
+    return {"same": same, "finite": finite,
+            "spec": tuple(csh["slots"][0]["k"].spec),
+            "slot_pos": caches["slots"][0]["slot_pos"][0].cpu().tolist()}
+
+
+def lm_serve_mesh_child() -> int:
+    """Phase lm_serve_mesh's body, in a process of its own: the one-rank
+    reference, then four spawned gloo ranks on both meshes; prints its
+    lines and, last, a JSON record for the parent."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import farfield, pairwise, sparse_attractive
+
+    card = smi()
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    cfg = _lm_serve_mesh_cfg("float32")
+    n = max(LM_SERVE_MESH_STEPS.values())
+    say("lm_serve_mesh", f"{cfg.name}: {cfg.num_layers} layers (depth cut), "
+                         f"d_model {cfg.d_model}, {cfg.num_heads} heads, "
+                         f"{cfg.num_kv_heads} kv heads, vocab "
+                         f"{cfg.vocab_size}, f32 masters; "
+                         f"{LM_SERVE_MESH_BATCH} x ({LM_SERVE_MESH_PROMPT} "
+                         f"+ {n}) tokens, decode steps by mesh "
+                         f"{LM_SERVE_MESH_STEPS}; four gloo ranks on one "
+                         f"{'card' if cuda else 'CPU'} against the one-rank "
+                         f"prefill and decode_step")
+    LM_SERVE_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    for f in LM_SERVE_MESH_DIR.iterdir():
+        f.unlink()
+    t0 = time.perf_counter()
+    ref_path = LM_SERVE_MESH_DIR / "reference.pt"
+    ref_ms = _lm_serve_mesh_reference(ref_path)
+    say("lm_serve_mesh", f"the one rank: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_lm_serve_mesh_rank,
+                         args=(r, 4, str(LM_SERVE_MESH_DIR / "store"),
+                               str(ref_path), str(LM_SERVE_MESH_DIR),
+                               LM_DEVICE))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=LM_TIMEOUT_S)
+            if p.exitcode != 0:
+                raise AssertionError(f"lm_serve_mesh: a rank exited with "
+                                     f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    say("lm_serve_mesh", f"the four ranks: {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(LM_SERVE_MESH_DIR / f"rank{r}.pt",
+                        weights_only=False) for r in range(4)]
+    rec = {}
+    for shape in LM_SERVE_MESH_SHAPES:
+        tag = "x".join(str(v) for v in shape.values())
+        for compute in LM_SERVE_MESH_COMPUTES:
+            got = [r[tag, compute] for r in ranks]
+            tol = LM_SERVE_MESH_TOL[compute]
+            gaps = [max(g["gaps"][i] for g in got)
+                    for i in range(len(got[0]["gaps"]))]
+            if not all(g <= tol for g in gaps) or not all(
+                    g["same"] for g in got):
+                raise AssertionError(f"lm_serve_mesh {tag} {compute}: "
+                                     f"logit gaps {gaps} (bound {tol}), the "
+                                     f"ranks' logits bit-equal "
+                                     f"{[g['same'] for g in got]}")
+            ms = [max(g["ms"][i] for g in got)
+                  for i in range(len(got[0]["ms"]))]
+            steps = ms[1:]
+            one = ref_ms[compute]
+            line = (f"{tag} {compute} on {card}: cache spec "
+                    f"{got[0]['spec']}; the last-token logits of the prefill"
+                    f" and {len(steps)} teacher-forced decode steps within "
+                    f"{max(gaps):.2e} of their scale of the one rank's "
+                    f"(bound {tol:.0e}; by call {[f'{g:.1e}' for g in gaps]})"
+                    f", the caches gathered from the blocks "
+                    + ("within one bf16 ulp of a leaf's scale"
+                       if compute == "float32" else
+                       f"within {max(max(g['cache_gaps']) for g in got):.2e}"
+                       f" of a leaf's scale (not held)")
+                    + f"; every rank's gathered logits "
+                    f"(so its tokens) the same bits; ms (slowest rank; four "
+                    f"gloo ranks share the card) prefill {ms[0]:.1f}, a "
+                    f"decode step p50 {np.percentile(steps, 50):.1f} p99 "
+                    f"{np.percentile(steps, 99):.1f}; the one rank prefill "
+                    f"{one[0]:.1f}, a step p50 "
+                    f"{np.percentile(one[1:], 50):.1f} p99 "
+                    f"{np.percentile(one[1:], 99):.1f}; peak memory a rank "
+                    f"{[round(g['peak'] / 1e9, 2) for g in got]} GB serving,"
+                    f" {[round(g['init_peak'] / 1e9, 2) for g in got]} GB "
+                    f"while cutting the whole params into blocks")
+            say("lm_serve_mesh", line)
+            rec[f"{tag} {compute}"] = {"gaps": gaps, "ms": ms,
+                                       "one_rank_ms": one,
+                                       "peak_gb": [g["peak"] / 1e9
+                                                   for g in got]}
+    kv = [r["kv_seq"] for r in ranks]
+    k = LM_SERVE_KVSEQ
+    last = k["max_len"] - 1
+    want_pos = list(range(last)) + [k["prompt"] + k["steps"] - 1]
+    if not all(x["same"] and x["finite"] and x["spec"][2] == "model"
+               and x["slot_pos"] == want_pos for x in kv):
+        raise AssertionError(f"lm_serve_mesh kv_seq: {kv}")
+    say("lm_serve_mesh", f"1x4 qwen2-smoke (2 kv heads) on {card}: the KV "
+                         f"cache's slots split over 'model' {kv[0]['spec']};"
+                         f" a {k['prompt']}-token prompt into "
+                         f"{k['max_len']} slots and {k['steps']} steps past "
+                         f"them (slot {last}, on the last rank, holds "
+                         f"position {want_pos[-1]}), twice: the same bits on"
+                         f" every rank")
+    rec["kv_seq"] = kv[0]
+    counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
+              **farfield.launch_counts}
+    if any(counts.values()):
+        raise AssertionError(f"lm_serve_mesh launched a kernel: {counts}")
+    print(json.dumps({"lm_serve_mesh": rec, "kernel_launches": counts}))
+    return 0
+
+
+def phase_lm_serve_mesh() -> dict:
+    """The LM's sharded serving program on four gloo ranks of the card, in
+    a fresh process."""
+    return _lm_child_phase("lm_serve_mesh",
+                           "lm_serve_mesh_child")["lm_serve_mesh"]
+
+
 # -- phase dryrun: the dry-run and cost modules held against the card ---------------
 
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"   # git-ignored
@@ -5729,23 +6113,27 @@ def _dryrun_tile() -> dict:
     return out
 
 
-def _dryrun_want(arch: str, mesh_kind: str) -> dict:
-    """A production train cell's collective identities: each kind's bytes
-    from the params' specs and the loop counts
-    (`launch.dryrun.train_collective_bytes`)."""
+def _dryrun_want(arch: str, mesh_kind: str, shape_name: str) -> dict:
+    """A production cell's collective identities: each kind's bytes from
+    the params' (and caches') specs and the loop counts
+    (`launch.dryrun.train_collective_bytes`, `serve_collective_bytes`)."""
     import types
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.dryrun import (default_run_config,
+                                           serve_collective_bytes,
                                            train_collective_bytes)
 
     shape = ({"pod": 2, "data": 16, "model": 16} if mesh_kind == "multi"
              else {"data": 16, "model": 16})
     mesh = types.SimpleNamespace(axis_names=tuple(shape), shape=shape)
-    cell = SHAPES["train_4k"]
-    return train_collective_bytes(get_config(arch),
-                                  default_run_config("train_4k"), mesh,
-                                  cell.global_batch, cell.seq_len)
+    cell = SHAPES[shape_name]
+    run = default_run_config(shape_name)
+    if cell.mode == "train":
+        return train_collective_bytes(get_config(arch), run, mesh,
+                                      cell.global_batch, cell.seq_len)
+    return serve_collective_bytes(get_config(arch), run, mesh,
+                                  cell.global_batch, cell.seq_len, cell.mode)
 
 
 def _dryrun_commands(during=None) -> tuple:
@@ -5808,20 +6196,29 @@ def _dryrun_commands(during=None) -> tuple:
                       f"{rank_bytes / 1e9:.2f} GB "
                       f"{'exceed' if rank_bytes > DRYRUN_CARD_BYTES else 'fit'}"
                       f" the card's 80 GB")
-        if r["shape"] == "train_4k":
-            want = _dryrun_want(r["arch"], r["mesh"])
+        if r["shape"] is not None:
+            want = _dryrun_want(r["arch"], r["mesh"], r["shape"])
             got = {k: r["collectives"][k] for k in want}
             if got != want:
-                raise AssertionError(f"dryrun: {r['arch']} x {r['mesh']} "
-                                     f"collectives {got}, the specs and "
-                                     f"loop counts give {want}")
-            say("dryrun", f"(c) {r['arch']} x {r['mesh']}: collective "
-                          f"bytes {want} = the sharded step's identities "
-                          f"(launch.dryrun.train_collective_bytes: the "
-                          f"groups' FSDP gathers in the forward and the "
-                          f"recompute, their reduce-scatters, the 'model' "
-                          f"all-reduces a layer, the vocab-parallel "
-                          f"embedding and loss, the step's two scalars)")
+                raise AssertionError(f"dryrun: {r['arch']} x {r['shape']} "
+                                     f"x {r['mesh']} collectives {got}, the"
+                                     f" specs and loop counts give {want}")
+            say("dryrun", f"(c) {r['arch']} x {r['shape']} x {r['mesh']}: "
+                          f"collective bytes {want} = "
+                          + ("the sharded step's identities (launch.dryrun."
+                             "train_collective_bytes: the groups' FSDP "
+                             "gathers in the forward and the recompute, "
+                             "their reduce-scatters, the 'model' all-reduces"
+                             " a layer, the vocab-parallel embedding and "
+                             "loss, the step's two scalars)"
+                             if r["shape"] == "train_4k" else
+                             "the sharded serving program's identities "
+                             "(launch.dryrun.serve_collective_bytes: the "
+                             "groups' FSDP gathers, q, k and v gathered "
+                             "over 'model', the row-parallel all-reduces, "
+                             "the vocab-parallel embedding and last-position"
+                             " logits, a decode step's softmax combined "
+                             "over the split slots)"))
     want = {("qwen2-7b", "train_4k", "single"),
             ("qwen2-7b", "train_4k", "multi"),
             ("qwen2-7b", "prefill_32k", "single"),
@@ -5977,6 +6374,161 @@ def _dryrun_share(card: str) -> dict:
             "compute_ms": roof.compute_s * 1e3}
 
 
+#: layer groups of (e)'s shares: decode_32k whole (28); prefill_32k cut to
+#: 2 of 28: every rank computes all 28 heads over its rows' 32768 tokens
+#: (28 does not divide over 16): a memory term of 0.75 s a layer by the
+#: counter, 27.4 GB of transients (the attention chunks' f32 scores)
+DRYRUN_SERVE_GROUPS = {"decode_32k": 28, "prefill_32k": 2}
+
+
+def _dryrun_serve_share(card: str, shape_name: str) -> dict:
+    """(e) rank 0's share of qwen2-7b `shape_name` (prefill_32k or
+    decode_32k) on the single (16, 16) mesh on the card, as
+    `launch/dryrun.py` lays it out (its param blocks, the global batch, for
+    decode its blocks of the caches: the slots over "model", "kv_seq"),
+    under the fake process group of 256 ranks: the values are not held.
+    The op stream, FLOPs and bytes on meta and on the card must be equal,
+    the card's max_memory_allocated below 80 GB and within DRYRUN_MEM_TOL
+    of the counter's estimate; three warm calls are timed beside their
+    memory term.  A CPU rehearsal counts the smoke config on a 64-token
+    cell of 32 rows."""
+    from repro_torch.configs import SHAPES, get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_activation_constraint
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import hooks
+    from repro_torch.tree import tree_map
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    dev = torch.device(LM_DEVICE)
+    cfg = get_config("qwen2-7b") if cuda else get_smoke_config("qwen2-7b")
+    shape = SHAPES[shape_name]
+    if not cuda:
+        shape = ShapeConfig(shape_name, shape.mode, 64, 32)
+    run = dr.default_run_config(shape_name)
+
+    def wait():
+        if cuda:
+            torch.cuda.synchronize()
+
+    dr._fake_group(256)
+    hooks.set_activation_constraint(None)
+    try:
+        mesh = make_production_mesh()
+        cell = dr._lm_cell(cfg, shape, run, mesh)
+        values = dict(cell.at, groups=min(cell.at["groups"],
+                                          DRYRUN_SERVE_GROUPS[shape_name]))
+        fn, margs = cell.prepare(values)
+        hooks.set_activation_constraint(make_activation_constraint(mesh, run))
+        t0 = time.perf_counter()
+        with hlo_cost.CostCounter() as cc:
+            mout = fn(*margs)
+        mem = hlo_cost.memory_summary(cc, margs, mout)
+        meta_cost, meta_ops = cc.cost, _op_stream(cc.records)
+        meta_s = time.perf_counter() - t0
+        del cc, mout
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def real(x):
+            if x.is_floating_point():
+                return (torch.randn(x.shape, generator=gen, device=dev)
+                        * 0.02).to(x.dtype)
+            return torch.zeros(x.shape, dtype=x.dtype, device=dev)
+
+        args = tree_map(real, margs)
+        del margs
+        t0 = time.perf_counter()
+        fn(*args)                                           # warm-up
+        wait()
+        warm_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with hlo_cost.CostCounter() as card_cc:
+            out = fn(*args)
+            wait()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        card_cost, card_ops = card_cc.cost, _op_stream(card_cc.records)
+        del card_cc, out
+        ms = []
+        for _ in range(DRYRUN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            wait()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            del out
+        del args
+    finally:
+        hooks.set_activation_constraint(None)
+        dist.destroy_process_group()
+    if card_ops != meta_ops:
+        only_card = list((card_ops - meta_ops).items())[:5]
+        only_meta = list((meta_ops - card_ops).items())[:5]
+        raise AssertionError(f"dryrun (e) {shape_name}: the card's op "
+                             f"stream differs from meta's: "
+                             f"{sum(card_ops.values())} vs "
+                             f"{sum(meta_ops.values())} ops; on the card "
+                             f"only {only_card}; on meta only {only_meta}")
+    if card_cost != meta_cost:
+        raise AssertionError(f"dryrun (e) {shape_name}: the card's cost "
+                             f"{card_cost} differs from meta's {meta_cost}")
+    est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    cut_cfg = dataclasses.replace(cfg, num_layers=values["groups"])
+    roof = rl.analyze(meta_cost, mesh.size, rl.model_flops_for(cut_cfg,
+                                                                 shape))
+    mid = float(np.median(ms))
+    cut = ("" if values["groups"] == cell.at["groups"]
+           else f", depth cut to {values['groups']} of {cell.at['groups']} "
+                f"layer groups")
+    say("dryrun", f"(e) {cfg.name} {shape_name} on the single "
+                  f"{dict(mesh.shape)} mesh, rank 0's share ("
+                  f"{shape.global_batch // 16} of {shape.global_batch} rows x"
+                  f" {shape.seq_len} {'tokens' if shape.mode == 'prefill' else 'cache slots, one token'}"
+                  f"{cut}) on {card}, under the fake group: card and meta "
+                  f"dispatch the same {sum(meta_ops.values())} ops "
+                  f"({len(meta_ops)} distinct), FLOPs {meta_cost.flops:.6e}"
+                  f" and bytes {meta_cost.bytes:.6e} equal; "
+                  f"max_memory_allocated {peak / 1e9:.3f} GB against the "
+                  f"estimate (arguments "
+                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} + temp "
+                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB) "
+                  f"{est / 1e9:.3f} GB "
+                  f"({(est / peak - 1) * 100 if peak else 0.0:+.2f}%, limit "
+                  f"{DRYRUN_MEM_TOL:.0%}); warm calls "
+                  f"{[round(x, 2) for x in ms]} ms against the memory term "
+                  f"{roof.memory_s * 1e3:.2f} ms (share "
+                  f"{roof.memory_s / (mid / 1e3):.3f}; compute term "
+                  f"{roof.compute_s * 1e3:.2f} ms, collective term "
+                  f"{roof.collective_s * 1e3:.2f} ms: nothing moves under "
+                  f"the fake group); the first call {warm_s:.1f} s, the meta "
+                  f"count {meta_s:.1f} s")
+    if cuda and not (peak < DRYRUN_CARD_BYTES
+                     and abs(est / peak - 1) <= DRYRUN_MEM_TOL):
+        raise AssertionError(f"dryrun (e) {shape_name}: "
+                             f"max_memory_allocated {peak / 1e9:.3f} GB "
+                             f"against the estimate {est / 1e9:.3f} GB "
+                             f"(limit {DRYRUN_MEM_TOL:.0%}, and below "
+                             f"{DRYRUN_CARD_BYTES / 1e9:.0f} GB)")
+    return {"ops": sum(meta_ops.values()), "groups": values["groups"],
+            "estimate_gb": est / 1e9, "peak_gb": peak / 1e9, "ms": ms,
+            "memory_ms": roof.memory_s * 1e3,
+            "compute_ms": roof.compute_s * 1e3}
+
+
+def _dryrun_shares(card: str) -> dict:
+    """(d), then (e) for decode_32k and prefill_32k, each under its own
+    fake group, the card's memory released between them."""
+    out = {"train_4k": _dryrun_share(card)}
+    for name in DRYRUN_SERVE_GROUPS:
+        if torch.device(LM_DEVICE).type == "cuda":
+            torch.cuda.empty_cache()
+        out[name] = _dryrun_serve_share(card, name)
+    return out
+
+
 def dryrun_child() -> int:
     """Phase dryrun's body, in a process of its own: prints its lines and,
     last, a JSON record for the parent."""
@@ -5998,8 +6550,8 @@ def dryrun_child() -> int:
         dist.destroy_process_group()
     t0 = time.perf_counter()
     rec["rows"], rec["share"] = _dryrun_commands(
-        during=lambda: _dryrun_share(card))
-    say("dryrun", f"(c) and (d) {time.perf_counter() - t0:.1f} s")
+        during=lambda: _dryrun_shares(card))
+    say("dryrun", f"(c), (d) and (e) {time.perf_counter() - t0:.1f} s")
     counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
               **farfield.launch_counts}
     if any(counts.values()):
@@ -6079,6 +6631,7 @@ def main() -> int:
     run("lm_serve", phase_lm_serve)
     run("lm_train", phase_lm_train)
     run("lm_train_mesh", phase_lm_train_mesh)
+    run("lm_serve_mesh", phase_lm_serve_mesh)
     run("dryrun", phase_dryrun)
     say("done", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items()))

@@ -77,6 +77,10 @@ class PartitionSpec(tuple):
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
 
+    def __getnewargs__(self):
+        # pickle rebuilds it from its parts, as it was made
+        return tuple(self)
+
 
 P = PartitionSpec
 
@@ -230,6 +234,13 @@ def batch_shardings(mesh, batch_tree: Any) -> Any:
         return NamedSharding(mesh, P())
 
     return tree_map(one, batch_tree)
+
+
+def batch_rows(mesh, batch: dict) -> dict:
+    """This rank's rows of every leaf of a global batch (views), by
+    `batch_shardings`."""
+    sh = batch_shardings(mesh, batch)
+    return {k: sh[k].local_view(v) for k, v in batch.items()}
 
 
 def scalar_sharding(mesh) -> NamedSharding:

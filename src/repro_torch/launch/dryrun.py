@@ -28,9 +28,18 @@ What is counted is the port's own program:
     over the vocab blocks, and reduce-scatters the gradients onto the FSDP
     blocks; `train_collective_bytes` gives each kind's bytes from the
     specs and the loop counts, and the tests hold the count to it;
-  * prefill and decode: the port has no sharded serving: a rank holds the
-    whole params (cast by `serve_param_dtype`) and serves its rows of the
-    batch (`batch_shardings`' block), with no collective;
+  * prefill and decode: the sharded serving program of `models/train.py`
+    (`make_prefill`, `make_decode_step` with the shardings), forward only,
+    on this rank's param blocks (cast by `serve_param_dtype`), its rows of
+    the global batch (`batch_shardings`) and, for decode, its blocks of
+    caches filled to the cell's length (`Model.cache_shardings`: a KV
+    cache's heads on "model", else its slots); each group gathers its
+    blocks over the FSDP axes as it runs, computes the projections on
+    their "model" blocks (an all-reduce after each row-parallel one), the
+    vocab-parallel embedding and head (the last position's logits
+    gathered over "model"), and a decode step over slots split over
+    "model" combines its softmax there; `serve_collective_bytes` gives
+    each kind's bytes, and the tests hold the count to it;
   * the embedding cell: `embed/distributed.py`'s 2-D tile and its
     all-reduces, on this rank's (N/R, N/C) tiles.
 
@@ -204,8 +213,10 @@ def _seq_points(cfg, run: RunConfig, S: int) -> tuple[int, ...]:
 
 
 def _lm_cell(cfg, shape: ShapeConfig, run: RunConfig, mesh) -> MetaCell:
-    """The meta cell of one LM step: train (this rank's state blocks, the
-    global batch), prefill or decode (whole params, this rank's rows)."""
+    """The meta cell of one LM step on this rank's share: train (its state
+    blocks, the global batch), prefill (its param blocks, the global
+    batch) or decode (its param and cache blocks, the global batch's
+    tokens)."""
     pattern, n_groups = block_pattern(cfg)
     nmb = run.num_microbatches if shape.mode == "train" else 1
     rows = shape.global_batch // nmb
@@ -227,21 +238,16 @@ def _lm_cell(cfg, shape: ShapeConfig, run: RunConfig, mesh) -> MetaCell:
                 model, AdamWConfig(moment_dtype=r.moment_dtype),
                 grad_shardings=sh["params"])
             return step, (state, batch)
-        params, _ = params_specs(model)
-        if r.serve_param_dtype != "float32":
-            sdt = getattr(torch, r.serve_param_dtype)
-            params = tree_map(lambda p: p.to(sdt)
-                              if p.dtype == torch.float32 else p, params)
-        bsh = batch_shardings(mesh, batch)
-        batch = {k: bsh[k].shard(x) for k, x in batch.items()}
+        params, psh = serve_params(model, mesh)
         if shape.mode == "prefill":
-            return make_prefill(model), (params, batch)
+            return make_prefill(model, psh), (params, batch)
         tokens = batch["tokens"]
+        csh = model.cache_shardings(mesh, tokens.shape[0], sh_.seq_len)
         caches = tree_map(
-            lambda x: x.contiguous(),         # whole caches, not broadcasts
-            model.init_caches(tokens.shape[0], sh_.seq_len, mode="decode",
-                              device="meta"))
-        return make_decode_step(model), (params, caches, tokens)
+            lambda s, x: s.shard(x.contiguous()),   # blocks, not broadcasts
+            csh, model.init_caches(tokens.shape[0], sh_.seq_len,
+                                   mode="decode", device="meta"))
+        return make_decode_step(model, psh, csh), (params, caches, tokens)
 
     at = {"groups": n_groups, "microbatches": nmb, "seq": shape.seq_len}
     grid = {"groups": (1, 2, 3)}
@@ -360,6 +366,122 @@ def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
     if run.grad_compress and M > 1 and F * m > 1:
         out["all-reduce"] += M * 4 * len(leaves(specs))
     out["all-reduce"] += 4 * (F > 1) + 4 * (F * m > 1)
+    return out
+
+
+def _serve_specs(model) -> tuple:
+    """The params on `meta`, cast by the run's `serve_param_dtype`, and
+    their logical axes."""
+    params, axes = params_specs(model)
+    if model.run.serve_param_dtype != "float32":
+        sdt = getattr(torch, model.run.serve_param_dtype)
+        params = tree_map(lambda p: p.to(sdt)
+                          if p.dtype == torch.float32 else p, params)
+    return params, axes
+
+
+def serve_params(model, mesh) -> tuple:
+    """(this rank's blocks of the serving params on `meta`, their
+    `NamedSharding` tree on `mesh`)."""
+    params, axes = _serve_specs(model)
+    sh = tree_shardings(mesh, axes, params)
+    return tree_map(lambda s, x: s.shard(x), sh, params), sh
+
+
+def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
+                           seq: int, mode: str) -> dict[str, int]:
+    """The bytes of each collective kind that a rank's sharded prefill
+    (`mode` "prefill": S = `seq` tokens) or decode step ("decode": one
+    token against caches of `seq` slots) moves, each op's operand bytes
+    as `hlo_cost` counts them, from the params' specs (cast by
+    `serve_param_dtype`) and the caches' on `mesh` (only its shape is
+    read): G layer groups, b = this rank's rows, D, m = the "model" axis,
+    c = the compute dtype's bytes, T = the tokens a row computes (S, or 1).
+
+      all-gather: a group leaf's FSDP block once a group, the embedding,
+        final norm and head blocks once, `whole` subtrees' leaves over
+        "model" too; q (where H does not divide over "model") and k and v
+        (where KV does not) of each attention call; a decode step on
+        slots split over "model" gathers q where it is on this rank's
+        heads; the last position's vocab-parallel logits;
+      all-reduce: each row-parallel output (b, T, D) (attention's wo and
+        the MLPs'), the vocab-parallel embedding; a decode step on split
+        slots, the scores' max (b, H) and the combined p v and sum of
+        exps (b, H, hd + 1), float32, an attention call.
+    """
+    model = build_model(cfg, run)
+    specs, axes = _serve_specs(model)
+    sh = tree_shardings(mesh, axes, specs)
+    fsdp = fsdp_axes(mesh)
+    F = math.prod(mesh.shape[a] for a in fsdp)
+    m = mesh.shape.get("model", 1)
+    pattern, G = block_pattern(cfg)
+    b = global_batch // F if global_batch % F == 0 else global_batch
+    T = seq if mode == "prefill" else 1
+    c = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                    ).element_size()
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+
+    def params(tree, shard_tree, times: int, whole=False):
+        for p, s in zip(leaves(tree), leaves(shard_tree)):
+            fdim, mdim = split_dims(s, p.ndim, fsdp)
+            block = p.numel() * p.element_size()
+            block //= (F if fdim is not None else 1) * (
+                m if mdim is not None else 1)
+            if fdim is not None:
+                out["all-gather"] += times * block
+            if mdim is not None and whole:
+                out["all-gather"] += times * block * (
+                    F if fdim is not None else 1)
+
+    for slot, p, s in zip(pattern, specs["slots"], sh["slots"]):
+        for k in p:
+            params(p[k], s[k], 1, k in _WHOLE.get(slot, ()))
+    mlps = G * sum(slot in ("attn", "cross") for slot in pattern)
+    if cfg.family == "hybrid":
+        params(specs["shared_attn"], sh["shared_attn"], G)
+        mlps += G
+    for k in ("embed", "final_ln", "head"):
+        params(specs[k], sh[k], 1)
+    if m == 1:
+        return out
+    # the attention calls on split projections: (calls, their KV cache's
+    # shardings)
+    csh = model.cache_shardings(mesh, global_batch, seq)
+    kv = [i for i, slot in enumerate(pattern) if slot in ("attn", "moe")]
+    calls = [(G * len(kv), csh["slots"][kv[0]])] if kv else []
+    if cfg.family == "hybrid":
+        calls.append((G, csh["shared_attn"]))
+    qs, ks = H * hd % m == 0, KV * hd % m == 0
+    if qs != ks:
+        raise NotImplementedError(
+            "the q and kv projections split differently over 'model' "
+            "(their weights are gathered): not counted here")
+    bTD = b * T * D * c
+    for n, cache in calls:
+        split = split_dims(cache["k"], 5, fsdp)[1] if mode == "decode" \
+            else None
+        per = {"all-gather": 0, "all-reduce": 0}
+        if qs:
+            if H % m:
+                per["all-gather"] += b * T * H * hd // m * c
+            if KV % m:
+                per["all-gather"] += 2 * b * T * KV * hd // m * c
+            per["all-reduce"] += bTD                       # wo
+        if split == 2:                                     # "kv_seq"
+            if qs and H % m == 0:
+                per["all-gather"] += b * H * hd // m * c   # q to every head
+            per["all-reduce"] += b * H * 4 + b * H * (hd + 1) * 4
+        for k, v in per.items():
+            out[k] += n * v
+    if cfg.d_ff % m == 0:
+        out["all-reduce"] += mlps * bTD
+    if cfg.vocab_size % m == 0:
+        ncb = max(cfg.n_codebooks, 1)
+        emb = 1 if run.embed_onehot else ncb
+        out["all-reduce"] += emb * bTD
+        out["all-gather"] += b * ncb * cfg.vocab_size // m * c
     return out
 
 

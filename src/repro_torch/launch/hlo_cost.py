@@ -31,13 +31,14 @@ in the reference:
     `func.is_view`) and the ops whose schema does not say so but whose
     output shares its input's storage all the same (`_unsafe_view`, which
     `einsum` and `reshape` emit after a `clone`; the storages tell, as
-    they tell the live bytes below); `empty*` count 0 too.  A write into part of a tensor counts the update,
-    not the buffer, as the reference's dynamic-update-slice: `copy_` reads
-    its source and writes its destination (a slice's size), and
-    `index_copy(_)` / `index_put(_)` read the indices and the update and
-    write the update.  (The functional `index_copy` of the decode cache
-    copies the whole buffer on the card; it is counted as XLA's in-place
-    update of a donated buffer is.)
+    they tell the live bytes below); `empty*` count 0 too.  A write into part of a tensor in place counts the
+    update, not the buffer, as the reference's dynamic-update-slice:
+    `copy_` reads its source and writes its destination (a slice's size),
+    and `index_copy_` / `index_put_` read the indices and the update and
+    write the update.  The out-of-place `index_copy` / `index_put` (the
+    decode cache's write) count as the card runs them: they read the
+    whole source buffer, the indices and the update and write a whole new
+    buffer, as every other op is counted.
   * collective bytes: each `c10d` op's operand bytes on this rank, by the
     reference's five kinds; a `c10d` op outside the map raises, so no
     traffic is dropped unseen.  Their operands and outputs also count as
@@ -102,9 +103,9 @@ _MATMULS = {p.__name__ for p in flop_registry if hasattr(p, "__name__")}
 #: into a contiguous buffer that lives for the op's duration
 _CONTIGUOUS_COPIES = {"_softmax", "_log_softmax", "_softmax_backward_data",
                       "_log_softmax_backward_data"}
-#: writes into part of a buffer: the update's bytes, not the buffer's
-_PARTIAL_WRITES = {"index_copy", "index_copy_", "index_put", "index_put_",
-                   "_index_put_impl_"}
+#: writes into part of a buffer in place: the update's bytes, not the
+#: buffer's (the out-of-place forms write a whole new buffer)
+_PARTIAL_WRITES = {"index_copy_", "index_put_", "_index_put_impl_"}
 _PORT = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
 _REL: dict[str, str] = {}
 _ENGINE = os.path.join("torch", "autograd", "graph.py")

@@ -18,7 +18,9 @@ Port of `repro/models/layers.py`.  Conventions, as the reference's:
     input dim, attention runs on this rank's heads where the splits hold
     whole heads, the embedding looks up its vocab block and the logits stay
     split over the vocab (`model.py`'s loss is vocab-parallel).  Unmarked
-    weights compute as without a context.
+    weights compute as without a context.  A decode step's KV cache block
+    is on this rank's kv heads or its slice of the slots (sequence-parallel
+    decode attention, `decode_attention`).
 """
 from __future__ import annotations
 
@@ -185,7 +187,9 @@ def attention(p, cfg: ModelConfig, x, *, positions, kv_src=None,
 
     Train/prefill: cache is None; returns (y, kv) with kv = dict(k, v) so the
     caller can build a decode cache.  kv_src != None => cross-attention (no
-    RoPE on kv, no causal mask).
+    RoPE on kv, no causal mask).  On "model" blocks k and v come back on
+    this rank's kv heads where KV divides over "model" (the cache's
+    "kv_heads" layout), else whole (the model cuts its "kv_seq" slice).
     """
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -326,32 +330,99 @@ def decode_attention(p, cfg: ModelConfig, x, cache: dict, *,
     `pos` stays on the device: the write is an `index_copy` at a device
     index, clamped to [0, Smax - 1] as JAX's `dynamic_update_slice` clamps
     its start (a decode past Smax overwrites the last slot).
+
+    On "model" blocks (the sharded serving program, `models/model.py`) q,
+    k and v come in `_split_qkv`'s layouts and the output goes through the
+    row-parallel wo, as in `attention`; the cache is this rank's block, its
+    layout marked on cache["k"] (`hooks.model_split`): 2, this rank's kv
+    heads ("kv_heads"; q is on the heads they serve); 1, this rank's slice
+    of the slots ("kv_seq"): q is gathered to every head, the token is
+    written only where its slot lies and the softmax is combined over
+    "model" (`_seq_parallel_scores_to_out`); None, every slot and head.
+    `slot_pos` is whole on every rank, which masks its own window of it.
     """
     B, S1, D = x.shape
     assert S1 == 1
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos = cache["pos"]
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, H, hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, 1, KV, hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, 1, KV, hd)
+    if any(hooks.model_split(p[w]) is not None for w in ("wq", "wk", "wv")):
+        q, k, v, q0 = _split_qkv(p, x, x, H, KV, hd)
+    else:
+        q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, H, hd)
+        k = _proj(x, p["wk"], p.get("bk")).reshape(B, 1, KV, hd)
+        v = _proj(x, p["wv"], p.get("bv")).reshape(B, 1, KV, hd)
+        q0 = None
+    layout = hooks.model_split(cache["k"])
+    if (hooks.model_split(k) == 2) != (layout == 2):
+        raise ValueError(f"k of {k.shape[2]} heads against a cache block "
+                         f"of {cache['k'].shape[2]} (layout {layout})")
+    if layout == 1 and hooks.model_split(q) is not None:
+        q, q0 = hooks.tensor_parallel().gather_from_model(q, 2), None
+    heads_local = hooks.model_split(q) is not None
     cos, sin = rope_angles(pos[None], hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    Smax = cache["k"].shape[1]
+    Smax = cache["slot_pos"].shape[0]
     slot = pos % Smax if window else pos
     idx = slot.clamp(0, Smax - 1).long().reshape(1)
-    ck = cache["k"].index_copy(1, idx, k.to(cache["k"].dtype))
-    cv = cache["v"].index_copy(1, idx, v.to(cache["v"].dtype))
     slot_pos = cache["slot_pos"].index_copy(0, idx, pos.reshape(1))
-
-    tj = slot_pos[None, :]                       # (1, Smax) absolute positions
+    if layout == 1:
+        # this rank's slots [start, start + n): the token lands where its
+        # (clamped) slot lies, on one rank; elsewhere the block is copied
+        n = cache["k"].shape[1]
+        start = hooks.tensor_parallel().model.index * n
+        here = (torch.arange(start, start + n, device=x.device)
+                == idx)[:, None, None]
+        ck = torch.where(here, k.to(cache["k"].dtype), cache["k"])
+        cv = torch.where(here, v.to(cache["v"].dtype), cache["v"])
+        tj = slot_pos[None, start:start + n]
+    else:
+        ck = cache["k"].index_copy(1, idx, k.to(cache["k"].dtype))
+        cv = cache["v"].index_copy(1, idx, v.to(cache["v"].dtype))
+        tj = slot_pos[None, :]                   # (1, Smax) absolute positions
     valid = (tj >= 0) & (tj <= pos)
     if window:
         valid = valid & (tj > pos - window)
-    out = _gqa_scores_to_out(q, ck, cv, valid[None, None, :, :], cdt(cfg))
-    y = _proj(out.reshape(B, 1, H * hd), p["wo"])
+    mask = valid[None, None, :, :]
+    if layout == 1:
+        out = _seq_parallel_scores_to_out(q, ck, cv, mask, cdt(cfg))
+    else:
+        kq, vq = (ck, cv) if q0 is None else _kv_for_heads(
+            ck, cv, q0, q.shape[2], H // KV)
+        out = _gqa_scores_to_out(q, kq, vq, mask, cdt(cfg))
+    out = out.reshape(B, 1, q.shape[2] * hd)
+    if hooks.model_split(p["wo"]) == 0 and not heads_local:
+        out = hooks.tensor_parallel().scatter_to_model(out, -1)
+    y = _proj(out, p["wo"])
     return y, {"k": ck, "v": cv, "pos": pos + 1, "slot_pos": slot_pos}
+
+
+def _seq_parallel_scores_to_out(q, k, v, mask, compute_dtype):
+    """`_gqa_scores_to_out` over slots split over "model": q (B,S,H,hd) on
+    every head, k/v (B,T,KV,hd) and the mask this rank's slots.  Each rank
+    scores its slots; the max is taken over "model", each rank's exps of
+    its scores less that max and its partial sum of p v are summed over
+    "model" (one all-reduce, in float32), and the sum is divided once.  No
+    rank normalises alone: a rank whose slots are all masked adds zeros.
+    The sums run in another order than the whole softmax's, and p v is not
+    rounded to the compute dtype before its sum (the whole one rounds the
+    probabilities)."""
+    tp = hooks.tensor_parallel()
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          k.to(qg.dtype).float()) / math.sqrt(hd)
+    scores = scores.masked_fill(~mask, -1e30)
+    mx = tp.max_over_model(scores.amax(dim=-1, keepdim=True))
+    probs = torch.exp(scores - mx)
+    num = torch.einsum("bkgst,btkh->bskgh", probs,
+                       v.to(compute_dtype).float())
+    den = probs.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+    both = tp.reduce_from_model(torch.cat([num, den], dim=-1))
+    out = both[..., :hd] / both[..., hd:]
+    return out.to(compute_dtype).reshape(B, S, H, hd)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -39,7 +39,10 @@ gradients; the leaves that `moe.py`, `ssm.py` and the vision
 cross-attention read directly (`_WHOLE`) are gathered over "model" too.
 The embedding, the final norm and the head are gathered where the forward
 reads them, `_moe_aux`'s embedding and router where it reads them, and the
-loss is vocab-parallel over the logits' vocab blocks.
+loss is vocab-parallel over the logits' vocab blocks.  The sharded prefill
+and decode step (`models/train.py` `make_prefill`, `make_decode_step`)
+run the same forward on this rank's rows of the batch and hold the caches
+as blocks (`Model.cache_shardings`).
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.estimator import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed.collectives import local_slice, mark, split_dims
+from repro_torch.distributed.sharding import batch_rows, tree_shardings
+from repro_torch.tree import tree_map
 
 from . import hooks, ssm
 from .layers import (
@@ -94,6 +100,9 @@ def _stack(trees: list):
 #: are not ported)
 _WHOLE = {"moe": ("ffn",), "cross": ("attn",), "rwkv": ("tm", "cm"),
           "mamba": ("mixer",)}
+#: the slots whose caches that whole compute reads and writes: whole on
+#: "model" on a mesh, their rows on the FSDP axes (`Model.cache_shardings`)
+_WHOLE_CACHES = ("cross", "rwkv", "mamba")
 
 
 def _gathered(params, shardings, slot: str | None = None,
@@ -308,9 +317,11 @@ class Model:
         return params, axes
 
     def init_caches(self, batch: int, max_len: int, mode: str = "decode",
-                    device=None):
+                    device=None, shardings=None):
         """Zero caches stacked over the groups (broadcast views, as the
-        reference's `broadcast_to`; nothing here writes into a cache)."""
+        reference's `broadcast_to`; nothing here writes into a cache).
+        With `shardings` (`cache_shardings` for the same batch and
+        max_len), this rank's blocks of them (views)."""
         device = resolve_device(device)
         cfg = self.cfg
         pattern, n_groups = block_pattern(cfg)
@@ -326,6 +337,8 @@ class Model:
                 "attn", cfg, batch, min(max_len, cfg.attn_window or max_len),
                 device)
             out["shared_attn"] = stack(shared)
+        if shardings is not None:
+            out = tree_map(lambda s, x: s.local_view(x), shardings, out)
         return out
 
     def cache_axes(self):
@@ -336,11 +349,33 @@ class Model:
             out["shared_attn"] = _prepend_layers(_slot_cache_axes("attn"))
         return out
 
+    def cache_shardings(self, mesh, batch: int, max_len: int):
+        """The caches' `NamedSharding` tree on `mesh` for `batch` rows and
+        `max_len` slots (`init_caches`' shapes): the reference's rules over
+        `cache_axes()` (a KV cache's rows on the FSDP axes and its heads
+        on "model", else its slots: "kv_heads", then "kv_seq", each only
+        where it divides), except that the caches of the slots whose
+        compute `_WHOLE` keeps whole (the vision cross-attention's K/V,
+        the RWKV6 and Mamba2 states) are whole on "model", their rows on
+        the FSDP axes.  Only `mesh.axis_names` and `mesh.shape` are
+        read."""
+        pattern, _ = block_pattern(self.cfg)
+        axes = self.cache_axes()
+        axes["slots"] = [_rows_only(a) if s in _WHOLE_CACHES else a
+                         for s, a in zip(pattern, axes["slots"])]
+        specs = self.init_caches(batch, max_len, device="meta")
+        return tree_shardings(mesh, axes, specs)
+
     # ---- forward over the stack ----
     def _stack_forward(self, params, x, *, positions, vision_embeds,
-                       caches, mode):
+                       caches, mode, cache_shardings=None, to_cache=None):
         """Loop over groups. Returns (x, new_caches); new_caches is None in
-        train mode (per-layer KV and states are not stacked there)."""
+        train mode (per-layer KV and states are not stacked there).
+        `to_cache(key, kv)` turns a group's prefill output of slot `key`
+        (its index, or "shared_attn") into its cache before the groups are
+        stacked.  Under the tensor-parallel context a decode step's KV
+        cache blocks are marked with their "model" layout from
+        `cache_shardings` (`layers.decode_attention` reads it)."""
         cfg, run = self.cfg, self.run
         pattern, n_groups = block_pattern(cfg)
         window = cfg.attn_window or 0
@@ -351,12 +386,22 @@ class Model:
         tp = hooks.tensor_parallel()
         sh = tp.shardings if tp is not None else {
             "slots": [None] * len(pattern), "shared_attn": None}
+        csh = cache_shardings if tp is not None and mode == "decode" \
+            else None
+
+        def marked(c, s):
+            if csh is None or c is None or "slot_pos" not in c:
+                return c
+            for key in ("k", "v"):
+                _, mdim = split_dims(s[key], c[key].ndim + 1, tp.fsdp_axes)
+                mark(c[key], None if mdim is None else mdim - 1)
+            return c
 
         def group(g, x):
             def take(t):
                 return _map(lambda a: a[g], t)
             x = hooks.constrain(x, "residual")
-            sc = take(shared_caches)
+            sc = marked(take(shared_caches), csh and csh.get("shared_attn"))
             if cfg.family == "hybrid":
                 x, sc = _apply_block(
                     "attn", _gathered(shared_p, sh["shared_attn"]), cfg, x,
@@ -365,11 +410,13 @@ class Model:
             group_caches = []
             slots = [_gathered(p, s, slot, layers=True) for slot, p, s in
                      zip(pattern, take(params["slots"]), sh["slots"])]
-            for slot, p, c in zip(pattern, slots, take(slot_caches)):
+            slot_sh = csh["slots"] if csh else [None] * len(pattern)
+            for slot, p, c, s in zip(pattern, slots, take(slot_caches),
+                                     slot_sh):
                 x, nc = _apply_block(
                     slot, p, cfg, x, positions=positions,
-                    vision_embeds=vision_embeds, cache=c, mode=mode,
-                    run=run)
+                    vision_embeds=vision_embeds, cache=marked(c, s),
+                    mode=mode, run=run)
                 group_caches.append(nc)
             return x, group_caches, sc
 
@@ -386,6 +433,11 @@ class Model:
                 continue
             x, group_caches, sc = group(g, x)
             if mode != "train":
+                if to_cache is not None:
+                    group_caches = [to_cache(i, c)
+                                    for i, c in enumerate(group_caches)]
+                    if sc is not None:
+                        sc = to_cache("shared_attn", sc)
                 new_slots.append(group_caches)
                 new_shared.append(sc)
         if mode == "train":
@@ -397,7 +449,8 @@ class Model:
 
     # ---- entry points ----
     def forward(self, params, tokens, *, vision_embeds=None, caches=None,
-                mode="train", positions=None):
+                mode="train", positions=None, cache_shardings=None,
+                to_cache=None):
         cfg = self.cfg
         embed = self._outer(params, ("embed",))["embed"]
         if self.run.embed_onehot:
@@ -413,7 +466,8 @@ class Model:
                                      device=tokens.device)
         x, new_caches = self._stack_forward(
             params, x, positions=positions, vision_embeds=vision_embeds,
-            caches=caches, mode=mode)
+            caches=caches, mode=mode, cache_shardings=cache_shardings,
+            to_cache=to_cache)
         outer = self._outer(params, ("final_ln", "head"))
         x = rmsnorm(outer["final_ln"], x, cfg.norm_eps)
         logits = lm_logits(outer["head"], cfg, x)
@@ -480,84 +534,129 @@ class Model:
 
     def prefill(self, params, batch, max_len: int | None = None):
         """Returns (last-token logits, decode-ready caches).  `max_len`
-        reserves decode headroom in the KV caches (default: none)."""
+        reserves decode headroom in the KV caches (default: none).
+
+        Under the tensor-parallel context (`models/train.py`
+        `make_prefill`) `params` are this rank's blocks and `batch` the
+        global batch: it computes this rank's rows (`batch_rows`) and
+        returns their last-token logits over the whole vocab and its
+        blocks of the caches (`self.cache_shardings` of the batch and
+        `max_len`).  Each group's K and V are cut to their block as the
+        group finishes."""
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[1]
         max_len = max_len or S
-        caches = self.init_caches(B, max_len, mode="prefill",
-                                  device=tokens.device)
-        logits, kv = self.forward(
+        tp = hooks.tensor_parallel()
+        sh = None
+        if tp is not None:
+            sh = self.cache_shardings(tp.mesh, B, max_len)
+            batch = batch_rows(tp.mesh, batch)
+            tokens = batch["tokens"]
+        fresh = self.init_caches(B, max_len, mode="prefill",
+                                 device=tokens.device, shardings=sh)
+        pattern, _ = block_pattern(self.cfg)
+
+        def to_cache(key, kv):
+            if key == "shared_attn":
+                f, s = fresh[key], sh and sh[key]
+                return self._prefill_cache("attn", kv, f, s, S, ring=True)
+            return self._prefill_cache(pattern[key], kv, fresh["slots"][key],
+                                       sh and sh["slots"][key], S)
+
+        logits, caches = self.forward(
             params, tokens, vision_embeds=batch.get("vision_embeds"),
-            caches=caches, mode="prefill")
-        caches = self._kv_to_caches(kv, caches, S, max_len, tokens.device)
-        return logits[:, -1:], caches
+            caches=fresh, mode="prefill", to_cache=to_cache)
+        return _last_logits(logits), caches
 
-    def _kv_to_caches(self, kv, fresh, S, max_len, dev):
-        pattern, n_groups = block_pattern(self.cfg)
+    def _prefill_cache(self, slot, kv, fresh, sh, S: int, ring=False):
+        """One group's prefill output of `slot` as its decode cache
+        (`fresh`: the group's zero cache, whose dtypes and slots it takes):
+        K and V in the cache's dtype, padded to its slots (with `ring`, the
+        last of S tokens that fit, laid out to keep decode_attention's ring
+        invariant slot == position % slots), their slot positions and
+        `pos` = S; on a mesh (`sh`, the slot's cache shardings) cut to this
+        rank's block.  The SSM states pass through."""
+        if slot == "cross":
+            return {k: kv[k].to(fresh[k].dtype) for k in ("k", "v")}
+        if slot not in ("attn", "moe"):
+            return kv
+        dev = kv["k"].device
+        size = fresh["slot_pos"].shape[-1]
+        if ring and size < S:
+            p_list = torch.arange(S - size, S, dtype=torch.int32, device=dev)
+            order = torch.argsort(p_list % size)
+            out = {k: kv[k][:, -size:][:, order].to(fresh[k].dtype)
+                   for k in ("k", "v")}
+            slot_pos = p_list[order]
+        else:
+            out = {k: _pad_seq(kv[k].to(fresh[k].dtype), size)
+                   for k in ("k", "v")}
+            slot_pos = torch.cat([
+                torch.arange(S, dtype=torch.int32, device=dev),
+                torch.full((size - S,), -1, dtype=torch.int32, device=dev)])
+        if sh is not None:
+            out = {k: self._cache_block(t, sh[k]) for k, t in out.items()}
+        return {**out, "pos": torch.full((), S, dtype=torch.int32,
+                                          device=dev),
+                "slot_pos": slot_pos}
 
-        def pad_seq(x, target):
-            if x.shape[2] >= target:
-                return x
-            return torch.nn.functional.pad(
-                x, (0, 0) * (x.ndim - 3) + (0, target - x.shape[2]))
+    @staticmethod
+    def _cache_block(t, sh):
+        """A group's K or V, (rows, slots, heads, head_dim) of this rank's
+        rows, as its block of a cache laid out by `sh` (the stacked leaf's
+        sharding): this rank's slots where the slots are split over
+        "model" ("kv_seq"); else as it is, on this rank's heads
+        ("kv_heads": `layers.attention` computes those alone) or whole."""
+        tp = hooks.tensor_parallel()
+        _, mdim = split_dims(sh, t.ndim + 1, tp.fsdp_axes)
+        return local_slice(t, 1, tp.model) if mdim == 2 else t
 
-        def positions(n, size):
-            """Slot positions 0..n-1, then -1 (empty) up to size."""
-            return torch.cat([
-                torch.arange(n, dtype=torch.int32, device=dev),
-                torch.full((size - n,), -1, dtype=torch.int32, device=dev),
-            ])[None].expand(n_groups, size)
-
-        def pos_at_s():
-            return torch.full((n_groups,), S, dtype=torch.int32, device=dev)
-
-        out_slots = []
-        for i, slot in enumerate(pattern):
-            got = kv["slots"][i]
-            base = fresh["slots"][i]
-            if slot in ("attn", "moe"):
-                out_slots.append({
-                    "k": pad_seq(got["k"].to(base["k"].dtype), max_len),
-                    "v": pad_seq(got["v"].to(base["v"].dtype), max_len),
-                    "pos": pos_at_s(),
-                    "slot_pos": positions(S, max_len),
-                })
-            elif slot == "cross":
-                out_slots.append({"k": got["k"].to(base["k"].dtype),
-                                  "v": got["v"].to(base["v"].dtype)})
-            else:  # ssm states pass through
-                out_slots.append(got)
-        out = {"slots": out_slots}
-        if "shared_attn" in fresh:
-            got = kv["shared_attn"]
-            W = fresh["shared_attn"]["k"].shape[2]  # ring size (window)
-            if W < S:
-                # keep the last W tokens, laid out to preserve the ring
-                # invariant slot == position % W used by decode_attention
-                p_list = torch.arange(S - W, S, dtype=torch.int32, device=dev)
-                order = torch.argsort(p_list % W)
-                k_ring = got["k"][:, :, -W:][:, :, order]
-                v_ring = got["v"][:, :, -W:][:, :, order]
-                slot_pos = p_list[order][None].expand(n_groups, W)
-            else:
-                k_ring = pad_seq(got["k"], W)
-                v_ring = pad_seq(got["v"], W)
-                slot_pos = positions(S, W)
-            out["shared_attn"] = {
-                "k": k_ring.to(torch.bfloat16),
-                "v": v_ring.to(torch.bfloat16),
-                "pos": pos_at_s(),
-                "slot_pos": slot_pos,
-            }
-        return out
-
-    def decode_step(self, params, caches, tokens):
+    def decode_step(self, params, caches, tokens, cache_shardings=None):
         """tokens (B, 1[, n_cb]) -> (logits (B,1[,n_cb],V), new caches).
-        The position comes from the caches; `positions` is a dummy."""
-        return self.forward(
+        The position comes from the caches; `positions` is a dummy.
+
+        Under the tensor-parallel context (`models/train.py`
+        `make_decode_step`) `params` and `caches` are this rank's blocks,
+        the caches laid out by `cache_shardings`, and `tokens` the global
+        batch's: it returns this rank's rows' logits over the whole vocab
+        and its blocks of the new caches."""
+        tp = hooks.tensor_parallel()
+        if tp is not None:
+            if cache_shardings is None:
+                raise ValueError("a decode step on a mesh needs the caches' "
+                                 "shardings (Model.cache_shardings)")
+            tokens = batch_rows(tp.mesh, {"tokens": tokens})["tokens"]
+        logits, caches = self.forward(
             params, tokens, caches=caches, mode="decode",
             positions=torch.zeros((1,), dtype=torch.int32,
-                                  device=tokens.device))
+                                  device=tokens.device),
+            cache_shardings=cache_shardings)
+        return _last_logits(logits), caches
+
+
+def _pad_seq(x, target: int):
+    """(B, S, ...) zero-padded to `target` slots on dim 1."""
+    if x.shape[1] >= target:
+        return x
+    return torch.nn.functional.pad(
+        x, (0, 0) * (x.ndim - 2) + (0, target - x.shape[1]))
+
+
+def _last_logits(logits):
+    """The last position's logits; a vocab-parallel head's gathered over
+    "model" to the whole vocab after the slice."""
+    split = hooks.model_split(logits) is not None
+    last = logits[:, -1:]
+    return hooks.tensor_parallel().gather_from_model(last, -1) if split \
+        else last
+
+
+def _rows_only(axes):
+    """A cache axes tree whose leaves keep their rows ("batch", dim 1 after
+    "layers") and nothing on "model"."""
+    if isinstance(axes, dict):
+        return {k: _rows_only(v) for k, v in axes.items()}
+    return ("layers", "batch") + (None,) * (len(axes) - 2)
 
 
 def _vocab_parallel_ce(logits, labels):

@@ -20,7 +20,7 @@ matching the params) the state holds this rank's blocks of params and
 moments, and a step is the reference's GSPMD program, computed eagerly:
 
   1. every rank is handed the same global batch and computes the loss on
-     its rows of each microbatch (`batch_shardings`; ranks that differ only
+     its rows of each microbatch (`batch_rows`; ranks that differ only
      on "model" take the same rows), with the MoE load-balance term over
      the whole microbatch, so that the mean over the FSDP group is the
      microbatch's loss;
@@ -44,6 +44,12 @@ active telemetry tracer (`repro_torch.obs`) a step runs the spans
 ``train/optimizer``; they time the host's issue, and with
 `profiler_annotations` a `torch.profiler` capture attributes the device's
 kernels to them.
+
+Serving on a mesh (`make_prefill` and `make_decode_step` with the
+shardings) is the same program forward only, under `torch.no_grad()`: each
+rank takes its rows of the global batch, gathers a group's blocks as the
+group runs and keeps its blocks of the KV caches, on its kv heads or its
+slice of the slots (`Model.cache_shardings`).
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.collectives import TensorParallel
-from repro_torch.distributed.sharding import batch_shardings
+from repro_torch.distributed.sharding import batch_rows
 from repro_torch.obs import span
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import compress_with_feedback, init_feedback
@@ -98,8 +104,7 @@ def _microbatches(batch: dict, nmb: int) -> list[dict]:
 
 class _Sharded:
     """What a step on a mesh needs of `grad_shardings`: the tensor-parallel
-    context, this rank's rows of a batch, the FSDP mean and the norm over
-    blocks."""
+    context, the FSDP mean and the norm over blocks."""
 
     def __init__(self, grad_shardings):
         self.shardings = leaves(grad_shardings)
@@ -114,10 +119,6 @@ class _Sharded:
     @property
     def n(self) -> int:
         return self.tp.fsdp.size
-
-    def rows(self, batch: dict) -> dict:
-        sh = batch_shardings(self.mesh, batch)
-        return {k: sh[k].local_view(v) for k, v in batch.items()}
 
     def mean(self, tensors) -> None:
         """Each tensor (in place) averaged over the FSDP group."""
@@ -166,7 +167,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     def loss_fn(p, mb):
         if dp is None:
             return model.train_loss(p, mb)
-        loss = model._token_loss(p, dp.rows(mb))
+        loss = model._token_loss(p, batch_rows(dp.mesh, mb))
         if model.cfg.num_experts:
             loss = loss + 0.01 * model._moe_aux(p, mb)
         return loss
@@ -232,13 +233,44 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill(model: Model):
+def _serving(shardings):
+    """The tensor-parallel context of a serving step on the mesh of
+    `shardings` (the params' `NamedSharding` tree), or None without."""
+    if shardings is None:
+        return None
+    return TensorParallel(leaves(shardings)[0].mesh, shardings)
+
+
+def make_prefill(model: Model, shardings=None, max_len: int | None = None):
+    """The prefill `(params, batch) -> (last-token logits, caches)`, with
+    `max_len` slots of KV cache (default: the prompt's).  `shardings`: the
+    params' `NamedSharding` tree on a mesh (the reference's
+    `jax.jit(prefill, in_shardings=...)`): `params` are then this rank's
+    blocks, the step runs forward only under the tensor-parallel context
+    it installs, and it returns this rank's rows and cache blocks
+    (`Model.prefill`)."""
+    tp = _serving(shardings)
+
     def prefill(params, batch):
-        return model.prefill(params, batch)
+        if tp is None:
+            return model.prefill(params, batch, max_len)
+        with torch.no_grad(), hooks.tensor_parallel_scope(tp):
+            return model.prefill(params, batch, max_len)
     return prefill
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, shardings=None, cache_shardings=None):
+    """The decode step `(params, caches, tokens) -> (logits, caches)`.
+    `shardings` and `cache_shardings`: the params' and the caches'
+    `NamedSharding` trees on a mesh (`Model.cache_shardings`): `params`
+    and `caches` are then this rank's blocks, as `make_prefill` returns
+    them, and the step runs as the sharded prefill does."""
+    tp = _serving(shardings)
+
     def decode_step(params, caches, tokens):
-        return model.decode_step(params, caches, tokens)
+        if tp is None:
+            return model.decode_step(params, caches, tokens)
+        with torch.no_grad(), hooks.tensor_parallel_scope(tp):
+            return model.decode_step(params, caches, tokens,
+                                     cache_shardings=cache_shardings)
     return decode_step

@@ -12,7 +12,8 @@ grok-1-314b and rwkv6-7b smoke configs on `meta`:
     their reduce-scatters, the "model" all-reduces a layer, the
     vocab-parallel embedding and loss); the all-gather and the
     reduce-scatter move blocks, never a whole split leaf;
-  * decode: no collective (the port's serving is replicated);
+  * prefill and decode: each kind's bytes are `serve_collective_bytes`',
+    the sharded serving program's, for every family;
   * an embedding cell at the smoke N: MODEL_FLOPS is the reference's
     6 N^2 (d + 4), the all-reduce bytes the layout's (N/R, 2d) block plus
     its two scalars;
@@ -45,6 +46,10 @@ from repro_torch.launch import dryrun
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen2-7b", "grok-1-314b", "rwkv6-7b")
+#: the serving cells' archs: every family, the vision cross-attention and
+#: the audio codebooks too
+SERVE_ARCHS = ARCHS + ("zamba2-2.7b", "llama-3.2-vision-90b",
+                       "musicgen-medium")
 
 _PROG = textwrap.dedent("""
     import contextlib, dataclasses, datetime, io, json, math, os, sys
@@ -83,10 +88,17 @@ _PROG = textwrap.dedent("""
         out[arch, "train"] = dict(
             row(cell.count(), rl.model_flops_for(cfg, shape)),
             want=dryrun.train_collective_bytes(cfg, run, mesh, 16, 16))
-        dshape = ShapeConfig("d", "decode", 16, 8)
-        cell = dryrun._lm_cell(cfg, dshape, dryrun.default_run_config(
-            "decode_32k"), mesh)
-        out[arch, "decode"] = row(cell.count(), rl.model_flops_for(cfg, dshape))
+    for arch in sys.argv[2].split(","):
+        cfg = get_smoke_config(arch)
+        for mode, name in (("decode", "decode_32k"),
+                           ("prefill", "prefill_32k")):
+            run = dryrun.default_run_config(name)
+            shape = ShapeConfig(mode[0], mode, 16, 8)
+            cell = dryrun._lm_cell(cfg, shape, run, mesh)
+            out[arch, mode] = dict(
+                row(cell.count(), rl.model_flops_for(cfg, shape)),
+                want=dryrun.serve_collective_bytes(cfg, run, mesh, 8, 16,
+                                                   mode))
 
     ecfg = get_smoke_config("embedding-coil20")
     cell, mflops = dryrun._embedding_cell(ecfg, mesh)
@@ -120,7 +132,8 @@ _PROG = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def counted():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    proc = subprocess.run([sys.executable, "-c", _PROG, ",".join(ARCHS)],
+    proc = subprocess.run([sys.executable, "-c", _PROG, ",".join(ARCHS),
+                           ",".join(SERVE_ARCHS)],
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -150,10 +163,32 @@ def test_train_cell(counted, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_cell_has_no_collective(counted, arch):
-    r = counted[f"{arch}/decode"]
+    """A decode cell's collectives are the sharded decode step's and
+    nothing else: each kind's bytes are `serve_collective_bytes`' (no
+    reduce-scatter, all-to-all or permute: the step is forward only)."""
+    _serve_cell(counted[f"{arch}/decode"])
+
+
+def _serve_cell(r):
     _finite_row(r)
-    assert r["collective_bytes_per_chip"] == 0
-    assert r["collective_s"] == 0
+    got = r["collectives"]
+    for kind, want in r["want"].items():
+        assert got[kind] == want, kind
+    assert got["all-gather"] > 0 and got["reduce-scatter"] == 0
+    assert got["all-to-all"] == got["collective-permute"] == 0
+    assert r["memory"]["alias_size_in_bytes"] == 0    # nothing in place
+
+
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_cell_collectives(counted, arch, mode):
+    """The sharded prefill and decode cells on the (2, 4) mesh: each
+    collective kind's bytes are `serve_collective_bytes`', from the
+    params' and caches' specs and the loop counts (a group's FSDP gathers,
+    q, k and v gathered where their heads do not divide, the row-parallel
+    all-reduces, the vocab-parallel embedding and the head's last
+    position, a decode step's softmax combined over the split slots)."""
+    _serve_cell(counted[f"{arch}/{mode}"])
 
 
 def test_embedding_cell(counted):

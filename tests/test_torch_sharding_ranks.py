@@ -1,9 +1,10 @@
 """Rank side of tests/test_torch_sharding.py,
-tests/test_torch_distributed_embed.py, tests/test_torch_lm_sharding.py and
-tests/test_torch_lm_tensor_parallel.py: the port's mesh backends (the
-row-sharded sparse one and the 2-D-sharded dense one), its meshes, the
-LM's sharded train step and its collectives run inside a gloo process
-group on the CPU.  It holds no tests itself.
+tests/test_torch_distributed_embed.py, tests/test_torch_lm_sharding.py,
+tests/test_torch_lm_tensor_parallel.py and tests/test_torch_lm_serve_mesh.py:
+the port's mesh backends (the row-sharded sparse one and the 2-D-sharded
+dense one), its meshes, the LM's sharded train step, its collectives and
+its sharded prefill and decode run inside a gloo process group on the CPU.
+It holds no tests itself.
 
 Spawned by `spawn_ranks`, one process per rank; it imports only torch and
 repro_torch (JAX's side is computed in the test process and handed over as
@@ -418,6 +419,8 @@ def _lm_mesh_state(arch, compute, run, state, cfg_kw):
     if cfg.num_experts:        # tests/test_torch_lm_models.py's smoke()
         cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     model = build_model(cfg, RunConfig(**run))
+    if state is None:
+        return model, None, None
     _, axes = init_train_state(model, 0, device="meta")
     # copies: the step writes into the blocks, and a whole block is the
     # tensor itself, which may share the numpy array's memory
@@ -455,6 +458,54 @@ def job_lm_mesh_steps(runs, opt):
             # next step writes into
             rec["states"].append(tree_map(lambda s, x: s.gather(x).clone(),
                                           sh, st))
+        out[name] = rec
+    return out
+
+
+def job_lm_serve_mesh(runs):
+    """For each run ({name: (arch, config overrides, compute, mesh shape,
+    JAX's params, the prompt batch, max_len, [(JAX's caches before a
+    decode step, its tokens)])}): the sharded prefill from JAX's params
+    cut into blocks, then each decode step from JAX's caches cut into
+    blocks.  Returns, for the prefill and each step, the logits of every
+    row (gathered over the FSDP axes) and the caches gathered from the
+    blocks, and the spec of the first KV cache's k (without one, of the
+    first cache leaf)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  tree_shardings)
+    from repro_torch.models import (make_decode_step, make_prefill,
+                                    params_specs)
+    from repro_torch.tree import leaves, tree_map
+
+    out = {}
+    for name, (arch, cfg_kw, compute, shape, params, batch, max_len,
+               steps) in runs.items():
+        model, _, _ = _lm_mesh_state(arch, compute, dict(remat="none"),
+                                     None, cfg_kw)
+        mesh = Mesh(shape)
+        whole = convert.lm_tree_from_numpy(params, "cpu")
+        sh = tree_shardings(mesh, params_specs(model)[1], whole)
+        blocks = tree_map(lambda s, x: s.shard(x), sh, whole)
+        batch = convert.lm_tree_from_numpy(batch, "cpu")
+        B = batch["tokens"].shape[0]
+        csh = model.cache_shardings(mesh, B, max_len)
+        rows = batch_shardings(mesh, {"t": batch["tokens"]})["t"]
+        kv = next((c["k"] for c in csh["slots"] + [csh.get("shared_attn")]
+                   if c is not None and "slot_pos" in c), leaves(csh)[0])
+
+        def record(logits, caches):
+            return (rows.gather(logits),
+                    tree_map(lambda s, x: s.gather(x), csh, caches))
+
+        rec = {"spec": kv.spec, "steps": [record(*make_prefill(
+            model, sh, max_len)(blocks, batch))]}
+        decode = make_decode_step(model, sh, csh)
+        for caches, tokens in steps:
+            caches = tree_map(lambda s, x: s.shard(x), csh,
+                              convert.lm_tree_from_numpy(caches, "cpu"))
+            rec["steps"].append(record(*decode(
+                blocks, caches, convert.lm_tree_from_numpy(tokens, "cpu"))))
         out[name] = rec
     return out
 
@@ -569,4 +620,5 @@ JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "dense_eg": job_dense_eg, "block_jacobi": job_block_jacobi,
         "dense_mesh_fits": job_dense_mesh_fits,
         "dense_mesh_api": job_dense_mesh_api, "lm_train": job_lm_train,
-        "lm_mesh_steps": job_lm_mesh_steps, "collectives": job_collectives}
+        "lm_mesh_steps": job_lm_mesh_steps, "collectives": job_collectives,
+        "lm_serve_mesh": job_lm_serve_mesh}
