@@ -5112,6 +5112,14 @@ LM_MESH_BF16_LR = 2.01
 LM_MESH_LAYOUTS = {"4 heads": {},
                    "6 heads": {"num_heads": 6, "num_kv_heads": 2,
                                "head_dim": 16}}
+# the MoE and vision smokes on (2, 2), float32 compute, LM_MESH_STEPS
+# sharded steps against the one-rank step that each rank computes itself,
+# at the float32 bounds: llama4-smoke (4 of 8 experts a rank, the shared
+# expert's hidden units, the router split over "model") and the vision
+# smoke (the cross-attention on this rank's heads; its vision embeddings
+# cast to float32, as tests/test_torch_lm_expert_parallel.py does: at bf16
+# each rank's partial K/V weight gradient rounds before the FSDP sum)
+LM_MESH_SMOKES = ("llama4-maverick-400b-a17b", "llama-3.2-vision-90b")
 LM_MESH_DIR = ROOT / "build" / "chip_smoke_lm_mesh"   # git-ignored
 LM_MESH_WAIT_S = 600     # a rank or the reference waiting on the other side
 
@@ -5229,6 +5237,8 @@ def _lm_mesh_rank(rank: int, world: int, store: str, shape: dict, ref: list,
                 torch.cuda.empty_cache()
         if shape == {"data": 1, "model": 4}:
             out["layouts"] = _lm_mesh_layouts(mesh, run)
+        if shape == {"data": 2, "model": 2}:
+            out["smokes"] = _lm_mesh_smokes(mesh, run)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -5288,6 +5298,69 @@ def _lm_mesh_layouts(mesh, run) -> dict:
     finally:
         hooks.set_activation_constraint(None)
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    return out
+
+
+def _lm_mesh_smokes(mesh, run) -> dict:
+    """LM_MESH_SMOKES at float32 compute on `mesh`: from
+    `init_train_state(0)`, the one-rank step and the sharded step on its
+    blocks, LM_MESH_STEPS steps on the same batches; after each step the
+    blocks against their slices of the one rank's state, the largest gaps
+    and scales reduced over the ranks.  Returns {arch: {"losses", "norms",
+    "one_losses", "one_norms", "lrs", "gaps", "paths"}}."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.sharding import make_activation_constraint
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import (build_model, hooks, init_train_state,
+                                    make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for arch in LM_MESH_SMOKES:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        model = build_model(cfg, run)
+        ref, axes = init_train_state(model, 0, device=LM_DEVICE)
+        sh = state_shardings(mesh, axes, ref)
+        # copies: the steps write into their states' tensors
+        state = tree_map(lambda s, x: s.shard(x).clone(), sh, ref)
+        one = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))
+        step = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT),
+                               grad_shardings=sh["params"])
+        floats = _lm_mesh_floats(sh)
+        rec = {"losses": [], "norms": [], "one_losses": [], "one_norms": [],
+               "lrs": [], "gaps": [], "paths": [p for p, _ in floats]}
+        for k in range(LM_MESH_STEPS):
+            batch = batch_for(cfg, ShapeConfig(
+                "t", "train", LM_TRAIN_SMOKE["seq"], LM_TRAIN_SMOKE["batch"]),
+                step=k, device=LM_DEVICE)
+            if "vision_embeds" in batch:
+                batch["vision_embeds"] = batch["vision_embeds"].float()
+            ref, met = one(ref, batch)
+            rec["one_losses"].append(float(met["loss"]))
+            rec["one_norms"].append(float(met["grad_norm"]))
+            rec["lrs"].append(float(met["lr"]))
+            hooks.set_activation_constraint(
+                make_activation_constraint(mesh, run))
+            try:
+                state, met = step(state, batch)
+            finally:
+                hooks.set_activation_constraint(None)
+            rec["losses"].append(float(met["loss"]))
+            rec["norms"].append(float(met["grad_norm"]))
+            mine = [t for _, t in _lm_mesh_floats(state)]
+            whole = [t for _, t in _lm_mesh_floats(ref)]
+            gaps = torch.stack([
+                torch.stack([(b - s.local_view(r)).abs().max(),
+                             s.local_view(r).abs().max()])
+                for b, (_, s), r in zip(mine, floats, whole)]).float()
+            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+            rec["gaps"].append(gaps.cpu())
+        out[arch] = rec
+        del ref, state, one, step
     return out
 
 
@@ -5499,6 +5572,34 @@ def _lm_mesh_run(shape: dict, card: str) -> list:
             f"{[round(g['step_peak'] / 1e9, 2) for g in got]} GB in the "
             f"steps, {[round(g['init_peak'] / 1e9, 2) for g in got]} GB "
             f"while cutting the whole params into blocks")
+    for arch in ranks[0].get("smokes", {}):
+        got = [r["smokes"][arch] for r in ranks]
+        want = got[0]
+        if any(g["losses"] != want["losses"] or g["norms"] != want["norms"]
+               for g in got):
+            raise AssertionError(f"lm_train_mesh {tag} {arch} smoke: the "
+                                 f"ranks' losses or norms differ")
+        worst = []
+        for k in range(LM_MESH_STEPS):
+            for name, a, b in (("loss", want["one_losses"][k],
+                                want["losses"][k]),
+                               ("grad_norm", want["one_norms"][k],
+                                want["norms"][k])):
+                if not abs(a - b) <= LM_TRAIN_TOL_SCALAR * abs(a):
+                    raise AssertionError(f"lm_train_mesh {tag} {arch} smoke"
+                                         f" step {k + 1}: {name} {b} vs {a}")
+            worst.append(_lm_mesh_held(
+                f"{tag} {arch} smoke step {k + 1}", want["paths"],
+                want["gaps"][k], sum(want["lrs"][:k + 1]), True))
+        lines.append(f"{tag} {arch} smoke float32 on {card}: "
+                     f"{LM_MESH_STEPS} sharded steps held at phase lm_train"
+                     f" bounds against the one-rank step (a param also "
+                     f"within {LM_MESH_LR_FRACTION} of the summed learning "
+                     f"rates), largest leaf gap "
+                     f"{max(w[0] for w in worst):.2e} of its scale, a param"
+                     f" {max(w[2] for w in worst):.3f} of the rates; losses "
+                     f"{want['losses']} bit-identical on the {world} ranks "
+                     f"(one rank {want['one_losses']})")
     for key in ranks[0].get("layouts", {}):
         recs = [r["layouts"][key] for r in ranks]
         if not all(same and not ops for same, ops, _ in recs) or len(
@@ -5579,6 +5680,28 @@ LM_SERVE_MESH_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # on the last rank, overwritten), twice from the same blocks
 LM_SERVE_KVSEQ = {"prompt": 10, "max_len": 16, "steps": 12}
 LM_SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_lm_serve_mesh"  # ignored
+# the MoE and vision smokes at float32 compute, each rank against the
+# one-rank prefill and teacher-forced decode steps that it computes itself
+# (each step from the one rank's caches), at LM_SERVE_MESH_TOL's float32
+# bound, the caches within one bf16 ulp: (name, arch, config overrides,
+# meshes).  llama4-smoke: 4 of 8 experts a rank and the shared expert's
+# hidden units, the router split over "model"; grok-smoke with 2 experts on
+# (1, 4): every expert's block of hidden units; the vision smoke: the
+# cross-attention on this rank's heads (its cache on "kv_heads" on (2, 2),
+# whole on (1, 4)); the pooled decode routing: grok-smoke with every
+# token routed to expert 0 (`_lm_route_to_expert_0`), 4 rows over the FSDP
+# axis, so that a decode step drops a token only as the global pool does
+LM_SERVE_MESH_SMOKES = (
+    ("llama4-smoke", "llama4-maverick-400b-a17b", {}, ("2x2",)),
+    ("grok-smoke 2 experts", "grok-1-314b", {"num_experts": 2}, ("1x4",)),
+    ("vision-smoke", "llama-3.2-vision-90b", {}, ("2x2", "1x4")),
+    ("grok-smoke pooled routing", "grok-1-314b", {}, ("2x2",)))
+LM_SERVE_MESH_SMOKE = {"batch": 4, "prompt": 10, "steps": 4, "max_len": 16}
+# grok-1 at full width on (1, 4), 1 of 64 layers, the reference's capacity
+# factor 1.25 (8 experts divide over 4: 2 a rank): 26.2 GB of f32 params,
+# which the ranks draw whole on the card in turn (four whole draws at once
+# do not fit beside each other) and cut into blocks; float32 compute
+LM_SERVE_MESH_GROK_STEPS = 4
 
 
 def _lm_serve_mesh_cfg(compute: str):
@@ -5592,6 +5715,32 @@ def _lm_serve_mesh_cfg(compute: str):
     return dataclasses.replace(cfg, compute_dtype=compute)
 
 
+def _lm_one_rank_calls(model, params, full, T: int, n: int,
+                       max_len: int) -> tuple:
+    """The one-rank prefill of `full`'s first T tokens into `max_len`
+    slots and n teacher-forced decode steps, each from the last one's
+    caches: ([(logits, caches)] on the CPU, the ms of each call)."""
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    outs, times = [], []
+    with torch.no_grad():
+        for i in range(n + 1):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                logits, caches = model.prefill(
+                    params, {**full, "tokens": full["tokens"][:, :T]},
+                    max_len=max_len)
+            else:
+                logits, caches = model.decode_step(
+                    params, caches, full["tokens"][:, T + i - 1][:, None])
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append((logits.cpu(), _lm_to(caches, "cpu")))
+    return outs, times
+
+
 def _lm_serve_mesh_reference(path: Path) -> dict:
     """The one-rank prefill and LM_SERVE_MESH_STEPS' most teacher-forced
     decode steps (each from the last one's caches) on the card at each
@@ -5601,7 +5750,7 @@ def _lm_serve_mesh_reference(path: Path) -> dict:
     from repro_torch.configs import RunConfig
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import batch_for
-    from repro_torch.models import build_model, make_decode_step
+    from repro_torch.models import build_model
 
     cuda = torch.device(LM_DEVICE).type == "cuda"
     n = max(LM_SERVE_MESH_STEPS.values())
@@ -5616,32 +5765,47 @@ def _lm_serve_mesh_reference(path: Path) -> dict:
         full = batch_for(cfg, ShapeConfig("p", "prefill", T + n,
                                           LM_SERVE_MESH_BATCH),
                          device=LM_DEVICE)
-        head = {**full, "tokens": full["tokens"][:, :T]}
-        decode = make_decode_step(model)
-        times = []
-        with torch.no_grad():
-            for i in range(n + 1):
-                if cuda:
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if i == 0:
-                    logits, caches = model.prefill(params, head,
-                                                   max_len=T + n)
-                    outs = []
-                else:
-                    logits, caches = decode(
-                        params, caches, full["tokens"][:, T + i - 1][:, None])
-                if cuda:
-                    torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                outs.append((logits.cpu(), _lm_to(caches, "cpu")))
+        outs, ms[compute] = _lm_one_rank_calls(model, params, full, T, n,
+                                               T + n)
         ref[compute] = {"batch": _lm_to(full, "cpu"), "outs": outs}
-        ms[compute] = times
     del params
     if cuda:
         torch.cuda.empty_cache()
+    ref["grok"], ms["grok"] = _lm_serve_mesh_grok_reference()
     torch.save(ref, path)
     return ms
+
+
+def _lm_serve_mesh_grok_cfg():
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config("grok-1-314b") if LM_DEVICE == "cpu"
+           else dataclasses.replace(get_config("grok-1-314b"), num_layers=1))
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               capacity_factor=1.25)
+
+
+def _lm_serve_mesh_grok_reference() -> tuple:
+    """The one-rank prefill and LM_SERVE_MESH_GROK_STEPS teacher-forced
+    decode steps of grok-1 (`_lm_serve_mesh_grok_cfg`) from
+    `init_params(0)`, on the CPU: ({"batch", "outs"}, the ms of each
+    call)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import build_model
+
+    cfg = _lm_serve_mesh_grok_cfg()
+    model = build_model(cfg, RunConfig(remat="none"))
+    params, _ = model.init_params(0, device=LM_DEVICE)
+    T, n = LM_SERVE_MESH_PROMPT, LM_SERVE_MESH_GROK_STEPS
+    full = batch_for(cfg, ShapeConfig("p", "prefill", T + n,
+                                      LM_SERVE_MESH_BATCH), device=LM_DEVICE)
+    outs, times = _lm_one_rank_calls(model, params, full, T, n, T + n)
+    del params
+    if torch.device(LM_DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"batch": _lm_to(full, "cpu"), "outs": outs}, times
 
 
 def _lm_serve_mesh_rank(rank: int, world: int, store: str, ref_path: str,
@@ -5652,14 +5816,15 @@ def _lm_serve_mesh_rank(rank: int, world: int, store: str, ref_path: str,
     steps, each from the reference's caches cut into blocks and the next
     token; every call timed, its logits (every row, gathered over the FSDP
     axes) and caches (gathered) against the reference's, and rank 0's
-    gathered logits broadcast to hold the others' bit for bit.  On (1, 4)
-    also the "kv_seq" smoke (`_lm_serve_kvseq`)."""
+    gathered logits broadcast to hold the others' bit for bit
+    (`_lm_serve_mesh_calls`).  On (1, 4) also the "kv_seq" smoke
+    (`_lm_serve_kvseq`) and grok-1 (`_lm_serve_mesh_grok`); on each mesh
+    the MoE and vision smokes (`_lm_serve_mesh_smokes`)."""
     global LM_DEVICE
     from repro_torch.configs import RunConfig
-    from repro_torch.distributed.sharding import (batch_shardings,
-                                                  tree_shardings)
+    from repro_torch.distributed.sharding import tree_shardings
     from repro_torch.launch import Mesh
-    from repro_torch.models import build_model, make_decode_step, make_prefill
+    from repro_torch.models import build_model
     from repro_torch.tree import tree_map
 
     LM_DEVICE = device
@@ -5670,11 +5835,6 @@ def _lm_serve_mesh_rank(rank: int, world: int, store: str, ref_path: str,
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=LM_MESH_WAIT_S))
-
-    def wait():
-        if cuda:
-            torch.cuda.synchronize()
-
     out = {}
     try:
         ref = torch.load(ref_path, weights_only=False)
@@ -5696,53 +5856,171 @@ def _lm_serve_mesh_rank(rank: int, world: int, store: str, ref_path: str,
                 if cuda:
                     torch.cuda.empty_cache()
                     torch.cuda.reset_peak_memory_stats()
-                full = _lm_to(ref[compute]["batch"], LM_DEVICE)
-                head = {**full, "tokens": full["tokens"][:, :T]}
-                B = full["tokens"].shape[0]
                 max_len = T + max(LM_SERVE_MESH_STEPS.values())
-                csh = model.cache_shardings(mesh, B, max_len)
-                rows = batch_shardings(mesh, {"t": head["tokens"]})["t"]
-                prefill = make_prefill(model, sh, max_len)
-                decode = make_decode_step(model, sh, csh)
-                rec = {"ms": [], "gaps": [], "cache_gaps": [], "same": True,
-                       "spec": tuple(csh["slots"][0]["k"].spec)}
-                for i in range(n + 1):
-                    if i:
-                        caches = tree_map(
-                            lambda s, x: s.shard(x).to(LM_DEVICE), csh,
-                            ref[compute]["outs"][i - 1][1])
-                        tok = full["tokens"][:, T + i - 1][:, None]
-                    wait()
-                    t0 = time.perf_counter()
-                    if i == 0:
-                        logits, caches = prefill(params, head)
-                    else:
-                        logits, caches = decode(params, caches, tok)
-                    wait()
-                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
-                    logits = rows.gather(logits.cpu())
-                    caches = tree_map(lambda s, x: s.gather(x.cpu()), csh,
-                                      caches)
-                    want, want_c = ref[compute]["outs"][i]
-                    rec["gaps"].append(_lm_rel(want, logits))
-                    rec["cache_gaps"].append(_lm_held(
-                        f" {tag} {compute} call {i}", want_c, caches)
-                        if compute == "float32" else _lm_cache_gap(
-                            f"{tag} {compute} call {i}", want_c, caches))
-                    first = logits.clone()
-                    dist.broadcast(first, 0)
-                    rec["same"] &= torch.equal(first, logits)
-                    del caches
+                rec = _lm_serve_mesh_calls(
+                    mesh, model, sh, params,
+                    _lm_to(ref[compute]["batch"], LM_DEVICE), T, n, max_len,
+                    ref[compute]["outs"],
+                    None if compute == "float32" else _lm_cache_gap)
+                csh = model.cache_shardings(mesh, LM_SERVE_MESH_BATCH,
+                                            max_len)
+                rec["spec"] = tuple(csh["slots"][0]["k"].spec)
                 rec["peak"] = torch.cuda.max_memory_allocated() if cuda \
                     else 0
                 rec["init_peak"] = init_peak
                 out[tag, compute] = rec
-                del params, prefill, decode
+                del params
             if shape == {"data": 1, "model": 4}:
                 out["kv_seq"] = _lm_serve_kvseq(mesh)
+                out["grok"] = _lm_serve_mesh_grok(mesh, ref["grok"])
+            out["smokes", tag] = _lm_serve_mesh_smokes(mesh, tag)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _lm_serve_mesh_calls(mesh, model, sh, blocks, full, T: int, n: int,
+                         max_len: int, want: list, cache_gap=None) -> dict:
+    """The sharded prefill of `full`'s first T tokens and n teacher-forced
+    decode steps on this rank's `blocks`, each step from the one rank's
+    caches cut into blocks; `want[i]`: the one rank's (logits, caches) of
+    call i, on the CPU.  Every call timed, its logits (gathered over the
+    FSDP axes) against the one rank's (their gap of the logits' scale),
+    its caches (gathered) by `cache_gap(tag, want, got)` (default
+    `_lm_held`: float32 and bf16 held), rank 0's logits broadcast to hold
+    the others' bit for bit."""
+    from repro_torch.distributed.sharding import batch_shardings
+    from repro_torch.models import make_decode_step, make_prefill
+    from repro_torch.tree import tree_map
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    head = {**full, "tokens": full["tokens"][:, :T]}
+    csh = model.cache_shardings(mesh, head["tokens"].shape[0], max_len)
+    rows = batch_shardings(mesh, {"t": head["tokens"]})["t"]
+    prefill = make_prefill(model, sh, max_len)
+    decode = make_decode_step(model, sh, csh)
+    rec = {"ms": [], "gaps": [], "cache_gaps": [], "same": True}
+    for i in range(n + 1):
+        if i:
+            caches = tree_map(lambda s, x: s.shard(x).to(LM_DEVICE), csh,
+                              want[i - 1][1])
+            tok = full["tokens"][:, T + i - 1][:, None]
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            logits, caches = prefill(blocks, head)
+        else:
+            logits, caches = decode(blocks, caches, tok)
+        if cuda:
+            torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        logits = rows.gather(logits.cpu())
+        caches = tree_map(lambda s, x: s.gather(x.cpu()), csh, caches)
+        want_l, want_c = want[i]
+        rec["gaps"].append(_lm_rel(want_l, logits))
+        rec["cache_gaps"].append((cache_gap or _lm_held)(
+            f" {model.cfg.name} call {i}", want_c, caches))
+        first = logits.clone()
+        dist.broadcast(first, 0)
+        rec["same"] &= torch.equal(first, logits)
+    return rec
+
+
+def _lm_route_to_expert_0(params) -> None:
+    """The pooled-routing case's input, in place: the embedding's column 0
+    shifted by 1 (the residual stream dominated by one coordinate) and each
+    MoE router's column 0 set to 20 on it, so that every token picks
+    expert 0."""
+    params["embed"]["table"][:, 0] += 1.0
+    for slot in params["slots"]:
+        if "router" in slot.get("ffn", {}):
+            slot["ffn"]["router"][:, 0, 0] = 20.0
+
+
+def _lm_serve_mesh_smokes(mesh, tag: str) -> dict:
+    """LM_SERVE_MESH_SMOKES' cases on `mesh` (`tag`): each rank draws the
+    smoke's params, computes the one-rank prefill and decode steps itself
+    and holds the sharded ones against them (`_lm_serve_mesh_calls`)."""
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    k = LM_SERVE_MESH_SMOKE
+    out = {}
+    for name, arch, kw, tags in LM_SERVE_MESH_SMOKES:
+        if tag not in tags:
+            continue
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32", **kw)
+        model = build_model(cfg, RunConfig(remat="none"))
+        params, axes = model.init_params(0, device=LM_DEVICE)
+        if name.endswith("pooled routing"):
+            with torch.no_grad():
+                _lm_route_to_expert_0(params)
+        sh = tree_shardings(mesh, axes, params)
+        blocks = tree_map(lambda s, x: s.shard(x), sh, params)
+        full = batch_for(cfg, ShapeConfig("p", "prefill",
+                                          k["prompt"] + k["steps"],
+                                          k["batch"]), device=LM_DEVICE)
+        one, _ = _lm_one_rank_calls(model, params, full, k["prompt"],
+                                    k["steps"], k["max_len"])
+        out[name] = _lm_serve_mesh_calls(mesh, model, sh, blocks, full,
+                                         k["prompt"], k["steps"],
+                                         k["max_len"], one)
+        del params, blocks
+    return out
+
+
+def _lm_serve_mesh_grok(mesh, ref: dict) -> dict:
+    """grok-1 at full width (`_lm_serve_mesh_grok_cfg`) on `mesh`: the
+    ranks draw `init_params(0)` whole on the card in turn (a draw peaks at
+    its 26.1 GB twice over for the slot's stacked copy) and keep their
+    blocks on the host meanwhile (blocks cut from the draw's freed
+    segments would pin them on the card), then move them to the card and
+    serve the reference's prompt and steps against its outputs
+    (`_lm_serve_mesh_calls`)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    cfg = _lm_serve_mesh_grok_cfg()
+    model = build_model(cfg, RunConfig(remat="none"))
+    specs, axes = model.init_params(0, device="meta")
+    sh = tree_shardings(mesh, axes, specs)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    blocks = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            params, _ = model.init_params(0, device=LM_DEVICE)
+            blocks = tree_map(lambda s, x: s.shard(x).cpu(), sh, params)
+            del params
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    init_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    blocks = _lm_to(blocks, LM_DEVICE)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    n = LM_SERVE_MESH_GROK_STEPS
+    rec = _lm_serve_mesh_calls(mesh, model, sh, blocks,
+                               _lm_to(ref["batch"], LM_DEVICE),
+                               LM_SERVE_MESH_PROMPT, n,
+                               LM_SERVE_MESH_PROMPT + n, ref["outs"])
+    rec["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    rec["init_peak"] = init_peak
+    rec["spec"] = tuple(sh["slots"][0]["ffn"]["wi_gate"].spec)
+    del blocks
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
 
 
 def _lm_cache_gap(tag: str, want, got) -> float:
@@ -5912,6 +6190,64 @@ def lm_serve_mesh_child() -> int:
                          f"position {want_pos[-1]}), twice: the same bits on"
                          f" every rank")
     rec["kv_seq"] = kv[0]
+    tol = LM_SERVE_MESH_TOL["float32"]
+
+    def held(tag: str, got: list) -> tuple:
+        """The ranks' records of one case: every gap within the float32
+        bound, every rank's logits the same bits; (gaps by call, the
+        largest cache gap, ms by call on the slowest rank)."""
+        gaps = [max(g["gaps"][i] for g in got)
+                for i in range(len(got[0]["gaps"]))]
+        if not all(g <= tol for g in gaps) or not all(g["same"]
+                                                      for g in got):
+            raise AssertionError(f"lm_serve_mesh {tag}: logit gaps {gaps} "
+                                 f"(bound {tol}), the ranks' logits "
+                                 f"bit-equal {[g['same'] for g in got]}")
+        ms = [max(g["ms"][i] for g in got) for i in range(len(gaps))]
+        return gaps, max(max(g["cache_gaps"]) for g in got), ms
+
+    k = LM_SERVE_MESH_SMOKE
+    for name, arch, kw, tags in LM_SERVE_MESH_SMOKES:
+        for tag in tags:
+            gaps, _, _ = held(f"{tag} {name}", [
+                r["smokes", tag][name] for r in ranks])
+            over = kw or "as configured"
+            say("lm_serve_mesh", f"{tag} {name} ({arch} smoke, {over}, "
+                                 f"capacity factor 1.25) on "
+                                 f"{card}: {k['batch']} x ({k['prompt']} + "
+                                 f"{k['steps']}) tokens, the prefill's and "
+                                 f"each teacher-forced step's logits within "
+                                 f"{max(gaps):.2e} of their scale of the one"
+                                 f" rank's (bound {tol:.0e}), the bf16 "
+                                 f"caches within one ulp; every rank's "
+                                 f"logits the same bits")
+            rec[f"{tag} {name}"] = {"gaps": gaps}
+    got = [r["grok"] for r in ranks if "grok" in r]
+    gaps, _, ms = held("1x4 grok-1", got)
+    cfg = _lm_serve_mesh_grok_cfg()
+    one = ref_ms["grok"]
+    say("lm_serve_mesh", f"1x4 {cfg.name} on {card}: {cfg.num_layers} "
+                         f"layer (depth cut), d_model {cfg.d_model}, "
+                         f"{cfg.num_experts} experts top-"
+                         f"{cfg.experts_per_token} of {cfg.d_ff} hidden "
+                         f"units, capacity factor {cfg.capacity_factor}, "
+                         f"float32; the experts' spec {got[0]['spec']}; "
+                         f"{LM_SERVE_MESH_BATCH} x ({LM_SERVE_MESH_PROMPT} +"
+                         f" {LM_SERVE_MESH_GROK_STEPS}) tokens: the logits "
+                         f"within {max(gaps):.2e} of their scale of the one "
+                         f"rank's (bound {tol:.0e}; by call "
+                         f"{[f'{g:.1e}' for g in gaps]}), the caches within "
+                         f"one bf16 ulp; every rank's logits the same bits; "
+                         f"ms (slowest rank) prefill {ms[0]:.1f}, a decode "
+                         f"step p50 {np.percentile(ms[1:], 50):.1f}; the one "
+                         f"rank prefill {one[0]:.1f}, a step p50 "
+                         f"{np.percentile(one[1:], 50):.1f}; peak memory a "
+                         f"rank {[round(g['peak'] / 1e9, 2) for g in got]} "
+                         f"GB serving, "
+                         f"{[round(g['init_peak'] / 1e9, 2) for g in got]} "
+                         f"GB while the ranks draw in turn and cut")
+    rec["1x4 grok-1"] = {"gaps": gaps, "ms": ms, "one_rank_ms": one,
+                         "peak_gb": [g["peak"] / 1e9 for g in got]}
     counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
               **farfield.launch_counts}
     if any(counts.values()):
@@ -6374,18 +6710,30 @@ def _dryrun_share(card: str) -> dict:
             "compute_ms": roof.compute_s * 1e3}
 
 
-#: layer groups of (e)'s shares: decode_32k whole (28); prefill_32k cut to
-#: 2 of 28: every rank computes all 28 heads over its rows' 32768 tokens
-#: (28 does not divide over 16): a memory term of 0.75 s a layer by the
-#: counter, 27.4 GB of transients (the attention chunks' f32 scores)
-DRYRUN_SERVE_GROUPS = {"decode_32k": 28, "prefill_32k": 2}
+#: (e)'s shares: (arch, cell, the layer groups run).  qwen2-7b decode_32k
+#: whole (28); its prefill_32k cut to 2 of 28: every rank computes all 28
+#: heads over its rows' 32768 tokens (28 does not divide over 16): a memory
+#: term of 0.75 s a layer by the counter, 27.4 GB of transients (the
+#: attention chunks' f32 scores).  llama4-maverick decode_32k whole (24
+#: groups of an attention and a MoE layer, 8 of 128 experts a rank);
+#: llama-3.2-vision-90b prefill_32k cut to 1 of 20 groups (a cross slot and
+#: 4 attention slots, 4 of 64 heads a rank); grok-1 prefill_32k cut to 2 of
+#: 64 (every expert's 2048 of 32768 hidden units a rank, the whole
+#: dispatch of its rows' 32768 tokens)
+DRYRUN_SERVE_SHARES = (("qwen2-7b", "decode_32k", 28),
+                       ("qwen2-7b", "prefill_32k", 2),
+                       ("llama4-maverick-400b-a17b", "decode_32k", 24),
+                       ("llama-3.2-vision-90b", "prefill_32k", 1),
+                       ("grok-1-314b", "prefill_32k", 2))
 
 
-def _dryrun_serve_share(card: str, shape_name: str) -> dict:
-    """(e) rank 0's share of qwen2-7b `shape_name` (prefill_32k or
-    decode_32k) on the single (16, 16) mesh on the card, as
-    `launch/dryrun.py` lays it out (its param blocks, the global batch, for
-    decode its blocks of the caches: the slots over "model", "kv_seq"),
+def _dryrun_serve_share(card: str, arch: str, shape_name: str,
+                        groups: int) -> dict:
+    """(e) rank 0's share of `arch`'s `shape_name` (prefill_32k or
+    decode_32k) at `groups` layer groups on the single (16, 16) mesh on
+    the card, as `launch/dryrun.py` lays it out (its param blocks, the
+    global batch, for decode its blocks of the caches: "kv_heads", else
+    the slots over "model", "kv_seq"),
     under the fake process group of 256 ranks: the values are not held.
     The op stream, FLOPs and bytes on meta and on the card must be equal,
     the card's max_memory_allocated below 80 GB and within DRYRUN_MEM_TOL
@@ -6404,7 +6752,7 @@ def _dryrun_serve_share(card: str, shape_name: str) -> dict:
 
     cuda = torch.device(LM_DEVICE).type == "cuda"
     dev = torch.device(LM_DEVICE)
-    cfg = get_config("qwen2-7b") if cuda else get_smoke_config("qwen2-7b")
+    cfg = get_config(arch) if cuda else get_smoke_config(arch)
     shape = SHAPES[shape_name]
     if not cuda:
         shape = ShapeConfig(shape_name, shape.mode, 64, 32)
@@ -6419,8 +6767,7 @@ def _dryrun_serve_share(card: str, shape_name: str) -> dict:
     try:
         mesh = make_production_mesh()
         cell = dr._lm_cell(cfg, shape, run, mesh)
-        values = dict(cell.at, groups=min(cell.at["groups"],
-                                          DRYRUN_SERVE_GROUPS[shape_name]))
+        values = dict(cell.at, groups=min(cell.at["groups"], groups))
         fn, margs = cell.prepare(values)
         hooks.set_activation_constraint(make_activation_constraint(mesh, run))
         t0 = time.perf_counter()
@@ -6467,13 +6814,15 @@ def _dryrun_serve_share(card: str, shape_name: str) -> dict:
     if card_ops != meta_ops:
         only_card = list((card_ops - meta_ops).items())[:5]
         only_meta = list((meta_ops - card_ops).items())[:5]
-        raise AssertionError(f"dryrun (e) {shape_name}: the card's op "
+        raise AssertionError(f"dryrun (e) {arch} {shape_name}: the card's "
+                             f"op "
                              f"stream differs from meta's: "
                              f"{sum(card_ops.values())} vs "
                              f"{sum(meta_ops.values())} ops; on the card "
                              f"only {only_card}; on meta only {only_meta}")
     if card_cost != meta_cost:
-        raise AssertionError(f"dryrun (e) {shape_name}: the card's cost "
+        raise AssertionError(f"dryrun (e) {arch} {shape_name}: the card's "
+                             f"cost "
                              f"{card_cost} differs from meta's {meta_cost}")
     est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     cut_cfg = dataclasses.replace(cfg, num_layers=values["groups"])
@@ -6507,7 +6856,7 @@ def _dryrun_serve_share(card: str, shape_name: str) -> dict:
                   f"count {meta_s:.1f} s")
     if cuda and not (peak < DRYRUN_CARD_BYTES
                      and abs(est / peak - 1) <= DRYRUN_MEM_TOL):
-        raise AssertionError(f"dryrun (e) {shape_name}: "
+        raise AssertionError(f"dryrun (e) {arch} {shape_name}: "
                              f"max_memory_allocated {peak / 1e9:.3f} GB "
                              f"against the estimate {est / 1e9:.3f} GB "
                              f"(limit {DRYRUN_MEM_TOL:.0%}, and below "
@@ -6519,13 +6868,15 @@ def _dryrun_serve_share(card: str, shape_name: str) -> dict:
 
 
 def _dryrun_shares(card: str) -> dict:
-    """(d), then (e) for decode_32k and prefill_32k, each under its own
+    """(d), then (e) for each of DRYRUN_SERVE_SHARES, each under its own
     fake group, the card's memory released between them."""
     out = {"train_4k": _dryrun_share(card)}
-    for name in DRYRUN_SERVE_GROUPS:
+    for arch, name, groups in DRYRUN_SERVE_SHARES:
         if torch.device(LM_DEVICE).type == "cuda":
             torch.cuda.empty_cache()
-        out[name] = _dryrun_serve_share(card, name)
+        t0 = time.perf_counter()
+        out[f"{arch} {name}"] = _dryrun_serve_share(card, arch, name, groups)
+        say("dryrun", f"(e) {arch} {name}: {time.perf_counter() - t0:.1f} s")
     return out
 
 

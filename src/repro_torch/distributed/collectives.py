@@ -27,11 +27,12 @@ column- and a row-parallel matmul.
 turns a subtree of this rank's blocks into what the layers compute with:
 each leaf gathered over the FSDP axes and, where it is split over "model",
 left as its "model" block and marked with the dim that is split
-(`model_split`), or, for `whole` subtrees (code that reads the leaf
-directly: the MoE experts, the SSM mixers, the vision cross-attention),
-gathered over "model" too.  A leaf the spec leaves whole on the FSDP axes
-is held the same on each FSDP rank; its gradient is summed there
-(`copy_to`).
+(`model_split`: attention's heads, the MLPs' hidden units, the MoE
+layers' experts or hidden units, the vision cross-attention's heads), or,
+for `whole` subtrees (code that reads the leaf directly: the SSM mixers;
+the MoE load-balance loss's router), gathered over "model" too.  A leaf
+the spec leaves whole on the FSDP axes is held the same on each FSDP rank;
+its gradient is summed there (`copy_to`).
 
 Every collective is one call of the process group on contiguous buffers:
 no atomics, and the reduction order is the backend's for the group, fixed
@@ -279,7 +280,9 @@ class TensorParallel:
         """The tensors a rank computes with from its blocks `params` (a
         subtree) and their `shardings`: each leaf gathered over the FSDP
         axes (reduce-scattered back in the backward) and kept as its
-        "model" block, marked, or, with `whole`, gathered over "model" too.
+        "model" block, marked, or, with `whole` (compute that every rank of
+        "model" repeats: the SSM mixers, the MoE load-balance loss's
+        router), gathered over "model" too (`gather_from`).
         `layers`: the blocks are one layer group's, selected from stacked
         leaves whose specs begin with the unsplit "layers" dim."""
         flat, rebuild, _ = flatten(params)

@@ -299,12 +299,14 @@ def make_activation_constraint(mesh, run=None):
     enter it (the dim an activation holds split is the one
     `collectives.mark` recorded; the batch dim is already this rank's
     rows).  It returns its input on a mesh whose "model" axis is of size 1,
-    without `tp` (the port's serving is replicated), for the other tags
-    (the residual stream stays whole on "model", and expert parallelism is
-    not ported: the MoE layer computes whole) and for an activation whose
-    layout no tensor-parallel code recorded (the vision cross-attention's
-    q, k and v, computed whole).  `run` is the reference's argument: its
-    `act_shard_embed` lays out only the residual stream."""
+    without `tp`, for the other tags (the residual stream stays whole on
+    "model"; a MoE layer's dispatch is already laid out by its experts:
+    under the context each rank builds its own experts' dispatch, or, where
+    the experts do not divide over "model", the whole dispatch for its
+    block of every expert's hidden units, `models/moe.py`) and for an
+    activation whose layout no tensor-parallel code recorded.  `run` is
+    the reference's argument: its `act_shard_embed` lays out only the
+    residual stream."""
     from repro_torch.distributed.collectives import is_marked, model_split
 
     msize = mesh.shape.get("model", 1)

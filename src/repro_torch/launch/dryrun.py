@@ -24,7 +24,10 @@ What is counted is the port's own program:
     blocks over the FSDP axes as the group runs (and again in remat's
     recompute), computes the projections on their "model" blocks (an
     all-reduce over "model" after each row-parallel one and of the
-    gradient of each column-parallel input), the embedding and the loss
+    gradient of each column-parallel input; a MoE layer on this rank's
+    experts, or every expert's block of hidden units, with one all-reduce
+    of its partial output; the vision cross-attention on this rank's
+    heads), the embedding and the loss
     over the vocab blocks, and reduce-scatters the gradients onto the FSDP
     blocks; `train_collective_bytes` gives each kind's bytes from the
     specs and the loop counts, and the tests hold the count to it;
@@ -34,8 +37,11 @@ What is counted is the port's own program:
     the global batch (`batch_shardings`) and, for decode, its blocks of
     caches filled to the cell's length (`Model.cache_shardings`: a KV
     cache's heads on "model", else its slots); each group gathers its
-    blocks over the FSDP axes as it runs, computes the projections on
-    their "model" blocks (an all-reduce after each row-parallel one), the
+    blocks over the FSDP axes as it runs, computes the projections, the
+    MoE layers and the cross-attention on their "model" blocks (an
+    all-reduce after each row-parallel one; a decode step's MoE routing
+    pooled over the global batch by an all-gather of the top-k indices
+    over the FSDP axes), the
     vocab-parallel embedding and head (the last position's logits
     gathered over "model"), and a decode step over slots split over
     "model" combines its softmax there; `serve_collective_bytes` gives
@@ -271,16 +277,23 @@ def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
         stacked block's bytes), the embedding, final norm and head blocks
         M times; `whole` subtrees' leaves over "model" too (the FSDP-whole
         block); attention's k and v (q too where H does not divide over
-        "model") of P M calls, and the gradient of the scattered output;
-      reduce-scatter: F times each FSDP gather's block M times, and k and
-        v whole where only q is on this rank's heads;
+        "model") of P M calls, and the gradient of the scattered output,
+        the vision cross-attention's alike with k and v over its image
+        tokens (bf16, the vision embeddings' dtype); a MoE layer's router
+        block over "model" P M times where the router is split there;
+      reduce-scatter: F times each FSDP gather's block M times, k and v
+        whole where only q is on this rank's heads, and the whole router M
+        times where the experts and the router are split over "model";
       all-reduce: each row-parallel output (b, S, D) P M times (the
-        group's last, when an MLP's, M times: the recompute stops before
-        it), each
-        column-parallel input's gradient M times, the vocab-parallel
-        embedding, head input and the loss's three (b, S) f32 reductions M
-        times, the gradient of each FSDP-whole leaf M times, and the
-        step's loss and norm scalars.
+        group's last, when an MLP's or a MoE layer's, M times: the
+        recompute stops before it; a MoE layer's experts and shared expert
+        share one), each
+        column-parallel input's gradient M times (a MoE layer's input's
+        too; the cross-attention's image tokens take none), the
+        vocab-parallel embedding, head input and the loss's three (b, S)
+        f32 reductions M times, the gradient of each FSDP-whole leaf M
+        times (and of a router whole on "model" where the experts are
+        split there), and the step's loss and norm scalars.
     """
     model = build_model(cfg, run)
     specs, axes = params_specs(model)
@@ -358,6 +371,27 @@ def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
             out["all-reduce"] += M * (emb * bSD + bSD + 3 * b * S * ncb * 4)
             if cfg.num_experts:
                 out["all-reduce"] += M * rows * S * D * c   # the aux lookup
+        cross = G * pattern.count("cross")
+        if qs and cross:
+            for k, v in _cross_attention(cfg, b, S, m, c, P).items():
+                out[k] += cross * M * v
+        moe = _moe_layout(cfg, specs, sh, fsdp, m)
+        if moe is not None:
+            moes, split, router_block = moe
+            if split:
+                # the partial outputs' sum P M times (the group's last
+                # slot's M times: the recompute stops before it) and the
+                # input's gradient M times
+                out["all-reduce"] += moes * M * (P + 1) * bSD
+                if P == 2 and pattern[-1] == "moe":
+                    out["all-reduce"] -= G * M * bSD
+            if router_block:             # the router gathered over "model"
+                out["all-gather"] += moes * P * M * router_block
+                if split:
+                    out["reduce-scatter"] += moes * M * m * router_block
+            elif split:                  # whole there, its gradient summed
+                out["all-reduce"] += moes * M * _router_bytes(specs, pattern,
+                                                              G)
     if cfg.num_experts:                 # the aux loss's embedding and router
         params(specs["embed"], sh["embed"], M, M)
         i = pattern.index("moe")
@@ -401,11 +435,18 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
       all-gather: a group leaf's FSDP block once a group, the embedding,
         final norm and head blocks once, `whole` subtrees' leaves over
         "model" too; q (where H does not divide over "model") and k and v
-        (where KV does not) of each attention call; a decode step on
-        slots split over "model" gathers q where it is on this rank's
-        heads; the last position's vocab-parallel logits;
-      all-reduce: each row-parallel output (b, T, D) (attention's wo and
-        the MLPs'), the vocab-parallel embedding; a decode step on split
+        (where KV does not) of each attention call, the vision
+        cross-attention's alike (its prefill's k and v over the image
+        tokens, in the vision embeddings' dtype; its decode step reads
+        them from the cache); a decode step on slots split over "model"
+        gathers q where it is on this rank's heads; a MoE layer's router
+        block where the router is split over "model"; a decode step whose
+        rows the FSDP axes split, each MoE layer's pooled top-k indices
+        (b, k) int64 over the FSDP axes; the last position's
+        vocab-parallel logits;
+      all-reduce: each row-parallel output (b, T, D) (attention's wo, the
+        MLPs', a MoE layer's partial sum over its experts and shared
+        expert), the vocab-parallel embedding; a decode step on split
         slots, the scores' max (b, H) and the combined p v and sum of
         exps (b, H, hd + 1), float32, an attention call.
     """
@@ -444,6 +485,11 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
         mlps += G
     for k in ("embed", "final_ln", "head"):
         params(specs[k], sh[k], 1)
+    moes = G * pattern.count("moe")
+    if (mode == "decode" and moes and run.moe_decode_pool and F > 1
+            and global_batch % F == 0):
+        # the pooled routing's top-k indices (int64) over the FSDP axes
+        out["all-gather"] += moes * b * cfg.experts_per_token * 8
     if m == 1:
         return out
     # the attention calls on split projections: (calls, their KV cache's
@@ -475,6 +521,22 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
             per["all-reduce"] += b * H * 4 + b * H * (hd + 1) * 4
         for k, v in per.items():
             out[k] += n * v
+    cross = G * pattern.count("cross")
+    if qs and cross:
+        per = {"all-gather": 0, "all-reduce": bTD}          # wo
+        if H % m:
+            per["all-gather"] += b * T * H * hd // m * c
+        if KV % m and mode == "prefill":      # decode reads the cache
+            per["all-gather"] += 2 * b * cfg.n_image_tokens * KV * hd // m \
+                * _VISION_BYTES
+        for k, v in per.items():
+            out[k] += cross * v
+    moe = _moe_layout(cfg, specs, sh, fsdp, m)
+    if moe is not None:
+        _, split, router_block = moe
+        if split:
+            out["all-reduce"] += moes * bTD
+        out["all-gather"] += moes * router_block
     if cfg.d_ff % m == 0:
         out["all-reduce"] += mlps * bTD
     if cfg.vocab_size % m == 0:
@@ -483,6 +545,62 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
         out["all-reduce"] += emb * bTD
         out["all-gather"] += b * ncb * cfg.vocab_size // m * c
     return out
+
+
+#: the bytes of an element of the vision embeddings (`data.batch_specs`:
+#: bf16 at any compute dtype), which the cross-attention's k and v inherit
+_VISION_BYTES = torch.empty((), dtype=torch.bfloat16).element_size()
+
+
+def _cross_attention(cfg, b: int, S: int, m: int, c: int, P: int) -> dict:
+    """The collectives' bytes of one vision cross-attention call of the
+    train step on "model" blocks (q over S tokens, k and v over the image
+    tokens, in the vision embeddings' dtype): the gathers of what stays
+    whole and the conjugates of the backward, as self-attention's."""
+    H, KV, hd, Ti = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.n_image_tokens)
+    cv = _VISION_BYTES
+    bSD = b * S * cfg.d_model * c
+    out = {"all-gather": 0, "reduce-scatter": 0,
+           "all-reduce": bSD + P * bSD}        # x's gradient; wo
+    if H % m:                                  # every head whole
+        out["all-gather"] += P * (b * S * H * hd // m * c
+                                  + 2 * b * Ti * KV * hd // m * cv)
+        out["all-gather"] += b * S * H * hd // m * c      # out's grad
+    elif KV % m:                               # k and v whole
+        out["all-gather"] += P * 2 * b * Ti * KV * hd // m * cv
+        out["reduce-scatter"] += 2 * b * Ti * KV * hd * cv
+    return out
+
+
+def _router_bytes(specs, pattern, G: int) -> int:
+    """One layer group's whole router, in the params' dtype."""
+    r = specs["slots"][pattern.index("moe")]["ffn"]["router"]
+    return r.numel() * r.element_size() // G
+
+
+def _moe_layout(cfg, specs, sh, fsdp, m: int):
+    """None without MoE slots or a "model" axis; else (the MoE layers, G
+    times the slots; whether a layer's output is partial over "model":
+    its experts or its shared expert split there; the bytes of one
+    group's router block over "model" that the layer gathers, 0 where the
+    router is whole there)."""
+    pattern, G = block_pattern(cfg)
+    if m == 1 or "moe" not in pattern:
+        return None
+    i = pattern.index("moe")
+    ffn, fsh = specs["slots"][i]["ffn"], sh["slots"][i]["ffn"]
+
+    def on_model(key, sub=None):
+        p, s = (ffn[key], fsh[key]) if sub is None else (ffn[sub][key],
+                                                         fsh[sub][key])
+        return split_dims(s, p.ndim, fsdp)[1] is not None
+
+    split = on_model("wi_gate") or ("shared" in ffn
+                                    and on_model("wi_gate", "shared"))
+    block = (_router_bytes(specs, pattern, G) // m if on_model("router")
+             else 0)
+    return G * pattern.count("moe"), split, block
 
 
 def lower_cell(arch: str, shape_name: str, mesh, run_overrides=None):

@@ -6,15 +6,17 @@ groups (and on q/k/v and the MoE dispatch).  Without a constraint it is the
 identity.  `launch/train.py` installs
 `distributed.sharding.make_activation_constraint`, which re-lays q, k and v
 over "model" to the reference's spec under the tensor-parallel context;
-tests install one that injects JAX's MoE routing.
+tests install one that injects JAX's MoE routing (off the mesh, where the
+MoE dispatch is whole; under the context it is this rank's experts').
 
 The port adds the tensor-parallel context: the sharded train step
 (`models/train.py`) installs a `distributed.collectives.TensorParallel`
 around its forward and backward (`tensor_parallel_scope`).  The model then
 gathers each layer group's param blocks through it, and the layers ask
 `model_split` which dim of a weight is split over "model" (column- or
-row-parallel).  Without a context (`tensor_parallel()` is None) the layers
-compute with the whole params they are given, as before.
+row-parallel; an expert weight's expert dim or hidden units, `moe.py`).
+Without a context (`tensor_parallel()` is None) the layers compute with
+the whole params they are given, as before.
 """
 from __future__ import annotations
 

@@ -35,8 +35,11 @@ Under the sharded train step's tensor-parallel context (`hooks`,
 selects group g's blocks from the stacked leaves (`params[g]` on blocks)
 and gathers them over the FSDP axes inside the remat region, so that the
 recompute gathers them again and the backward reduce-scatters their
-gradients; the leaves that `moe.py`, `ssm.py` and the vision
-cross-attention read directly (`_WHOLE`) are gathered over "model" too.
+gradients.  The layers compute on the "model" blocks: attention and the
+vision cross-attention on this rank's heads, the MLPs on their hidden
+units, the MoE layers on this rank's experts (or every expert's hidden
+units where the experts do not divide over "model"); the leaves that
+`ssm.py` reads directly (`_WHOLE`) are gathered over "model" too.
 The embedding, the final norm and the head are gathered where the forward
 reads them, `_moe_aux`'s embedding and router where it reads them, and the
 loss is vocab-parallel over the logits' vocab blocks.  The sharded prefill
@@ -60,10 +63,10 @@ from repro_torch.tree import tree_map
 
 from . import hooks, ssm
 from .layers import (
-    KV_CACHE_AXES, _gqa_scores_to_out, _MetaKey, _proj, attention, cdt,
-    decode_attention, embed_tokens, embed_tokens_onehot, init_attention,
-    init_embedding, init_kv_cache, init_lm_head, init_mlp, init_rmsnorm,
-    lm_logits, mlp, rmsnorm,
+    KV_CACHE_AXES, _gqa_scores_to_out, _kv_for_heads, _MetaKey,
+    _model_input, _proj, attention, cdt, decode_attention, embed_tokens,
+    embed_tokens_onehot, init_attention, init_embedding, init_kv_cache,
+    init_lm_head, init_mlp, init_rmsnorm, lm_logits, mlp, rmsnorm,
 )
 from .moe import aux_load_balance_loss, init_moe, moe_ffn
 
@@ -94,15 +97,13 @@ def _stack(trees: list):
 
 
 #: per slot, the subtrees whose leaves code reads directly (not through
-#: `_proj`, `mlp`, `attention` on its own projections): gathered over
-#: "model" as well as the FSDP axes, so that their compute stays whole
-#: (expert and SSM-head parallelism and the split vision cross-attention
-#: are not ported)
-_WHOLE = {"moe": ("ffn",), "cross": ("attn",), "rwkv": ("tm", "cm"),
-          "mamba": ("mixer",)}
+#: `_proj`, `mlp`, `attention` or `moe_ffn` on its "model" blocks):
+#: gathered over "model" as well as the FSDP axes, so that their compute
+#: stays whole (SSM-head parallelism is not ported)
+_WHOLE = {"rwkv": ("tm", "cm"), "mamba": ("mixer",)}
 #: the slots whose caches that whole compute reads and writes: whole on
 #: "model" on a mesh, their rows on the FSDP axes (`Model.cache_shardings`)
-_WHOLE_CACHES = ("cross", "rwkv", "mamba")
+_WHOLE_CACHES = ("rwkv", "mamba")
 
 
 def _gathered(params, shardings, slot: str | None = None,
@@ -185,8 +186,8 @@ def _stack_init(init_fn: Callable, key, n: int):
 
 def _apply_block(slot: str, p, cfg: ModelConfig, x, *, positions,
                  vision_embeds=None, cache=None, mode: str,
-                 run: RunConfig, window: int = 0):
-    """Returns (x, new_cache_or_kv)."""
+                 run: RunConfig, window: int = 0, moe_pool=None):
+    """Returns (x, new_cache_or_kv).  `moe_pool`: `moe_ffn`'s `pool`."""
     if slot in ("attn", "moe", "cross"):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         if mode == "decode":
@@ -210,7 +211,7 @@ def _apply_block(slot: str, p, cfg: ModelConfig, x, *, positions,
         if slot == "moe":
             y = moe_ffn(p["ffn"], cfg, h, fp32_router=run.use_fp32_router,
                         shard_dispatch=run.moe_shard_dispatch,
-                        decode_pool=run.moe_decode_pool)
+                        decode_pool=run.moe_decode_pool, pool=moe_pool)
         else:
             y = mlp(p["ffn"], cfg, h)
         return x + y, new_cache
@@ -229,15 +230,41 @@ def _apply_block(slot: str, p, cfg: ModelConfig, x, *, positions,
 
 
 def _cross_decode(p, cfg: ModelConfig, x, cache):
-    """Single-token cross-attention against static (vision) K/V."""
+    """Single-token cross-attention against static (vision) K/V.
+
+    On "model" blocks q comes in `layers.attention`'s layout (this rank's
+    heads where H divides over "model", else every head) and the cache is
+    this rank's block, its layout marked on cache["k"]: 2, its kv heads
+    ("kv_heads", whose q heads are this rank's), else every kv head; the
+    output goes through the row-parallel wo."""
     B, S1, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S1, H, hd)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     k, v = cache["k"], cache["v"]
+    q0 = None
+    if hooks.model_split(p["wq"]) == 1:
+        tp = hooks.tensor_parallel()
+        m = tp.model.size
+        q = _proj(_model_input(x, p["wq"]), p["wq"], p.get("bq"))
+        if H % m:
+            q = tp.gather_from_model(q, -1)
+        q = mark(q.reshape(B, S1, -1, hd), None if H % m else 2)
+        if (hooks.model_split(k) == 2) != (KV % m == 0):
+            raise ValueError(f"a cross cache block of {k.shape[2]} kv heads "
+                             f"on a {m}-way 'model' axis")
+        if not H % m and KV % m:
+            q0 = tp.model.index * (H // m)
+    else:
+        q = _proj(x, p["wq"], p.get("bq")).reshape(B, S1, H, hd)
+    heads_local = hooks.model_split(q) is not None
     mask = torch.ones((1, 1, 1, S1, k.shape[1]), dtype=torch.bool,
                       device=x.device)
-    out = _gqa_scores_to_out(q, k, v, mask, cdt(cfg))
-    return _proj(out.reshape(B, S1, H * hd), p["wo"]), None
+    kq, vq = (k, v) if q0 is None else _kv_for_heads(k, v, q0, q.shape[2],
+                                                      H // KV)
+    out = _gqa_scores_to_out(q, kq, vq, mask, cdt(cfg))
+    out = out.reshape(B, S1, q.shape[2] * hd)
+    if hooks.model_split(p["wo"]) == 0 and not heads_local:
+        out = hooks.tensor_parallel().scatter_to_model(out, -1)
+    return _proj(out, p["wo"]), None
 
 
 # -- cache init ---------------------------------------------------------------
@@ -355,27 +382,32 @@ class Model:
         `cache_axes()` (a KV cache's rows on the FSDP axes and its heads
         on "model", else its slots: "kv_heads", then "kv_seq", each only
         where it divides), except that the caches of the slots whose
-        compute `_WHOLE` keeps whole (the vision cross-attention's K/V,
-        the RWKV6 and Mamba2 states) are whole on "model", their rows on
-        the FSDP axes.  Only `mesh.axis_names` and `mesh.shape` are
-        read."""
+        compute `_WHOLE` keeps whole (the RWKV6 and Mamba2 states) are
+        whole on "model", their rows on the FSDP axes, and that the vision
+        cross-attention's K/V put their rows on the FSDP axes (the
+        reference keeps them whole; the cross-attention computes this
+        rank's rows), their kv heads on "model" where they divide.  Only
+        `mesh.axis_names` and `mesh.shape` are read."""
         pattern, _ = block_pattern(self.cfg)
         axes = self.cache_axes()
-        axes["slots"] = [_rows_only(a) if s in _WHOLE_CACHES else a
+        axes["slots"] = [_rows_only(a) if s in _WHOLE_CACHES
+                         else _rows_on_batch(a) if s == "cross" else a
                          for s, a in zip(pattern, axes["slots"])]
         specs = self.init_caches(batch, max_len, device="meta")
         return tree_shardings(mesh, axes, specs)
 
     # ---- forward over the stack ----
     def _stack_forward(self, params, x, *, positions, vision_embeds,
-                       caches, mode, cache_shardings=None, to_cache=None):
+                       caches, mode, cache_shardings=None, to_cache=None,
+                       moe_pool=None):
         """Loop over groups. Returns (x, new_caches); new_caches is None in
         train mode (per-layer KV and states are not stacked there).
         `to_cache(key, kv)` turns a group's prefill output of slot `key`
         (its index, or "shared_attn") into its cache before the groups are
         stacked.  Under the tensor-parallel context a decode step's KV
-        cache blocks are marked with their "model" layout from
-        `cache_shardings` (`layers.decode_attention` reads it)."""
+        and cross cache blocks are marked with their "model" layout from
+        `cache_shardings` (`layers.decode_attention` and `_cross_decode`
+        read it).  `moe_pool`: `moe_ffn`'s `pool`."""
         cfg, run = self.cfg, self.run
         pattern, n_groups = block_pattern(cfg)
         window = cfg.attn_window or 0
@@ -390,7 +422,7 @@ class Model:
             else None
 
         def marked(c, s):
-            if csh is None or c is None or "slot_pos" not in c:
+            if csh is None or not isinstance(c, dict) or "v" not in c:
                 return c
             for key in ("k", "v"):
                 _, mdim = split_dims(s[key], c[key].ndim + 1, tp.fsdp_axes)
@@ -416,7 +448,7 @@ class Model:
                 x, nc = _apply_block(
                     slot, p, cfg, x, positions=positions,
                     vision_embeds=vision_embeds, cache=marked(c, s),
-                    mode=mode, run=run)
+                    mode=mode, run=run, moe_pool=moe_pool)
                 group_caches.append(nc)
             return x, group_caches, sc
 
@@ -450,7 +482,7 @@ class Model:
     # ---- entry points ----
     def forward(self, params, tokens, *, vision_embeds=None, caches=None,
                 mode="train", positions=None, cache_shardings=None,
-                to_cache=None):
+                to_cache=None, moe_pool=None):
         cfg = self.cfg
         embed = self._outer(params, ("embed",))["embed"]
         if self.run.embed_onehot:
@@ -467,7 +499,7 @@ class Model:
         x, new_caches = self._stack_forward(
             params, x, positions=positions, vision_embeds=vision_embeds,
             caches=caches, mode=mode, cache_shardings=cache_shardings,
-            to_cache=to_cache)
+            to_cache=to_cache, moe_pool=moe_pool)
         outer = self._outer(params, ("final_ln", "head"))
         x = rmsnorm(outer["final_ln"], x, cfg.norm_eps)
         logits = lm_logits(outer["head"], cfg, x)
@@ -619,18 +651,24 @@ class Model:
         `make_decode_step`) `params` and `caches` are this rank's blocks,
         the caches laid out by `cache_shardings`, and `tokens` the global
         batch's: it returns this rank's rows' logits over the whole vocab
-        and its blocks of the new caches."""
+        and its blocks of the new caches.  Where the FSDP axes split the
+        rows, the MoE layers route the global batch's pool, as the
+        reference does (`moe_ffn`'s `pool`)."""
         tp = hooks.tensor_parallel()
+        pool = None
         if tp is not None:
             if cache_shardings is None:
                 raise ValueError("a decode step on a mesh needs the caches' "
                                  "shardings (Model.cache_shardings)")
-            tokens = batch_rows(tp.mesh, {"tokens": tokens})["tokens"]
+            rows = batch_rows(tp.mesh, {"tokens": tokens})["tokens"]
+            if rows.shape[0] != tokens.shape[0]:
+                pool = tp.fsdp
+            tokens = rows
         logits, caches = self.forward(
             params, tokens, caches=caches, mode="decode",
             positions=torch.zeros((1,), dtype=torch.int32,
                                   device=tokens.device),
-            cache_shardings=cache_shardings)
+            cache_shardings=cache_shardings, moe_pool=pool)
         return _last_logits(logits), caches
 
 
@@ -657,6 +695,14 @@ def _rows_only(axes):
     if isinstance(axes, dict):
         return {k: _rows_only(v) for k, v in axes.items()}
     return ("layers", "batch") + (None,) * (len(axes) - 2)
+
+
+def _rows_on_batch(axes):
+    """A cache axes tree whose leaves put their rows (dim 1 after
+    "layers") on "batch" and keep their other axes."""
+    if isinstance(axes, dict):
+        return {k: _rows_on_batch(v) for k, v in axes.items()}
+    return ("layers", "batch") + tuple(axes[2:])
 
 
 def _vocab_parallel_ce(logits, labels):

@@ -29,9 +29,10 @@ moments, and a step is the reference's GSPMD program, computed eagerly:
      group's blocks over the FSDP axes just before the group runs (again
      in remat's recompute), computes each projection on its "model" block
      and the loss over the vocab blocks (`models/layers.py`,
-     `models/model.py`); no rank holds a whole leaf that its spec splits,
-     bar the leaves that `moe.py` and `ssm.py` read directly and the vision
-     cross-attention's, gathered over "model" at their group;
+     `models/moe.py`, `models/model.py`); no rank holds a whole leaf that
+     its spec splits, bar the leaves that `ssm.py` reads directly, gathered
+     over "model" at their group, and a MoE layer's router, which every
+     rank routes with whole;
   3. the backward reduce-scatters each gathered leaf's gradient onto its
      FSDP blocks (summed over the FSDP group; divided by its size here):
      each alias's ``.grad`` is this rank's block;

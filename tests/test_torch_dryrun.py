@@ -45,11 +45,14 @@ from repro_torch.configs import SHAPES
 from repro_torch.launch import dryrun
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("qwen2-7b", "grok-1-314b", "rwkv6-7b")
+#: the train cells' archs: the dense, MoE (grok's experts and llama4's
+#: experts and shared expert over "model") and SSM families, and the vision
+#: cross-attention on "model" blocks
+ARCHS = ("qwen2-7b", "grok-1-314b", "rwkv6-7b", "llama4-maverick-400b-a17b",
+         "llama-3.2-vision-90b")
 #: the serving cells' archs: every family, the vision cross-attention and
 #: the audio codebooks too
-SERVE_ARCHS = ARCHS + ("zamba2-2.7b", "llama-3.2-vision-90b",
-                       "musicgen-medium")
+SERVE_ARCHS = ARCHS + ("zamba2-2.7b", "musicgen-medium")
 
 _PROG = textwrap.dedent("""
     import contextlib, dataclasses, datetime, io, json, math, os, sys
@@ -291,6 +294,86 @@ def test_no_rank_materialises_a_whole_split_leaf():
     # PR 25's count of the data-parallel step: 91.7 GB, of which 60.9 GB
     # were the whole f32 params and the whole f32 gradient
     assert peak < 80e9 and peak <= 91.7e9 - 60.9e9
+
+
+_SERVE_SHARE = textwrap.dedent("""
+    import json, sys
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (make_activation_constraint,
+                                                  tree_shardings)
+    from repro_torch.launch import dryrun, hlo_cost
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model, hooks
+    from repro_torch.tree import leaves
+
+    arch, cell_name = sys.argv[1], sys.argv[2]
+    dryrun._fake_group(256)
+    mesh = make_production_mesh()
+    cell, _ = dryrun.lower_cell(arch, cell_name, mesh)
+    fn, args = cell.prepare(cell.at)
+    hooks.set_activation_constraint(make_activation_constraint(mesh,
+                                                               cell.run))
+    with hlo_cost.CostCounter() as cc:
+        out = fn(*args)
+    mem = hlo_cost.memory_summary(cc, args, out)
+    made = {s for r in cc.records for s in r.out_shapes}
+    # the whole shapes of the leaves that the specs split over "model",
+    # stacked and a layer's: no op may make one (a shape that a leaf whole
+    # on "model" has is not banned, nor a layer's router: every rank
+    # routes from the whole router, gathered over "model")
+    specs, axes = dryrun._serve_specs(build_model(dryrun.get_config(arch),
+                                                  cell.run))
+    sh = tree_shardings(mesh, axes, specs)
+    banned, allowed = set(), set()
+    for key in specs:
+        stacked = key == "slots"
+        for s, p in zip(leaves(sh[key]), leaves(specs[key])):
+            shape = tuple(p.shape)
+            one = shape[1:] if stacked else shape
+            (banned if "model" in s.axes else allowed).add(one)
+            if stacked and not s.is_whole:
+                banned.add(shape)
+    for slot in specs["slots"]:
+        if "router" in slot.get("ffn", {}):
+            allowed.add(tuple(slot["ffn"]["router"].shape[1:]))
+    banned -= allowed
+    experts = {tuple(p.shape[1:]) for p in
+               leaves(specs["slots"][1]["ffn"]) if p.ndim == 4}
+    print(json.dumps({"memory": mem, "made": sorted(made & banned),
+                      "experts": sorted(experts), "banned": sorted(banned),
+                      "collectives": cc.cost.collective_bytes,
+                      "want": dryrun.serve_collective_bytes(
+                          dryrun.get_config(arch), cell.run, mesh,
+                          dryrun.SHAPES[cell_name].global_batch,
+                          dryrun.SHAPES[cell_name].seq_len,
+                          dryrun.SHAPES[cell_name].mode)}))
+    dist.destroy_process_group()
+""")
+
+
+def test_llama4_decode_share_holds_no_whole_expert():
+    """Rank 0's share of llama4-maverick decode_32k on the single (16, 16)
+    mesh, on `meta`: its 128 experts a MoE layer are 8-expert blocks over
+    "model" (expert parallelism), so no op makes a tensor of a whole
+    expert leaf's shape (128, 5120, 8192) or of any leaf the specs split
+    over "model"; the counted peak is below the card's 80 GB (88.4 GB
+    counted with the experts gathered whole); the collectives are
+    `serve_collective_bytes`' (the experts' all-reduce and the pooled
+    routing's all-gather of top-k indices over the FSDP axes)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", _SERVE_SHARE,
+                           "llama4-maverick-400b-a17b", "decode_32k"],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [128, 5120, 8192] in got["banned"] and got["made"] == []
+    assert got["experts"] == [[128, 5120, 8192], [128, 8192, 5120]]
+    mem = got["memory"]
+    peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert peak < 80e9
+    for kind, want in got["want"].items():
+        assert got["collectives"][kind] == want, kind
 
 
 #: `repro/launch/dryrun.py` forces 512 host devices when it is imported,

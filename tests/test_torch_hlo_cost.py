@@ -44,7 +44,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import batch_specs
 from repro_torch.launch.hlo_cost import (COLLECTIVES, Cost, CostCounter,
                                          Counted, count, fit_cost, top_flops)
-from repro_torch.models import build_model, make_prefill, params_specs
+from repro_torch.models import (block_pattern, build_model, make_prefill,
+                                params_specs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -378,7 +379,10 @@ def test_prefill_matmul_flops_against_jax(arch):
     packages compute the head over all S positions and keep the last
     (src/repro_torch/models/model.py `prefill`, src/repro/models/model.py
     `prefill`), XLA simplifies the dot and the slice to the last position,
-    and the eager port computes the whole head."""
+    and the eager port computes the whole head; less, for a MoE model, the
+    reference's two dispatch einsums over the (B, S, k, E, C) one-hot, 2 B
+    S k E C each a layer, which the port builds elementwise from each
+    (token, expert) pair's one slot (`moe._dispatch_combine`)."""
     B, S = 4, 64
     jcfg = jget_smoke_config(arch)
     jmodel = jbuild_model(jcfg, JRunConfig())
@@ -394,4 +398,12 @@ def test_prefill_matmul_flops_against_jax(arch):
         _, c = count(make_prefill(model), params_specs(model)[0],
                      batch_specs(cfg, ShapeConfig("p", "prefill", S, B)))
     port_flops = sum(c.matmuls.values())
-    assert port_flops - jax_flops == 2 * B * S * cfg.d_model * cfg.vocab_size
+    dispatch = 0
+    if cfg.num_experts:
+        from repro_torch.models.moe import _capacity
+        pattern, groups = block_pattern(cfg)
+        layers = pattern.count("moe") * groups
+        dispatch = layers * 2 * (2 * B * S * cfg.experts_per_token
+                                 * cfg.num_experts * _capacity(S, cfg))
+    assert port_flops - jax_flops == (2 * B * S * cfg.d_model
+                                      * cfg.vocab_size - dispatch)

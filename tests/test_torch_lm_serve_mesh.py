@@ -23,8 +23,10 @@ logits the same bits.  The cases:
   * a max_len of 14, which does not divide over 4: the cache whole;
   * a max_len of 12 with decode steps at positions 10..13: past max_len
     the last slot, on the last "model" rank, is overwritten (JAX's clamp);
-  * the MoE (grok-1) and SSM (rwkv6) smokes on (2, 2), their mixers' and
-    states' compute whole on "model";
+  * the MoE (grok-1) smoke on (2, 2), its 4 experts 2 a rank, and the
+    SSM (rwkv6) smoke on (2, 2), its mixers' and states' compute whole on
+    "model" (more MoE and the vision cases:
+    tests/test_torch_lm_expert_parallel_serve.py);
   * the hybrid (zamba2) smoke with an 8-token window under a 10-token
     prompt, its shared attention's ring (slot == position % 8) on (2, 2)
     ("kv_heads") and, with 2 kv heads, on (1, 4) ("kv_seq"), two rows: at
@@ -74,14 +76,17 @@ CASES = {
 }
 
 
-def _jax_serve(cfg, batch: int, max_len: int, eager: bool):
+def _jax_serve(cfg, batch: int, max_len: int, eager: bool, edit=None):
     """JAX's prefill over T tokens and K decode steps, each from the last
     one's caches and the next token: (params, the prompt batch, [(caches
     before step, its tokens)], [(logits, caches)] of the prefill and each
-    step), as numpy."""
+    step), as numpy.  `edit(params)` returns the params to serve in place
+    of the drawn ones."""
     run = RunConfig(remat="none", scan_layers=not eager)
     jm = jbuild_model(cfg, run)
     params, _ = jm.init_params(jax.random.PRNGKey(2))
+    if edit is not None:
+        params = edit(params)
     full = jbatch_for(cfg, ShapeConfig("p", "prefill", T + K, batch))
     head = {**full, "tokens": full["tokens"][:, :T]}
 
@@ -185,6 +190,10 @@ def test_sharded_bf16_within_the_references_bound(served):
 
 
 def test_cases_cover_every_layout():
-    assert {c[-1] for c in CASES.values()} == {"kv_heads", "kv_seq", None}
-    assert {smoke(c[0], "float32").family
-            for c in CASES.values()} == {"dense", "moe", "ssm", "hybrid"}
+    """With tests/test_torch_lm_expert_parallel_serve.py's cases (the
+    experts and the vision cross-attention on "model")."""
+    from tests.test_torch_lm_expert_parallel_serve import CASES as EP
+    cases = {**CASES, **EP}
+    assert {c[-1] for c in cases.values()} == {"kv_heads", "kv_seq", None}
+    assert {smoke(c[0], "float32").family for c in cases.values()} == {
+        "dense", "moe", "ssm", "hybrid", "vlm"}

@@ -55,12 +55,18 @@ IDS = [f"{a}{'-6heads' if kw else ''}-{d}x{m}" for a, (d, m), kw in CASES]
 STEPS = 3
 
 
-def _jax_steps(arch, kw):
+def _jax_steps(arch, kw, embeds_f32=False):
+    """JAX's initial state, batches, losses and states after each of STEPS
+    jitted steps (numpy); `embeds_f32`: the batches' vision embeddings cast
+    to float32."""
     cfg = smoke(arch, "float32", **dict(kw))
     jm = jbuild_model(cfg, JRunConfig(**RUN))
     state, _ = jinit_train_state(jm, jax.random.PRNGKey(0))
     init = to_numpy(state)
     batches = [to_numpy(jbatch_for(cfg, SHAPE, step=s)) for s in range(STEPS)]
+    if embeds_f32:
+        batches = [{k: v.astype(np.float32) if k == "vision_embeds" else v
+                    for k, v in b.items()} for b in batches]
     step = jax.jit(jmake_train_step(jm, JAdamWConfig(**OPT)))
     losses, states = [], []
     for b in batches:

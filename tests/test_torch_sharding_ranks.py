@@ -1,6 +1,7 @@
 """Rank side of tests/test_torch_sharding.py,
 tests/test_torch_distributed_embed.py, tests/test_torch_lm_sharding.py,
-tests/test_torch_lm_tensor_parallel.py and tests/test_torch_lm_serve_mesh.py:
+tests/test_torch_lm_tensor_parallel.py, tests/test_torch_lm_serve_mesh.py
+and tests/test_torch_lm_expert_parallel*.py:
 the port's mesh backends (the row-sharded sparse one and the 2-D-sharded
 dense one), its meshes, the LM's sharded train step, its collectives and
 its sharded prefill and decode run inside a gloo process group on the CPU.
@@ -414,10 +415,11 @@ def _lm_mesh_state(arch, compute, run, state, cfg_kw):
     from repro_torch.models import build_model, init_train_state
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=compute,
-                              **cfg_kw)
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=compute)
     if cfg.num_experts:        # tests/test_torch_lm_models.py's smoke()
         cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    # the overrides last: a case may set its own capacity factor
+    cfg = dataclasses.replace(cfg, **cfg_kw)
     model = build_model(cfg, RunConfig(**run))
     if state is None:
         return model, None, None
@@ -614,6 +616,48 @@ def job_collectives(seed):
     return out
 
 
+def job_moe_grad(cases):
+    """For each case ({name: (arch, config overrides, mesh shape, one MoE
+    layer's whole params, x (B, S, D), the upstream gradient (B, S, D))}):
+    the MoE layer under the tensor-parallel context on this rank's blocks
+    of the params and its rows of x, and the gradient of the sum of its
+    output times the upstream gradient.  Returns the output and x's
+    gradient (every row, gathered over the FSDP axes), the params'
+    gradients gathered from the blocks' and the "model" split dim of each
+    leaf as the layer reads it."""
+    from repro_torch.distributed.collectives import (TensorParallel,
+                                                     model_split)
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  tree_shardings)
+    from repro_torch.models import hooks
+    from repro_torch.models.layers import _MetaKey
+    from repro_torch.models.moe import init_moe, moe_ffn
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for name, (arch, cfg_kw, shape, params, x, g) in cases.items():
+        model, _, _ = _lm_mesh_state(arch, "float32", dict(remat="none"),
+                                     None, cfg_kw)
+        mesh = Mesh(shape)
+        _, axes = init_moe(_MetaKey(), model.cfg)
+        whole = convert.lm_tree_from_numpy(params, "cpu")
+        sh = tree_shardings(mesh, axes, whole)
+        blocks = tree_map(lambda s, t: s.shard(t).clone().requires_grad_(),
+                          sh, whole)
+        rows = batch_shardings(mesh, {"x": _t(x)})["x"]
+        xr = rows.local_view(_t(x)).clone().requires_grad_()
+        tp = TensorParallel(mesh, sh)
+        with hooks.tensor_parallel_scope(tp):
+            p = tp.gather_params(blocks, sh)
+            y = moe_ffn(p, model.cfg, xr)
+        (y * rows.local_view(_t(g))).sum().backward()
+        out[name] = {
+            "y": rows.gather(y.detach()), "x_grad": rows.gather(xr.grad),
+            "grads": tree_map(lambda s, b: s.gather(b.grad), sh, blocks),
+            "split": tree_map(model_split, p)}
+    return out
+
+
 JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "fit": job_fit, "budget": job_budget, "api": job_api,
         "resume": job_resume, "mesh_groups": job_mesh_groups,
@@ -621,4 +665,4 @@ JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "dense_mesh_fits": job_dense_mesh_fits,
         "dense_mesh_api": job_dense_mesh_api, "lm_train": job_lm_train,
         "lm_mesh_steps": job_lm_mesh_steps, "collectives": job_collectives,
-        "lm_serve_mesh": job_lm_serve_mesh}
+        "lm_serve_mesh": job_lm_serve_mesh, "moe_grad": job_moe_grad}
