@@ -354,9 +354,12 @@ Phases, each printing one line (or a few) and failing the run on error:
               those of `train_collective_bytes` / `serve_collective_bytes`.
               (d) rank 0's share of qwen2-7b train_4k on the 256-rank mesh
               on the card under the fake group, and (e) of decode_32k and
-              prefill_32k (2 of 28 groups): op streams equal to meta's,
-              `max_memory_allocated` within 10% of the estimate, warm calls
-              against the memory term.  No kernel of the five launches.
+              prefill_32k (2 of 28 groups), and of the other archs'
+              serving cells of DRYRUN_SERVE_SHARES: op streams equal to
+              meta's, the memory held before the call within 10% of the
+              arguments and DRYRUN_WORKSPACE_BYTES, `max_memory_allocated`
+              above it within 10% of the temp bytes, warm calls against
+              the memory term.  No kernel of the five launches.
 
 Every phase runs, at full width; the script takes no options.  The line
 before the last is a JSON record of every kernel; the last line is
@@ -5120,6 +5123,43 @@ LM_MESH_LAYOUTS = {"4 heads": {},
 # cast to float32, as tests/test_torch_lm_expert_parallel.py does: at bf16
 # each rank's partial K/V weight gradient rounds before the FSDP sum)
 LM_MESH_SMOKES = ("llama4-maverick-400b-a17b", "llama-3.2-vision-90b")
+# the SSM archs at full width on (1, 4), float32 compute, LM_MESH_STEPS
+# sharded steps of a rank's SSM heads against the one-rank step that rank 0
+# computes (rank 0's blocks held against their slices of it; every rank's
+# loss and grad norm, which cover every block, against the one rank's):
+# (arch, layers: its depth cut to one layer group).  rwkv6-7b: 64 heads,
+# 16 a rank; zamba2-2.7b: a group cut to 2 Mamba2 layers of 80 heads, 20 a
+# rank, and the shared attention (a sharded step of a 6-layer group took
+# 7.5-11.6 s on the card, most of it gloo's `in_proj` gathers).
+# LM_TRAIN_BATCH rows of
+# LM_MESH_SSM_SEQ tokens: the time loops run a Python step a token on four
+# ranks that share the card and the host
+LM_MESH_SSM = (("rwkv6-7b", 1), ("zamba2-2.7b", 2))
+LM_MESH_SSM_SEQ = 16
+# the SSM runs' moments, held within this fraction of their leaf's scale
+# (or phase lm_train's tree bound): the f32 sums that a rank's heads order
+# apart move the moments of leaves whose gradients' terms cancel by up to
+# 3.83e-4 of their scale on the card (rwkv6-7b's lora_A at step 2;
+# zamba2-2.7b's embedding table 1.96e-4, its shared attention's wk
+# 1.12e-4), as far as float32 itself carries them (JAX's own f32 moments
+# of RWKV6's `u` lie up to 3.5e-4 of their scale from a float64 step's on
+# the CPU, tests/test_torch_lm_ssm_parallel.py)
+LM_MESH_SSM_MOMENT = 1e-3
+# the SSM runs' grad_norm, within this fraction of the one rank's (the loss
+# within phase lm_train's): the norm sums the squares of those gradients
+# (zamba2-2.7b's 1.39e-5 of the one rank's at step 2 on the card)
+LM_MESH_SSM_NORM = 1e-4
+# (grad_norm's fraction of the one rank's, a param's of the summed learning
+# rates, a moment's of its leaf's scale) for the runs against the one rank:
+# the smokes at the float32 bounds; the SSM runs at LM_MESH_SSM_NORM and
+# LM_MESH_SSM_MOMENT, and a param within LM_MESH_BF16_LR of the summed rates,
+# AdamW's ceiling: a near-zero gradient of the other sign moved zamba2-2.7b's
+# embedding table by 1.33 of the first step's rate on the card, so the
+# param check there catches only an update that AdamW cannot make, and the
+# moments and grad_norm carry the check of the gradients
+LM_MESH_SMOKE_BOUNDS = (LM_TRAIN_TOL_SCALAR, LM_MESH_LR_FRACTION,
+                        LM_TRAIN_TOL_LEAF)
+LM_MESH_SSM_BOUNDS = (LM_MESH_SSM_NORM, LM_MESH_BF16_LR, LM_MESH_SSM_MOMENT)
 LM_MESH_DIR = ROOT / "build" / "chip_smoke_lm_mesh"   # git-ignored
 LM_MESH_WAIT_S = 600     # a rank or the reference waiting on the other side
 
@@ -5131,11 +5171,11 @@ def _lm_mesh_cfg(compute: str):
     return dataclasses.replace(cfg, compute_dtype=compute)
 
 
-def _lm_mesh_batch(cfg, step: int):
+def _lm_mesh_batch(cfg, step: int, seq: int = LM_TRAIN_SEQ):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import batch_for
 
-    seq = LM_TRAIN_SMOKE["seq"] if LM_DEVICE == "cpu" else LM_TRAIN_SEQ
+    seq = LM_TRAIN_SMOKE["seq"] if LM_DEVICE == "cpu" else seq
     return batch_for(cfg, ShapeConfig("train", "train", seq, LM_TRAIN_BATCH),
                      step=step, device=LM_DEVICE)
 
@@ -5165,7 +5205,7 @@ def _lm_mesh_rank(rank: int, world: int, store: str, shape: dict, ref: list,
     step this rank's blocks against their slices of the reference, the
     largest gaps and scales reduced over the ranks."""
     global LM_DEVICE
-    from repro_torch.configs import RunConfig
+    from repro_torch.configs import RunConfig, get_smoke_config
     from repro_torch.distributed.sharding import make_activation_constraint
     from repro_torch.launch import Mesh
     from repro_torch.launch.train import init_sharded_state
@@ -5237,8 +5277,17 @@ def _lm_mesh_rank(rank: int, world: int, store: str, shape: dict, ref: list,
                 torch.cuda.empty_cache()
         if shape == {"data": 1, "model": 4}:
             out["layouts"] = _lm_mesh_layouts(mesh, run)
+            out["against_one"] = _lm_mesh_against_one(
+                mesh, run, {arch: _lm_ssm_cfg(arch, layers)
+                            for arch, layers in LM_MESH_SSM},
+                LM_TRAIN_BATCH, LM_MESH_SSM_SEQ, False, LM_MESH_SSM_BOUNDS)
         if shape == {"data": 2, "model": 2}:
-            out["smokes"] = _lm_mesh_smokes(mesh, run)
+            out["against_one"] = _lm_mesh_against_one(
+                mesh, run, {f"{arch} smoke": dataclasses.replace(
+                    get_smoke_config(arch), compute_dtype="float32")
+                    for arch in LM_MESH_SMOKES},
+                LM_TRAIN_SMOKE["batch"], LM_TRAIN_SMOKE["seq"], True,
+                LM_MESH_SMOKE_BOUNDS)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -5301,78 +5350,128 @@ def _lm_mesh_layouts(mesh, run) -> dict:
     return out
 
 
-def _lm_mesh_smokes(mesh, run) -> dict:
-    """LM_MESH_SMOKES at float32 compute on `mesh`: from
-    `init_train_state(0)`, the one-rank step and the sharded step on its
-    blocks, LM_MESH_STEPS steps on the same batches; after each step the
-    blocks against their slices of the one rank's state, the largest gaps
-    and scales reduced over the ranks.  Returns {arch: {"losses", "norms",
-    "one_losses", "one_norms", "lrs", "gaps", "paths"}}."""
-    from repro_torch.configs import get_smoke_config
+def _lm_ssm_cfg(arch: str, layers: int):
+    """`arch` at full width with `layers` layers, one layer group (its smoke
+    config on the CPU), float32 compute."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if LM_DEVICE == "cpu":
+        cfg = get_smoke_config(arch)
+    else:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        if cfg.family == "hybrid":     # one group of `layers` Mamba2 layers
+            cfg = dataclasses.replace(cfg, shared_attn_every=layers)
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def _lm_mesh_against_one(mesh, run, cfgs: dict, rows: int, seq: int,
+                         everyone: bool, bounds: tuple) -> dict:
+    """Each of `cfgs` ({name: config}) on `mesh`: every rank cuts
+    `init_params(0)` into its blocks (`init_sharded_state`) and the
+    one-rank step steps the whole state from `init_train_state(0)` on every
+    rank (`everyone`) or on rank 0 alone while the others wait;
+    LM_MESH_STEPS sharded steps on the same batches (`rows` x `seq`
+    tokens, vision embeddings cast to float32), each timed; after each
+    step the blocks of every float leaf against their slices of the
+    one-rank state, the largest gaps and scales reduced over the ranks
+    that step it.  Returns {name: {"losses", "norms", "ms", "one_losses",
+    "one_norms", "one_ms", "lrs", "gaps", "paths", "heads", "peak",
+    "bounds", "everyone"}}: `heads` (a mixer's heads, the "model" size) for the SSM
+    families, `bounds` the run's (`_lm_mesh_check`)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import batch_for
     from repro_torch.distributed.sharding import make_activation_constraint
-    from repro_torch.launch.train import state_shardings
+    from repro_torch.launch.train import init_sharded_state
     from repro_torch.models import (build_model, hooks, init_train_state,
                                     make_train_step)
+    from repro_torch.models.ssm import n_heads
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.tree import tree_map
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+
+    def timed(fn, *args):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
 
     out = {}
-    for arch in LM_MESH_SMOKES:
-        cfg = dataclasses.replace(get_smoke_config(arch),
-                                  compute_dtype="float32")
+    for name, cfg in cfgs.items():
         model = build_model(cfg, run)
-        ref, axes = init_train_state(model, 0, device=LM_DEVICE)
-        sh = state_shardings(mesh, axes, ref)
-        # copies: the steps write into their states' tensors
-        state = tree_map(lambda s, x: s.shard(x).clone(), sh, ref)
-        one = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        state, sh, _ = init_sharded_state(model, mesh, LM_DEVICE)
+        ref = one = None
+        if everyone or mesh.rank == 0:
+            ref, _ = init_train_state(model, 0, device=LM_DEVICE)
+            one = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT))
         step = make_train_step(model, AdamWConfig(**LM_TRAIN_OPT),
                                grad_shardings=sh["params"])
         floats = _lm_mesh_floats(sh)
-        rec = {"losses": [], "norms": [], "one_losses": [], "one_norms": [],
-               "lrs": [], "gaps": [], "paths": [p for p, _ in floats]}
+        mixer = {"ssm": "rwkv", "hybrid": "mamba"}.get(cfg.family)
+        rec = {"losses": [], "norms": [], "ms": [], "one_losses": [],
+               "one_norms": [], "one_ms": [], "lrs": [], "gaps": [],
+               "paths": [p for p, _ in floats], "bounds": bounds,
+               "everyone": everyone, "heads": mixer and (n_heads(cfg, mixer), mesh.shape["model"])}
         for k in range(LM_MESH_STEPS):
-            batch = batch_for(cfg, ShapeConfig(
-                "t", "train", LM_TRAIN_SMOKE["seq"], LM_TRAIN_SMOKE["batch"]),
-                step=k, device=LM_DEVICE)
+            batch = batch_for(cfg, ShapeConfig("t", "train", seq, rows),
+                              step=k, device=LM_DEVICE)
             if "vision_embeds" in batch:
                 batch["vision_embeds"] = batch["vision_embeds"].float()
-            ref, met = one(ref, batch)
-            rec["one_losses"].append(float(met["loss"]))
-            rec["one_norms"].append(float(met["grad_norm"]))
-            rec["lrs"].append(float(met["lr"]))
+            if one is not None:
+                (ref, met), ms = timed(one, ref, batch)
+                rec["one_ms"].append(ms)
+                rec["one_losses"].append(float(met["loss"]))
+                rec["one_norms"].append(float(met["grad_norm"]))
+                rec["lrs"].append(float(met["lr"]))
+            dist.barrier()
             hooks.set_activation_constraint(
                 make_activation_constraint(mesh, run))
             try:
-                state, met = step(state, batch)
+                (state, met), ms = timed(step, state, batch)
             finally:
                 hooks.set_activation_constraint(None)
+            rec["ms"].append(ms)
             rec["losses"].append(float(met["loss"]))
             rec["norms"].append(float(met["grad_norm"]))
-            mine = [t for _, t in _lm_mesh_floats(state)]
-            whole = [t for _, t in _lm_mesh_floats(ref)]
-            gaps = torch.stack([
-                torch.stack([(b - s.local_view(r)).abs().max(),
-                             s.local_view(r).abs().max()])
-                for b, (_, s), r in zip(mine, floats, whole)]).float()
-            dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
-            rec["gaps"].append(gaps.cpu())
-        out[arch] = rec
-        del ref, state, one, step
+            if ref is not None:
+                mine = [t for _, t in _lm_mesh_floats(state)]
+                whole = [t for _, t in _lm_mesh_floats(ref)]
+                gaps = torch.stack([
+                    torch.stack([(b - s.local_view(r)).abs().max(),
+                                 s.local_view(r).abs().max()])
+                    for b, (_, s), r in zip(mine, floats, whole)]).float()
+                if everyone:
+                    dist.all_reduce(gaps, op=dist.ReduceOp.MAX)
+                rec["gaps"].append(gaps.cpu())
+                del mine, whole, gaps
+            del batch, met
+        rec["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        out[name] = rec
+        del state, ref, step, one
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
     return out
 
 
 def _lm_mesh_held(tag: str, paths: list, gaps, lr_sum: float,
-                  held: bool) -> tuple[float, float, float]:
+                  held: bool, lr_fraction: float = LM_MESH_LR_FRACTION,
+                  moment: float = LM_TRAIN_TOL_LEAF
+                  ) -> tuple[float, float, float]:
     """Bounds on the ranks' reduced (gap, scale) a leaf.  Float32
     (`held`): `_lm_train_held`'s, within LM_TRAIN_TOL_LEAF of the leaf's
     scale or LM_TRAIN_TOL_TREE of its tree's, a param also within
     LM_MESH_LR_FRACTION of `lr_sum`, the learning rates of the steps so
-    far.  Bf16: a moment within LM_MESH_BF16_MOMENT of its leaf's scale, a
-    param within LM_MESH_BF16_LR of `lr_sum`.  Returns the largest gap of
-    a leaf's scale, of a moment leaf's scale and a param's of `lr_sum`."""
+    far (`lr_fraction` of it), a moment within `moment` of its scale or
+    the tree bound.  Bf16: a moment within LM_MESH_BF16_MOMENT of its
+    leaf's scale, a param within LM_MESH_BF16_LR of `lr_sum`.  Returns the
+    largest gap of a leaf's scale, of a moment leaf's scale and a param's
+    of `lr_sum`."""
     def tree(path):
         parts = path.split("/")
         return "/".join(parts[:3] if parts[1] == "opt" else parts[:2])
@@ -5384,9 +5483,9 @@ def _lm_mesh_held(tag: str, paths: list, gaps, lr_sum: float,
     for path, (err, scale) in zip(paths, gaps.tolist()):
         param = path.startswith("/params/")
         if held:
-            bound = max(LM_TRAIN_TOL_LEAF * scale,
+            bound = max((LM_TRAIN_TOL_LEAF if param else moment) * scale,
                         LM_TRAIN_TOL_TREE * tops[tree(path)],
-                        LM_MESH_LR_FRACTION * lr_sum if param else 0.0)
+                        lr_fraction * lr_sum if param else 0.0)
         else:
             bound = (LM_MESH_BF16_LR * lr_sum if param
                      else LM_MESH_BF16_MOMENT * scale)
@@ -5400,6 +5499,56 @@ def _lm_mesh_held(tag: str, paths: list, gaps, lr_sum: float,
         if param:
             worst_lr = max(worst_lr, err / lr_sum)
     return worst, worst_moment, worst_lr
+
+
+def _lm_mesh_check(tag: str, name: str, got: list, card: str) -> str:
+    """A run of `_lm_mesh_against_one` (each rank's record): the ranks'
+    losses and norms bit-identical, each step's loss within
+    LM_TRAIN_TOL_SCALAR of the one rank's, grad_norm and the leaves within
+    the run's bounds (grad_norm's fraction of the one rank's, a param's
+    fraction of the summed learning rates, a moment's of its leaf's scale:
+    `_lm_mesh_held`).  Returns the run's line."""
+    want = got[0]
+    if any(g["losses"] != want["losses"] or g["norms"] != want["norms"]
+           for g in got):
+        raise AssertionError(f"lm_train_mesh {tag} {name}: the ranks' "
+                             f"losses or norms differ")
+    norm_tol, lr_fraction, moment = want["bounds"]
+    worst = []
+    for k in range(LM_MESH_STEPS):
+        for what, a, b, tol in (
+                ("loss", want["one_losses"][k], want["losses"][k],
+                 LM_TRAIN_TOL_SCALAR),
+                ("grad_norm", want["one_norms"][k], want["norms"][k],
+                 norm_tol)):
+            if not abs(a - b) <= tol * abs(a):
+                raise AssertionError(f"lm_train_mesh {tag} {name} step "
+                                     f"{k + 1}: {what} {b} vs {a}")
+        say("lm_train_mesh", f"{tag} {name} step {k + 1}: largest leaf gaps "
+                             f"of their scale: "
+                             f"{_lm_mesh_gaps(want['paths'], want['gaps'][k])}")
+        worst.append(_lm_mesh_held(
+            f"{tag} {name} step {k + 1}", want["paths"], want["gaps"][k],
+            sum(want["lrs"][:k + 1]), True, lr_fraction, moment))
+    heads = ""
+    if want["heads"]:
+        H, m = want["heads"]
+        heads = f"{H} SSM heads, {H // m} a rank; "
+    return (f"{tag} {name} float32 on {card}: {heads}{LM_MESH_STEPS} sharded"
+            f" steps against the one-rank step ("
+            f"{'every rank' if want['everyone'] else 'rank 0'}'s blocks), the loss within {LM_TRAIN_TOL_SCALAR}, grad_norm "
+            f"within {norm_tol}, a moment within {moment} of its scale, a "
+            f"param within {lr_fraction} of the summed learning rates or "
+            f"phase lm_train's leaf bound; largest leaf gap "
+            f"{max(w[0] for w in worst):.2e} of its scale, a moment "
+            f"{max(w[1] for w in worst):.2e}, a param "
+            f"{max(w[2] for w in worst):.3f} of the rates; losses "
+            f"{want['losses']} bit-identical on the {len(got)} ranks (one "
+            f"rank {want['one_losses']}); ms a step (slowest rank) "
+            f"{[round(max(g['ms'][k] for g in got), 1) for k in range(LM_MESH_STEPS)]}"
+            f", the one-rank step {[round(x, 1) for x in want['one_ms']]}; "
+            f"peak memory a rank {[round(g['peak'] / 1e9, 2) for g in got]} "
+            f"GB")
 
 
 def _lm_mesh_gaps(paths: list, gaps) -> str:
@@ -5572,34 +5721,9 @@ def _lm_mesh_run(shape: dict, card: str) -> list:
             f"{[round(g['step_peak'] / 1e9, 2) for g in got]} GB in the "
             f"steps, {[round(g['init_peak'] / 1e9, 2) for g in got]} GB "
             f"while cutting the whole params into blocks")
-    for arch in ranks[0].get("smokes", {}):
-        got = [r["smokes"][arch] for r in ranks]
-        want = got[0]
-        if any(g["losses"] != want["losses"] or g["norms"] != want["norms"]
-               for g in got):
-            raise AssertionError(f"lm_train_mesh {tag} {arch} smoke: the "
-                                 f"ranks' losses or norms differ")
-        worst = []
-        for k in range(LM_MESH_STEPS):
-            for name, a, b in (("loss", want["one_losses"][k],
-                                want["losses"][k]),
-                               ("grad_norm", want["one_norms"][k],
-                                want["norms"][k])):
-                if not abs(a - b) <= LM_TRAIN_TOL_SCALAR * abs(a):
-                    raise AssertionError(f"lm_train_mesh {tag} {arch} smoke"
-                                         f" step {k + 1}: {name} {b} vs {a}")
-            worst.append(_lm_mesh_held(
-                f"{tag} {arch} smoke step {k + 1}", want["paths"],
-                want["gaps"][k], sum(want["lrs"][:k + 1]), True))
-        lines.append(f"{tag} {arch} smoke float32 on {card}: "
-                     f"{LM_MESH_STEPS} sharded steps held at phase lm_train"
-                     f" bounds against the one-rank step (a param also "
-                     f"within {LM_MESH_LR_FRACTION} of the summed learning "
-                     f"rates), largest leaf gap "
-                     f"{max(w[0] for w in worst):.2e} of its scale, a param"
-                     f" {max(w[2] for w in worst):.3f} of the rates; losses "
-                     f"{want['losses']} bit-identical on the {world} ranks "
-                     f"(one rank {want['one_losses']})")
+    for name in ranks[0].get("against_one", {}):
+        lines.append(_lm_mesh_check(
+            tag, name, [r["against_one"][name] for r in ranks], card))
     for key in ranks[0].get("layouts", {}):
         recs = [r["layouts"][key] for r in ranks]
         if not all(same and not ops for same, ops, _ in recs) or len(
@@ -5702,6 +5826,11 @@ LM_SERVE_MESH_SMOKE = {"batch": 4, "prompt": 10, "steps": 4, "max_len": 16}
 # which the ranks draw whole on the card in turn (four whole draws at once
 # do not fit beside each other) and cut into blocks; float32 compute
 LM_SERVE_MESH_GROK_STEPS = 4
+# the SSM archs of LM_MESH_SSM at full width on (1, 4), float32: each rank
+# on its heads' block of the `wkv` / `ssm` state against the one-rank
+# prefill of LM_SERVE_MESH_PROMPT tokens and this many teacher-forced
+# decode steps (each from the one rank's caches)
+LM_SERVE_MESH_SSM_STEPS = 4
 
 
 def _lm_serve_mesh_cfg(compute: str):
@@ -5772,8 +5901,75 @@ def _lm_serve_mesh_reference(path: Path) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     ref["grok"], ms["grok"] = _lm_serve_mesh_grok_reference()
+    ref["ssm"], ms["ssm"] = {}, {}
+    for arch, layers in LM_MESH_SSM:
+        ref["ssm"][arch], ms["ssm"][arch] = _lm_serve_mesh_ssm_reference(
+            arch, layers)
     torch.save(ref, path)
     return ms
+
+
+def _lm_serve_mesh_ssm_reference(arch: str, layers: int) -> tuple:
+    """The one-rank prefill and LM_SERVE_MESH_SSM_STEPS teacher-forced
+    decode steps of `arch` (`_lm_ssm_cfg`) from `init_params(0)`, on the
+    CPU: ({"batch", "outs"}, the ms of each call)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.models import build_model
+
+    cfg = _lm_ssm_cfg(arch, layers)
+    model = build_model(cfg, RunConfig(remat="none"))
+    params, _ = model.init_params(0, device=LM_DEVICE)
+    T, n = LM_SERVE_MESH_PROMPT, LM_SERVE_MESH_SSM_STEPS
+    full = batch_for(cfg, ShapeConfig("p", "prefill", T + n,
+                                      LM_SERVE_MESH_BATCH), device=LM_DEVICE)
+    outs, times = _lm_one_rank_calls(model, params, full, T, n, T + n)
+    del params
+    if torch.device(LM_DEVICE).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"batch": _lm_to(full, "cpu"), "outs": outs}, times
+
+
+def _lm_serve_mesh_ssm(mesh, ref: dict) -> dict:
+    """LM_MESH_SSM's archs on `mesh`: each rank cuts `init_params(0)` into
+    its blocks and serves the reference's prompt and steps against its
+    outputs (`_lm_serve_mesh_calls`); with the spec of the heads' state
+    and of its `x_prev` or `conv`, and this rank's block of the heads'
+    state."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cuda = torch.device(LM_DEVICE).type == "cuda"
+    out = {}
+    for arch, layers in LM_MESH_SSM:
+        model = build_model(_lm_ssm_cfg(arch, layers), RunConfig(remat="none"))
+        params, axes = model.init_params(0, device=LM_DEVICE)
+        sh = tree_shardings(mesh, axes, params)
+        blocks = tree_map(lambda s, x: s.shard(x).clone(), sh, params)
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        n = LM_SERVE_MESH_SSM_STEPS
+        rec = _lm_serve_mesh_calls(mesh, model, sh, blocks,
+                                   _lm_to(ref[arch]["batch"], LM_DEVICE),
+                                   LM_SERVE_MESH_PROMPT, n,
+                                   LM_SERVE_MESH_PROMPT + n,
+                                   ref[arch]["outs"])
+        csh = model.cache_shardings(mesh, LM_SERVE_MESH_BATCH,
+                                    LM_SERVE_MESH_PROMPT + n)["slots"][0]
+        st = csh["tm"] if "tm" in csh else csh
+        heads, whole = ("wkv", "x_prev") if "tm" in csh else ("ssm", "conv")
+        rec["specs"] = {k: tuple(st[k].spec) for k in (heads, whole)}
+        rec["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        out[arch] = rec
+        del blocks
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
 
 
 def _lm_serve_mesh_grok_cfg():
@@ -5873,6 +6069,7 @@ def _lm_serve_mesh_rank(rank: int, world: int, store: str, ref_path: str,
             if shape == {"data": 1, "model": 4}:
                 out["kv_seq"] = _lm_serve_kvseq(mesh)
                 out["grok"] = _lm_serve_mesh_grok(mesh, ref["grok"])
+                out["ssm"] = _lm_serve_mesh_ssm(mesh, ref["ssm"])
             out["smokes", tag] = _lm_serve_mesh_smokes(mesh, tag)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
@@ -6248,6 +6445,35 @@ def lm_serve_mesh_child() -> int:
                          f"GB while the ranks draw in turn and cut")
     rec["1x4 grok-1"] = {"gaps": gaps, "ms": ms, "one_rank_ms": one,
                          "peak_gb": [g["peak"] / 1e9 for g in got]}
+    for arch, layers in LM_MESH_SSM:
+        got = [r["ssm"][arch] for r in ranks if "ssm" in r]
+        gaps, cache_gap, ms = held(f"1x4 {arch}", got)
+        specs = got[0]["specs"]
+        heads, whole = specs.values()
+        if not (heads[2] == "model" and "model" not in whole):
+            raise AssertionError(f"lm_serve_mesh 1x4 {arch}: the state's "
+                                 f"specs {specs}")
+        cfg = _lm_ssm_cfg(arch, layers)
+        one = ref_ms["ssm"][arch]
+        say("lm_serve_mesh", f"1x4 {cfg.name} on {card}: {cfg.num_layers} "
+                             f"layers (depth cut), d_model {cfg.d_model}, "
+                             f"float32; the state's specs {specs}; "
+                             f"{LM_SERVE_MESH_BATCH} x ({LM_SERVE_MESH_PROMPT}"
+                             f" + {LM_SERVE_MESH_SSM_STEPS}) tokens: the "
+                             f"logits within {max(gaps):.2e} of their scale "
+                             f"of the one rank's (bound {tol:.0e}; by call "
+                             f"{[f'{g:.1e}' for g in gaps]}), the f32 states "
+                             f"within {cache_gap:.2e} of a leaf's scale, the "
+                             f"bf16 caches within one ulp; every rank's "
+                             f"logits the same bits; ms (slowest rank) "
+                             f"prefill {ms[0]:.1f}, a decode step p50 "
+                             f"{np.percentile(ms[1:], 50):.1f}; the one rank "
+                             f"prefill {one[0]:.1f}, a step p50 "
+                             f"{np.percentile(one[1:], 50):.1f}; peak memory "
+                             f"a rank {[round(g['peak'] / 1e9, 2) for g in got]}"
+                             f" GB serving")
+        rec[f"1x4 {arch}"] = {"gaps": gaps, "ms": ms, "one_rank_ms": one,
+                              "peak_gb": [g["peak"] / 1e9 for g in got]}
     counts = {**pairwise.launch_counts, **sparse_attractive.launch_counts,
               **farfield.launch_counts}
     if any(counts.values()):
@@ -6267,6 +6493,10 @@ def phase_lm_serve_mesh() -> dict:
 
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"   # git-ignored
 DRYRUN_MEM_TOL = 0.10      # live-bytes estimate against max_memory_allocated
+# what phase dryrun (e) allows beside a share's arguments before its call:
+# cuBLAS's workspaces, which the caching allocator holds once a matmul has
+# run (the card read 67-68 MB there on every share, PERF.md)
+DRYRUN_WORKSPACE_BYTES = 64 * 2 ** 20
 DRYRUN_TIMED_STEPS = 3
 DRYRUN_MESH_N = 20000      # the dense-mesh tile, EE, f32 (phase fit_dense_mesh)
 DRYRUN_CARD_BYTES = 80e9   # an H100's HBM
@@ -6719,12 +6949,17 @@ def _dryrun_share(card: str) -> dict:
 #: llama-3.2-vision-90b prefill_32k cut to 1 of 20 groups (a cross slot and
 #: 4 attention slots, 4 of 64 heads a rank); grok-1 prefill_32k cut to 2 of
 #: 64 (every expert's 2048 of 32768 hidden units a rank, the whole
-#: dispatch of its rows' 32768 tokens)
+#: dispatch of its rows' 32768 tokens); rwkv6-7b decode_32k whole (32
+#: layers, 4 of 64 heads a rank: its `wkv` state's block); zamba2-2.7b
+#: decode_32k whole (9 groups of 6 Mamba2 layers, 5 of 80 heads a rank,
+#: and the shared attention's 4096-slot window)
 DRYRUN_SERVE_SHARES = (("qwen2-7b", "decode_32k", 28),
                        ("qwen2-7b", "prefill_32k", 2),
                        ("llama4-maverick-400b-a17b", "decode_32k", 24),
                        ("llama-3.2-vision-90b", "prefill_32k", 1),
-                       ("grok-1-314b", "prefill_32k", 2))
+                       ("grok-1-314b", "prefill_32k", 2),
+                       ("rwkv6-7b", "decode_32k", 32),
+                       ("zamba2-2.7b", "decode_32k", 9))
 
 
 def _dryrun_serve_share(card: str, arch: str, shape_name: str,
@@ -6736,10 +6971,13 @@ def _dryrun_serve_share(card: str, arch: str, shape_name: str,
     the slots over "model", "kv_seq"),
     under the fake process group of 256 ranks: the values are not held.
     The op stream, FLOPs and bytes on meta and on the card must be equal,
-    the card's max_memory_allocated below 80 GB and within DRYRUN_MEM_TOL
-    of the counter's estimate; three warm calls are timed beside their
-    memory term.  A CPU rehearsal counts the smoke config on a 64-token
-    cell of 32 rows."""
+    the card's max_memory_allocated below 80 GB, and its two halves each
+    within DRYRUN_MEM_TOL of the counter's: what the process holds before
+    the call against the arguments and DRYRUN_WORKSPACE_BYTES (a share of
+    a few hundred MB would notice the warm-up's cuBLAS workspaces), what
+    the call adds at its peak against the temp bytes; three warm calls are
+    timed beside their memory term.  A CPU rehearsal counts the
+    smoke config on a 64-token cell of 32 rows."""
     from repro_torch.configs import SHAPES, get_config, get_smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import make_activation_constraint
@@ -6794,6 +7032,7 @@ def _dryrun_serve_share(card: str, arch: str, shape_name: str,
         warm_s = time.perf_counter() - t0
         if cuda:
             torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() if cuda else 0
         with hlo_cost.CostCounter() as card_cc:
             out = fn(*args)
             wait()
@@ -6825,6 +7064,10 @@ def _dryrun_serve_share(card: str, arch: str, shape_name: str,
                              f"cost "
                              f"{card_cost} differs from meta's {meta_cost}")
     est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    # (before the call, the call's own) against the count, of the count
+    gaps = [(x / want - 1) if cuda else 0.0 for x, want in (
+        (before, mem["argument_size_in_bytes"] + DRYRUN_WORKSPACE_BYTES),
+        (peak - before, mem["temp_size_in_bytes"]))]
     cut_cfg = dataclasses.replace(cfg, num_layers=values["groups"])
     roof = rl.analyze(meta_cost, mesh.size, rl.model_flops_for(cut_cfg,
                                                                  shape))
@@ -6840,12 +7083,14 @@ def _dryrun_serve_share(card: str, arch: str, shape_name: str,
                   f"dispatch the same {sum(meta_ops.values())} ops "
                   f"({len(meta_ops)} distinct), FLOPs {meta_cost.flops:.6e}"
                   f" and bytes {meta_cost.bytes:.6e} equal; "
-                  f"max_memory_allocated {peak / 1e9:.3f} GB against the "
-                  f"estimate (arguments "
-                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} + temp "
-                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB) "
-                  f"{est / 1e9:.3f} GB "
-                  f"({(est / peak - 1) * 100 if peak else 0.0:+.2f}%, limit "
+                  f"max_memory_allocated {peak / 1e9:.3f} GB: before the "
+                  f"call {before / 1e9:.3f} GB against the arguments "
+                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} + "
+                  f"{DRYRUN_WORKSPACE_BYTES / 1e9:.3f} GB of workspaces "
+                  f"({gaps[0] * 100:+.2f}%), the call's own "
+                  f"{(peak - before) / 1e9:.3f} GB against the temp "
+                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB "
+                  f"({gaps[1] * 100:+.2f}%; limit "
                   f"{DRYRUN_MEM_TOL:.0%}); warm calls "
                   f"{[round(x, 2) for x in ms]} ms against the memory term "
                   f"{roof.memory_s * 1e3:.2f} ms (share "
@@ -6854,15 +7099,17 @@ def _dryrun_serve_share(card: str, arch: str, shape_name: str,
                   f"{roof.collective_s * 1e3:.2f} ms: nothing moves under "
                   f"the fake group); the first call {warm_s:.1f} s, the meta "
                   f"count {meta_s:.1f} s")
-    if cuda and not (peak < DRYRUN_CARD_BYTES
-                     and abs(est / peak - 1) <= DRYRUN_MEM_TOL):
+    if cuda and not (peak < DRYRUN_CARD_BYTES and max(map(abs, gaps))
+                     <= DRYRUN_MEM_TOL):
         raise AssertionError(f"dryrun (e) {arch} {shape_name}: "
-                             f"max_memory_allocated {peak / 1e9:.3f} GB "
-                             f"against the estimate {est / 1e9:.3f} GB "
-                             f"(limit {DRYRUN_MEM_TOL:.0%}, and below "
-                             f"{DRYRUN_CARD_BYTES / 1e9:.0f} GB)")
+                             f"max_memory_allocated {peak / 1e9:.3f} GB, "
+                             f"{before / 1e9:.3f} GB before the call: the "
+                             f"arguments' and the temp bytes' gaps "
+                             f"{gaps} (limit {DRYRUN_MEM_TOL:.0%}, and "
+                             f"below {DRYRUN_CARD_BYTES / 1e9:.0f} GB)")
     return {"ops": sum(meta_ops.values()), "groups": values["groups"],
-            "estimate_gb": est / 1e9, "peak_gb": peak / 1e9, "ms": ms,
+            "estimate_gb": est / 1e9, "peak_gb": peak / 1e9,
+            "before_gb": before / 1e9, "ms": ms,
             "memory_ms": roof.memory_s * 1e3,
             "compute_ms": roof.compute_s * 1e3}
 

@@ -13,6 +13,8 @@ does, with the backward each forward implies:
   `reduce_from`          all-reduce (sum)            identity
   `gather_from`          all-gather along a dim      this rank's slice
   `scatter_to`           this rank's slice           all-gather
+  `reduce_scatter_from`  reduce-scatter along a dim  all-gather
+  `psum`                 all-reduce (sum)            all-reduce (sum)
   =====================  ==========================  ========================
 
 `gather` feeds compute that each rank does on its own part (a param block
@@ -20,7 +22,11 @@ gathered over the FSDP axes: the ranks' gradients differ and are summed
 onto the blocks); `gather_from` feeds compute that every rank of the group
 repeats (its gradient is the same on every rank, so a rank keeps its
 slice).  `copy_to` / `reduce_from` are Megatron's f / g pair around a
-column- and a row-parallel matmul.
+column- and a row-parallel matmul.  `reduce_scatter_from` sums partial
+products onto this rank's slice of their columns (RWKV6's channel mix,
+whose gate is column-parallel); `psum` is a sum that every rank reads for
+its own part alone (Mamba2's RMSNorm over d_inner: each rank's gradient of
+the sum covers its columns, so the backward sums them too).
 
 `TensorParallel` binds them to a mesh: the FSDP group (`fsdp_axes`) and the
 "model" group, and the params' `NamedSharding` tree.  `gather_params`
@@ -28,9 +34,10 @@ turns a subtree of this rank's blocks into what the layers compute with:
 each leaf gathered over the FSDP axes and, where it is split over "model",
 left as its "model" block and marked with the dim that is split
 (`model_split`: attention's heads, the MLPs' hidden units, the MoE
-layers' experts or hidden units, the vision cross-attention's heads), or,
-for `whole` subtrees (code that reads the leaf directly: the SSM mixers;
-the MoE load-balance loss's router), gathered over "model" too.  A leaf
+layers' experts or hidden units, the vision cross-attention's heads, the
+SSM mixers' heads), or, for `whole` subtrees (compute that every rank of
+"model" repeats: an SSM mixer whose heads do not divide over "model"; the
+MoE load-balance loss's router), gathered over "model" too.  A leaf
 the spec leaves whole on the FSDP axes is held the same on each FSDP rank;
 its gradient is summed there (`copy_to`).
 
@@ -156,6 +163,28 @@ class _GatherFrom(torch.autograd.Function):
         return local_slice(g, ctx.dim, ctx.ax), None, None
 
 
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return reduce_scatter(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.ax), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ax), None
+
+
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, ax):
@@ -190,6 +219,18 @@ def gather_from(x, dim: int, ax: Axis):
 def scatter_to(x, dim: int, ax: Axis):
     """This rank's slice along `dim` forward, all-gather backward."""
     return x if ax.size == 1 else _ScatterTo.apply(x, dim % x.ndim, ax)
+
+
+def reduce_scatter_from(x, dim: int, ax: Axis):
+    """This rank's slice along `dim` of the ranks' sum forward, all-gather
+    backward."""
+    return x if ax.size == 1 else _ReduceScatterFrom.apply(x, dim % x.ndim,
+                                                           ax)
+
+
+def psum(x, ax: Axis):
+    """All-reduce (sum) forward and backward."""
+    return x if ax.size == 1 else _Psum.apply(x, ax)
 
 
 # -- which dim of a tensor is split over "model" ---------------------------------------
@@ -264,6 +305,12 @@ class TensorParallel:
     def scatter_to_model(self, x, dim: int):
         return mark(scatter_to(x, dim, self.model), dim)
 
+    def reduce_scatter_from_model(self, x, dim: int):
+        return mark(reduce_scatter_from(x, dim, self.model), dim)
+
+    def psum_model(self, x):
+        return psum(x, self.model)
+
     def gather_over_model(self, x, dim: int):
         """`gather` over "model": for an activation that split compute
         reads whole (each rank's gradient of it differs)."""
@@ -281,8 +328,9 @@ class TensorParallel:
         subtree) and their `shardings`: each leaf gathered over the FSDP
         axes (reduce-scattered back in the backward) and kept as its
         "model" block, marked, or, with `whole` (compute that every rank of
-        "model" repeats: the SSM mixers, the MoE load-balance loss's
-        router), gathered over "model" too (`gather_from`).
+        "model" repeats: an SSM mixer whose heads do not divide over
+        "model", the MoE load-balance loss's router), gathered over
+        "model" too (`gather_from`).
         `layers`: the blocks are one layer group's, selected from stacked
         leaves whose specs begin with the unsplit "layers" dim."""
         flat, rebuild, _ = flatten(params)

@@ -57,14 +57,17 @@ bytes and collective bytes are polynomials in the layer groups G
 gradient of the whole stacked block, and autograd adds the G of them: G^2
 block-sized passes), of degree 1 in the microbatches M (M >= 2: one
 microbatch skips the gradients' division), and, for the archs with a
-Python time loop (rwkv6, zamba2), of degree <= 2 in the sequence length S
-(attention scores are the quadratic term), as long as S stays on one side
-of every branch on it (attention chunking, the sliding window).  The fit
-evaluates them exactly at the cell's own G, M and S from G in {1, 2, 3}, M
-in {2, 3} at the cell's rows a microbatch and three values of S; the row's
-`fitted` names the points.  The sizes of arguments and outputs are exact
-too; the peak (`temp_size_in_bytes`) is then an estimate, extended from
-the largest point (the peak has a kink at G = 1, hence G's third point).
+Python time loop over the sequence (rwkv6, zamba2), of degree 1 in the
+loop's trip count T: a step of the loop dispatches the same ops at every
+step, forward and backward, so the cell runs at its own S with the loops
+cut to T steps (`hooks.time_loop_limit`, on `meta` only; the steps cut
+stand in as empty tensors) and T is fitted up to S.  The fit evaluates
+them exactly at the cell's own G, M and T = S from G in {1, 2, 3}, M in
+{2, 3} at the cell's rows a microbatch and T in LOOP_POINTS (three points:
+a degree-2 fit, exact for the linear count); the row's `fitted` names the
+points.  The sizes of arguments and outputs are exact too; the peak
+(`temp_size_in_bytes`) is then an estimate, extended from the largest
+point (the peak has a kink at G = 1, hence G's third point).
 """
 
 import argparse
@@ -96,7 +99,7 @@ from repro_torch.models import (block_pattern, build_model, hooks,
                                 make_decode_step, make_prefill,
                                 make_train_step, params_specs,
                                 train_state_specs)
-from repro_torch.models.model import _WHOLE
+from repro_torch.models.model import whole_subtrees
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import leaves, tree_map
 
@@ -109,7 +112,8 @@ DEFAULT_OUT = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 DIRECT_BUDGET_OPS = 600_000
 #: families whose models run a Python loop over the sequence (models/ssm.py)
 TIME_LOOP_FAMILIES = ("ssm", "hybrid")
-_SEQ_STEP = 8         # the S fit's spacing where no attention chunk sets it
+#: the trip counts at which those loops are counted (`hooks.time_loop_limit`)
+LOOP_POINTS = (2, 3, 4)
 
 
 def default_run_config(shape_name: str, overrides: dict | None = None
@@ -153,9 +157,10 @@ def _fake_group(world: int) -> None:
 @dataclasses.dataclass
 class MetaCell:
     """A cell prepared on `meta`: `prepare(values)` gives `(fn, args)` at the
-    loop counts `values` ({"groups", "microbatches", "seq"}: G, M, S), `at`
-    the cell's own, `grid` the fit points of each dim that may be fitted.
-    `count()` runs it under the counter, directly or fitted."""
+    loop counts `values` ({"groups", "microbatches", "seq"}: G, M, S; and
+    "loop", the SSM time loops' trip count T, which `count_at` applies),
+    `at` the cell's own, `grid` the fit points of each dim that may be
+    fitted.  `count()` runs it under the counter, directly or fitted."""
 
     prepare: Callable[[dict], tuple]
     at: dict
@@ -165,13 +170,15 @@ class MetaCell:
     run: RunConfig | None = None
 
     def count_at(self, values: dict) -> hlo_cost.Counted:
-        """One direct count at `values`."""
+        """One direct count at `values` (the SSM time loops cut to
+        `values["loop"]` steps where it is given)."""
         fn, args = self.prepare(values)
         hooks.set_activation_constraint(
             make_activation_constraint(self.mesh, self.run)
             if self.run is not None else None)
         try:
-            with torch.set_grad_enabled(self.grad):
+            with torch.set_grad_enabled(self.grad), \
+                    hooks.time_loop_limit(values.get("loop")):
                 _, counted = hlo_cost.count(fn, *args)
         finally:
             hooks.set_activation_constraint(None)
@@ -193,29 +200,6 @@ class MetaCell:
         return hlo_cost.fit_cost(self.count_at, self.at, plan,
                                  first=(small, first),
                                  matmul_shapes="seq" not in plan)
-
-
-def _regime(cfg, run: RunConfig, S: int) -> tuple:
-    """The branches the models take on S: attention chunking and the
-    sliding window."""
-    q = run.attn_q_chunk
-    chunked = bool(q) and cfg.num_heads > 0 and S % q == 0 and S > q
-    return chunked, bool(cfg.attn_window) and S > cfg.attn_window
-
-
-def _seq_points(cfg, run: RunConfig, S: int) -> tuple[int, ...]:
-    """Three S values on the cell's side of every branch on S, the least
-    such: multiples of the attention chunk when chunking is on, above the
-    window when the cell's S is."""
-    chunked, windowed = _regime(cfg, run, S)
-    step = run.attn_q_chunk if chunked else _SEQ_STEP
-    lo = 2 * step if chunked else step
-    if windowed:
-        lo = max(lo, (cfg.attn_window // step + 1) * step)
-    pts = (lo, lo + step, lo + 2 * step)
-    if any(_regime(cfg, run, p) != (chunked, windowed) for p in pts):
-        return (S,)
-    return pts
 
 
 def _lm_cell(cfg, shape: ShapeConfig, run: RunConfig, mesh) -> MetaCell:
@@ -260,7 +244,8 @@ def _lm_cell(cfg, shape: ShapeConfig, run: RunConfig, mesh) -> MetaCell:
     if nmb >= 2:
         grid["microbatches"] = (2, 3)
     if cfg.family in TIME_LOOP_FAMILIES and shape.mode != "decode":
-        grid["seq"] = _seq_points(cfg, run, shape.seq_len)
+        at["loop"] = shape.seq_len
+        grid["loop"] = LOOP_POINTS
     return MetaCell(prepare, at, grid, shape.mode == "train", mesh, run)
 
 
@@ -275,7 +260,8 @@ def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
 
       all-gather: a group leaf's FSDP block P M times (once a group: the
         stacked block's bytes), the embedding, final norm and head blocks
-        M times; `whole` subtrees' leaves over "model" too (the FSDP-whole
+        M times; the leaves of an SSM slot whose heads do not divide over
+        "model" (`whole_subtrees`) over "model" too (the FSDP-whole
         block); attention's k and v (q too where H does not divide over
         "model") of P M calls, and the gradient of the scattered output,
         the vision cross-attention's alike with k and v over its image
@@ -293,7 +279,8 @@ def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
         vocab-parallel embedding, head input and the loss's three (b, S)
         f32 reductions M times, the gradient of each FSDP-whole leaf M
         times (and of a router whole on "model" where the experts are
-        split there), and the step's loss and norm scalars.
+        split there), and the step's loss and norm scalars;
+      the SSM slots on a rank's heads: `_ssm_heads`' bytes M times.
     """
     model = build_model(cfg, run)
     specs, axes = params_specs(model)
@@ -329,8 +316,11 @@ def train_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
                     F if fdim is not None else 1)
 
     for slot, p, s in zip(pattern, specs["slots"], sh["slots"]):
+        whole = whole_subtrees(cfg, slot, m)
         for k in p:
-            params(p[k], s[k], P * M, M, k in _WHOLE.get(slot, ()))
+            params(p[k], s[k], P * M, M, k in whole)
+    for k, v in _ssm_heads(cfg, specs, sh, fsdp, m, b, S, c, P).items():
+        out[k] += M * v
     attn = G * sum(slot in ("attn", "moe") for slot in pattern)
     mlps = G * sum(slot in ("attn", "cross") for slot in pattern)
     if cfg.family == "hybrid":
@@ -433,9 +423,10 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
     c = the compute dtype's bytes, T = the tokens a row computes (S, or 1).
 
       all-gather: a group leaf's FSDP block once a group, the embedding,
-        final norm and head blocks once, `whole` subtrees' leaves over
-        "model" too; q (where H does not divide over "model") and k and v
-        (where KV does not) of each attention call, the vision
+        final norm and head blocks once, the leaves of an SSM slot whose
+        heads do not divide over "model" over "model" too; q (where H does
+        not divide over "model") and k and v (where KV does not) of each
+        attention call, the vision
         cross-attention's alike (its prefill's k and v over the image
         tokens, in the vision embeddings' dtype; its decode step reads
         them from the cache); a decode step on slots split over "model"
@@ -448,7 +439,8 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
         MLPs', a MoE layer's partial sum over its experts and shared
         expert), the vocab-parallel embedding; a decode step on split
         slots, the scores' max (b, H) and the combined p v and sum of
-        exps (b, H, hd + 1), float32, an attention call.
+        exps (b, H, hd + 1), float32, an attention call;
+      the SSM slots on a rank's heads: `_ssm_heads`' bytes of a call.
     """
     model = build_model(cfg, run)
     specs, axes = _serve_specs(model)
@@ -477,8 +469,11 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
                     F if fdim is not None else 1)
 
     for slot, p, s in zip(pattern, specs["slots"], sh["slots"]):
+        whole = whole_subtrees(cfg, slot, m)
         for k in p:
-            params(p[k], s[k], 1, k in _WHOLE.get(slot, ()))
+            params(p[k], s[k], 1, k in whole)
+    for k, v in _ssm_heads(cfg, specs, sh, fsdp, m, b, T, c, 0).items():
+        out[k] += v
     mlps = G * sum(slot in ("attn", "cross") for slot in pattern)
     if cfg.family == "hybrid":
         params(specs["shared_attn"], sh["shared_attn"], G)
@@ -544,6 +539,71 @@ def serve_collective_bytes(cfg, run: RunConfig, mesh, global_batch: int,
         emb = 1 if run.embed_onehot else ncb
         out["all-reduce"] += emb * bTD
         out["all-gather"] += b * ncb * cfg.vocab_size // m * c
+    return out
+
+
+def _ssm_heads(cfg, specs, sh, fsdp, m: int, b: int, T: int, c: int,
+               P: int) -> dict:
+    """The collectives' bytes of the SSM slots that compute on a rank's
+    heads (`models/ssm.py`; a slot whose heads do not divide over "model"
+    computes whole: its gathers are the params') in one microbatch of the
+    train step (`P` passes of the forward, remat's recompute among them,
+    and the backward) or one serving call (`P` = 0: the forward once, no
+    backward), over b rows of T tokens (T = 1 a decode step) of D
+    elements of c bytes, a layer:
+
+      RWKV6: the row-parallel `wo`'s all-reduce a pass; the channel mix's
+        reduce-scatter of k @ wv a pass (where `wv` is split over "model";
+        else a slice) and its all-gather of y, once (the recompute stops
+        before it: no tensor after it is saved), the backward's all-gather
+        of the reduce-scatter's gradient; the backward's all-reduces of
+        the column-parallel inputs' gradients (r, k, v, g, the decay LoRA's
+        output, the channel mix's r and, where `wk` is split, its k) and
+        of `ln_scale`'s (D in the params' dtype);
+      Mamba2: `in_proj`, `conv_w` and `conv_b` gathered over "model" a
+        pass (their blocks, where split there), their gradients
+        reduce-scattered (all-reduced where whole there); x's gradient's
+        all-reduce; the RMSNorm's sum of squares (b, T, 1) f32 all-reduced
+        a pass and in the backward; the row-parallel `out_proj`'s
+        all-reduce a pass, once for the group's last slot (the recompute
+        stops before it); a serving call all-gathers the new conv rows of
+        the rank's x channels, (b, K - 1, d_inner / m) in the cache's
+        bf16."""
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    pattern, G = block_pattern(cfg)
+    if m == 1:
+        return out
+    bTD = b * T * cfg.d_model * c
+    fwd, bwd = max(P, 1), 1 if P else 0
+    for i, slot in enumerate(pattern):
+        if slot not in ("rwkv", "mamba") or whole_subtrees(cfg, slot, m):
+            continue
+        last = fwd if (P < 2 or i < len(pattern) - 1) else 1
+        if slot == "rwkv":
+            cm, csh = specs["slots"][i]["cm"], sh["slots"][i]["cm"]
+            wv = split_dims(csh["wv"], cm["wv"].ndim, fsdp)[1] is not None
+            ln = specs["slots"][i]["tm"]["ln_scale"]
+            layer = {"all-reduce": fwd * bTD + bwd * (
+                (6 + wv) * bTD + ln.numel() // G * ln.element_size()),
+                "reduce-scatter": fwd * bTD if wv else 0,
+                "all-gather": (last * bTD + bwd * bTD) // m}
+        else:
+            mx, msh = specs["slots"][i]["mixer"], sh["slots"][i]["mixer"]
+            layer = {"all-gather": 0, "reduce-scatter": 0,
+                     "all-reduce": bwd * bTD + (fwd + bwd) * b * T * 4
+                     + last * bTD}
+            for k in ("in_proj", "conv_w", "conv_b"):
+                nbytes = mx[k].numel() // G * mx[k].element_size()
+                if split_dims(msh[k], mx[k].ndim, fsdp)[1] is not None:
+                    layer["all-gather"] += fwd * nbytes // m
+                    layer["reduce-scatter"] += bwd * nbytes
+                else:
+                    layer["all-reduce"] += bwd * nbytes
+            if not P:
+                layer["all-gather"] += (b * (cfg.ssm_conv - 1) * 2
+                                        * cfg.d_model // m * 2)
+        for k, v in layer.items():
+            out[k] += G * v
     return out
 
 
@@ -678,6 +738,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: str,
               f"({counted.n_ops:.0f} ops"
               + (f", fitted over {counted.fitted}" if counted.fitted else "")
               + ")")
+        if arch not in EMBEDDING_ARCHS:
+            cfg, m = get_config(arch), mesh.shape.get("model", 1)
+            whole = sorted({s for s in block_pattern(cfg)[0]
+                            if whole_subtrees(cfg, s, m)})
+            if whole:
+                print(f"  whole on 'model' (heads do not divide over {m}):"
+                      f" every head of {whole} on every rank")
         print(f"  memory: {mem}")
         print(f"  cost: flops/chip={roof.flops_per_chip:.3e} "
               f"bytes/chip={roof.bytes_per_chip:.3e} "

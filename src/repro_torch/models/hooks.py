@@ -17,16 +17,25 @@ gathers each layer group's param blocks through it, and the layers ask
 row-parallel; an expert weight's expert dim or hidden units, `moe.py`).
 Without a context (`tensor_parallel()` is None) the layers compute with
 the whole params they are given, as before.
+
+The port also adds a counting device for the dry run (`launch/dryrun.py`):
+under `time_loop_limit(n)` the SSM time loops (`ssm.py`) run at most n of
+their steps and stand empty tensors in for the rest, on `meta` tensors
+only.  A step's ops are the same at every step of a loop, so the dry run
+counts a few trip counts and fits the rest exactly.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Callable
 
+import torch
+
 from repro_torch.distributed.collectives import model_split  # noqa: F401
 
 _ACT_CONSTRAINT: Callable | None = None
 _TENSOR_PARALLEL = None
+_TIME_LOOP_LIMIT: int | None = None
 
 
 def set_activation_constraint(fn: Callable | None):
@@ -60,3 +69,29 @@ def tensor_parallel_scope(tp):
         yield tp
     finally:
         _TENSOR_PARALLEL = prev
+
+
+@contextlib.contextmanager
+def time_loop_limit(n: int | None):
+    """The SSM time loops inside the block run at most `n` steps (None: all
+    of them), on `meta` tensors only (`time_steps`)."""
+    global _TIME_LOOP_LIMIT
+    if n is not None and n < 1:
+        raise ValueError(f"a time loop runs at least one step, not {n}")
+    prev, _TIME_LOOP_LIMIT = _TIME_LOOP_LIMIT, n
+    try:
+        yield
+    finally:
+        _TIME_LOOP_LIMIT = prev
+
+
+def time_steps(S: int, device) -> int:
+    """The steps an SSM time loop over S positions runs: S, or under
+    `time_loop_limit(n)` min(S, n), which only a count on `meta` may ask
+    for (the steps it skips compute nothing)."""
+    if _TIME_LOOP_LIMIT is None or _TIME_LOOP_LIMIT >= S:
+        return S
+    if torch.device(device).type != "meta":
+        raise ValueError("time_loop_limit cuts the SSM time loops short: a "
+                         "dry-run count on meta tensors only")
+    return _TIME_LOOP_LIMIT

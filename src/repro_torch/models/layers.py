@@ -160,6 +160,21 @@ def _model_input(x, *ws):
     return x
 
 
+def _whole_on_model(w, partial: bool = True):
+    """`w` whole on every rank (off the tensor-parallel context: as it is),
+    for compute that reads it whole while each rank's output covers only
+    its part (a MoE layer's router under expert parallelism, Mamba2's
+    `in_proj` and conv on a rank's heads): `partial`, so its gradient is
+    partial on each rank and is summed over "model": `gather`'s
+    reduce-scatter where its spec splits it there, `copy_to` where it is
+    whole."""
+    tp = hooks.tensor_parallel()
+    dim = hooks.model_split(w)
+    if dim is not None:
+        return tp.gather_over_model(w, dim)
+    return tp.copy_to_model(w) if partial else w
+
+
 def _gqa_scores_to_out(q, k, v, mask, compute_dtype):
     """q (B,S,H,hd), k/v (B,T,KV,hd), mask broadcastable (B,1,1,S,T).
     Grouped attention without materializing repeated KV.

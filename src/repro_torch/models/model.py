@@ -38,8 +38,11 @@ recompute gathers them again and the backward reduce-scatters their
 gradients.  The layers compute on the "model" blocks: attention and the
 vision cross-attention on this rank's heads, the MLPs on their hidden
 units, the MoE layers on this rank's experts (or every expert's hidden
-units where the experts do not divide over "model"); the leaves that
-`ssm.py` reads directly (`_WHOLE`) are gathered over "model" too.
+units where the experts do not divide over "model"), the SSM mixers on
+this rank's heads (`ssm.py`), except where a slot's heads do not divide
+over "model": that slot's mixer leaves are gathered over "model" too and
+every rank computes every head, its states whole (`whole_subtrees`, the
+one fallback).
 The embedding, the final norm and the head are gathered where the forward
 reads them, `_moe_aux`'s embedding and router where it reads them, and the
 loss is vocab-parallel over the logits' vocab blocks.  The sharded prefill
@@ -96,24 +99,32 @@ def _stack(trees: list):
     return _map(lambda *a: torch.stack(a), *trees)
 
 
-#: per slot, the subtrees whose leaves code reads directly (not through
-#: `_proj`, `mlp`, `attention` or `moe_ffn` on its "model" blocks):
-#: gathered over "model" as well as the FSDP axes, so that their compute
-#: stays whole (SSM-head parallelism is not ported)
-_WHOLE = {"rwkv": ("tm", "cm"), "mamba": ("mixer",)}
-#: the slots whose caches that whole compute reads and writes: whole on
-#: "model" on a mesh, their rows on the FSDP axes (`Model.cache_shardings`)
-_WHOLE_CACHES = ("rwkv", "mamba")
+#: per SSM slot, the subtrees of its mixers (`ssm.py`)
+_SSM_SUBTREES = {"rwkv": ("tm", "cm"), "mamba": ("mixer",)}
+#: the SSM state leaves that stay whole on "model" on a mesh, their rows on
+#: the FSDP axes (`Model.cache_shardings`): a step reads `x_prev` whole, and
+#: a rank's conv channels are not a contiguous block of the spec's
+_WHOLE_STATES = ("x_prev", "conv")
+
+
+def whole_subtrees(cfg: ModelConfig, slot: str, m: int) -> tuple:
+    """The subtrees of `slot` that a mesh whose "model" axis has m ranks
+    gathers over "model" too, so that every rank computes them whole: an
+    SSM slot's mixers where its heads do not divide over m (elsewhere a
+    rank computes its heads); none for every other slot."""
+    if slot not in _SSM_SUBTREES or ssm.n_heads(cfg, slot) % m == 0:
+        return ()
+    return _SSM_SUBTREES[slot]
 
 
 def _gathered(params, shardings, slot: str | None = None,
-              layers: bool = False):
+              layers: bool = False, cfg: ModelConfig | None = None):
     """A slot's (or any) param subtree as this rank computes with it under
     the tensor-parallel context: `params` itself without one."""
     tp = hooks.tensor_parallel()
     if tp is None:
         return params
-    whole = _WHOLE.get(slot, ())
+    whole = whole_subtrees(cfg, slot, tp.model.size) if slot else ()
     return {k: tp.gather_params(v, shardings[k], layers=layers,
                                 whole=k in whole)
             for k, v in params.items()}
@@ -224,7 +235,8 @@ def _apply_block(slot: str, p, cfg: ModelConfig, x, *, positions,
         return x + y, {"tm": tm_new, "cm": cm_new}
     if slot == "mamba":
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        y, st_new = ssm.mamba2(p["mixer"], cfg, h, cache)
+        y, st_new = ssm.mamba2(p["mixer"], cfg, h, cache,
+                               keep_state=mode != "train")
         return x + y, st_new
     raise ValueError(slot)
 
@@ -381,16 +393,16 @@ class Model:
         `max_len` slots (`init_caches`' shapes): the reference's rules over
         `cache_axes()` (a KV cache's rows on the FSDP axes and its heads
         on "model", else its slots: "kv_heads", then "kv_seq", each only
-        where it divides), except that the caches of the slots whose
-        compute `_WHOLE` keeps whole (the RWKV6 and Mamba2 states) are
-        whole on "model", their rows on the FSDP axes, and that the vision
-        cross-attention's K/V put their rows on the FSDP axes (the
-        reference keeps them whole; the cross-attention computes this
+        where it divides; an SSM state's heads on "ssm_heads", where they
+        divide), except that the SSM states' `x_prev` and `conv` are whole
+        on "model", their rows on the FSDP axes (`_WHOLE_STATES`), and that
+        the vision cross-attention's K/V put their rows on the FSDP axes
+        (the reference keeps them whole; the cross-attention computes this
         rank's rows), their kv heads on "model" where they divide.  Only
         `mesh.axis_names` and `mesh.shape` are read."""
         pattern, _ = block_pattern(self.cfg)
         axes = self.cache_axes()
-        axes["slots"] = [_rows_only(a) if s in _WHOLE_CACHES
+        axes["slots"] = [_rows_only(a, _WHOLE_STATES) if s in _SSM_SUBTREES
                          else _rows_on_batch(a) if s == "cross" else a
                          for s, a in zip(pattern, axes["slots"])]
         specs = self.init_caches(batch, max_len, device="meta")
@@ -440,8 +452,9 @@ class Model:
                     positions=positions, cache=sc, mode=mode, run=run,
                     window=window)
             group_caches = []
-            slots = [_gathered(p, s, slot, layers=True) for slot, p, s in
-                     zip(pattern, take(params["slots"]), sh["slots"])]
+            slots = [_gathered(p, s, slot, layers=True, cfg=cfg)
+                     for slot, p, s in zip(pattern, take(params["slots"]),
+                                           sh["slots"])]
             slot_sh = csh["slots"] if csh else [None] * len(pattern)
             for slot, p, c, s in zip(pattern, slots, take(slot_caches),
                                      slot_sh):
@@ -534,6 +547,14 @@ class Model:
         if cfg.family in ("ssm", "hybrid"):
             caches = self.init_caches(inputs.shape[0], inputs.shape[1],
                                       mode="train", device=tokens.device)
+            tp = hooks.tensor_parallel()
+            if tp is not None:          # a rank's heads' block of each
+                pattern, _ = block_pattern(cfg)
+                caches["slots"] = [
+                    _own_heads(c, tp.model)
+                    if s in _SSM_SUBTREES and not whole_subtrees(
+                        cfg, s, tp.model.size) else c
+                    for s, c in zip(pattern, caches["slots"])]
         logits, _ = self.forward(
             params, inputs, vision_embeds=batch.get("vision_embeds"),
             caches=caches, mode="train")
@@ -689,12 +710,31 @@ def _last_logits(logits):
         else last
 
 
-def _rows_only(axes):
-    """A cache axes tree whose leaves keep their rows ("batch", dim 1 after
-    "layers") and nothing on "model"."""
+def _rows_only(axes, keys: tuple, key: str | None = None):
+    """A cache axes tree whose leaves named in `keys` keep their rows
+    ("batch", dim 1 after "layers") and nothing on "model"; the rest as
+    they are."""
     if isinstance(axes, dict):
-        return {k: _rows_only(v) for k, v in axes.items()}
+        return {k: _rows_only(v, keys, k) for k, v in axes.items()}
+    if key not in keys:
+        return axes
     return ("layers", "batch") + (None,) * (len(axes) - 2)
+
+
+def _own_heads(caches, ax):
+    """An SSM slot's stacked states with each heads' state ((G, B, H, ...):
+    `wkv`, `ssm`) narrowed to this rank's block of its heads on the
+    "model" axis `ax` (views)."""
+    out = {}
+    for k, v in caches.items():
+        if isinstance(v, dict):
+            out[k] = _own_heads(v, ax)
+        elif k in ("wkv", "ssm"):
+            h = v.shape[2] // ax.size
+            out[k] = v.narrow(2, ax.index * h, h)
+        else:
+            out[k] = v
+    return out
 
 
 def _rows_on_batch(axes):

@@ -24,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import all_gather
 
 from . import hooks
-from .layers import _dense_init, _one_hot, pdt
+from .layers import _dense_init, _one_hot, _whole_on_model, pdt
 
 
 def init_moe(key, cfg: ModelConfig):
@@ -123,7 +123,7 @@ def _moe(p, cfg: ModelConfig, x, fp32_router: bool, shard_dispatch: bool,
     xe_in = xin if split is not None else x
 
     rdt = torch.float32 if fp32_router else x.dtype
-    router = _whole_router(p["router"], split is not None)
+    router = _whole_on_model(p["router"], split is not None)
     logits = xe_in.to(rdt) @ router.to(rdt)                  # (B,S,E)
     gates_all = torch.softmax(logits, dim=-1)
     topv, topi = _top_k(gates_all, K)                        # (B,S,K)
@@ -189,20 +189,6 @@ def _dispatch_combine(topv, oh, pos, C: int, dtype):
     dispatch = _one_hot(slot, C, dtype)
     gate = (topv.to(dtype)[..., None] * oh.to(dtype)).sum(dim=2)
     return dispatch, dispatch * gate[..., None]
-
-
-def _whole_router(router, partial: bool):
-    """The router whole on every rank (off the tensor-parallel context: as
-    it is).  `partial`: each rank's output covers only its experts' part,
-    so its router gradient is partial and is summed over "model":
-    `gather`'s reduce-scatter where the router is split there (its experts
-    divide over "model", as the experts' do), `copy_to` where it is
-    whole."""
-    tp = hooks.tensor_parallel()
-    dim = hooks.model_split(router)
-    if dim is not None:
-        return tp.gather_over_model(router, dim)
-    return tp.copy_to_model(router) if partial else router
 
 
 def aux_load_balance_loss(p, cfg: ModelConfig, x):

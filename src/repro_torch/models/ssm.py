@@ -17,6 +17,35 @@ Mamba2 (SSD, arXiv:2405.21060 minimal form), per head with state (P x N):
 The reference's `lax.scan` over time is a Python loop over the S steps here,
 in float32; decode (S = 1) is one state update.  State dtypes are the
 reference's: `x_prev` and `conv` bf16, `wkv` and `ssm` f32.
+
+On a mesh (the sharded train and serving programs, `hooks`' tensor-parallel
+context) a rank computes its block of the heads, as the reference's specs
+split every leaf whose split dim is a set of heads ("ssm_heads", and
+"ssm_proj" on head-aligned columns) over "model":
+
+  * RWKV6's time mix runs the token-shift mix whole (x is whole on
+    "model"), its r, k, v and g projections column-parallel on the rank's
+    heads, the decay LoRA's output and `ln_scale` cut to the rank's
+    columns after `copy_to` (their leaves are whole on "model": each rank's
+    gradient of them is partial), the time loop and the group norm on the
+    rank's heads (`wkv` (B, H/m, hd, hd)) and `wo` row-parallel;
+  * RWKV6's channel mix computes k on the rank's "mlp" block; the partial
+    k @ wv is reduce-scattered onto the rank's columns, gated by its block
+    of r and all-gathered to the residual width (the bytes of one
+    all-reduce);
+  * Mamba2 gathers `in_proj`, `conv_w` and `conv_b` over "model" (their
+    contiguous blocks cut across z | x | B | C | dt) with `gather`, whose
+    reduce-scatter sums the ranks' partial gradients, and computes the
+    rank's z, x and dt columns with the whole B and C (one group), the conv
+    on the rank's x channels and B and C, the scan on its heads (`ssm`
+    (B, H/m, hd, N)), the gated RMSNorm's mean square over all of d_inner
+    by `psum` (its gradient summed too), and `out_proj` row-parallel.
+
+`x_prev` and `conv` stay whole on "model" (`Model.cache_shardings`): a
+Mamba2 step all-gathers its new conv rows of the rank's x channels to
+rewrite the whole conv cache.  Where a mixer's heads do not divide over
+"model", `models/model.py` gathers its leaves whole and every rank
+computes every head, as off the mesh.
 """
 from __future__ import annotations
 
@@ -24,14 +53,52 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import all_gather
 
-from .layers import _dense_init, pdt
+from . import hooks
+from .layers import _dense_init, _model_input, _proj, _whole_on_model, pdt
 
 _LORA_R = 32  # LoRA rank for RWKV6 data-dependent modulation
 
 
 def _full(key, shape, value, dtype):
     return torch.full(shape, value, dtype=dtype, device=key.device)
+
+
+def n_heads(cfg: ModelConfig, mixer: str) -> int:
+    """The heads of an RWKV6 time mix ("rwkv") or of a Mamba2 mixer
+    ("mamba")."""
+    width = cfg.d_model if mixer == "rwkv" else 2 * cfg.d_model
+    return width // cfg.ssm_head_dim
+
+
+def _on_heads(p, splits: dict) -> bool:
+    """Whether this rank computes its block of the heads: True where every
+    leaf named in `splits` is the "model" block its spec makes it (marked
+    with the split dim `splits` gives), False where none is split (off the
+    tensor-parallel context, or gathered whole: the heads do not divide
+    over "model"); any other layout raises."""
+    got = {k: hooks.model_split(p[k]) for k in splits}
+    if all(v is None for v in got.values()):
+        return False
+    if got != splits:
+        raise ValueError(f"SSM leaves split over 'model' as {got}: a rank "
+                         f"computes its heads on {splits}")
+    return True
+
+
+def _own(t, dim: int, size: int):
+    """This rank's block of `size` along `dim` of a tensor whole on
+    "model" (a view)."""
+    return t.narrow(dim, hooks.tensor_parallel().model.index * size, size)
+
+
+def _stack_steps(ys: list, S: int):
+    """A time loop's outputs stacked over its S steps on dim 1.  A loop
+    that `hooks.time_steps` cut short (a dry-run count on `meta`) stands
+    empty tensors in for the steps it skipped."""
+    ys = ys + [torch.empty_like(ys[-1]) for _ in range(S - len(ys))]
+    return torch.stack(ys, dim=1)
 
 
 # ====================  RWKV6 (Finch)  ========================================
@@ -78,6 +145,12 @@ def _token_shift(state_prev, x):
     return torch.cat([state_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _last(x):
+    """The last position's rows of x (B, S, D), a copy: a view would keep
+    the whole (B, S, D) alive in the caches until a prefill stacks them."""
+    return x[:, -1].clone()
+
+
 def _rwkv_mix(p, x, x_prev):
     """Data-dependent token-shift mixing -> (xr, xk, xv, xw, xg)."""
     d = x_prev - x
@@ -90,11 +163,15 @@ def _rwkv_mix(p, x, x_prev):
     return x[None] + d[None] * (maa + mod)        # (5, B, S, D)
 
 
-def _rwkv_decay(p, xw):
-    """Data-dependent per-channel decay w in (0, 1)."""
+def _rwkv_decay(p, xw, split: bool = False):
+    """Data-dependent per-channel decay w in (0, 1).  `split`: on this
+    rank's block of `w0`, the LoRA's whole output cut to its columns."""
     lora = torch.tanh(xw @ p["w_lora_A"].to(xw.dtype)) @ \
         p["w_lora_B"].to(xw.dtype)
     w0 = p["w0"].float().reshape(-1)
+    if split:
+        lora = _own(hooks.tensor_parallel().copy_to_model(lora), -1,
+                    w0.shape[0])
     return torch.exp(-torch.exp(w0 + lora.float()))  # (B,S,D) f32
 
 
@@ -109,30 +186,43 @@ def _rwkv_groupnorm(y, scale, H, eps=1e-5):
     return (yn.reshape(B, S, D) * scale.float()).to(y.dtype)
 
 
+#: the time mix's leaves split over "model" where a rank computes its
+#: heads, and their split dims
+_RWKV6_HEADS = {"w0": 0, "u": 0, "wr": 1, "wk": 1, "wv": 1, "wg": 1,
+                "wo": 0}
+
+
 def rwkv6_time_mix(p, cfg: ModelConfig, x, state: dict):
     """x (B,S,D); state {"x_prev": (B,D), "wkv": (B,H,hd,hd) f32}.
-    Returns (y, new_state).  Works for S == 1 (decode) and S > 1."""
+    Returns (y, new_state).  Works for S == 1 (decode) and S > 1.  On a
+    rank's heads (the module docstring) `wkv` is its (B, H/m, hd, hd)."""
     B, S, D = x.shape
     hd = cfg.ssm_head_dim
-    H = D // hd
+    split = _on_heads(p, _RWKV6_HEADS)
     xr, xk, xv, xw, xg = _rwkv_mix(p, x, _token_shift(state["x_prev"], x))
-    r = (xr @ p["wr"].to(x.dtype)).reshape(B, S, H, hd).float()
-    k = (xk @ p["wk"].to(x.dtype)).reshape(B, S, H, hd).float()
-    v = (xv @ p["wv"].to(x.dtype)).reshape(B, S, H, hd).float()
-    g = F.silu(xg @ p["wg"].to(x.dtype))
-    w = _rwkv_decay(p, xw).reshape(B, S, H, hd)
+    if split:
+        xr, xk, xv, xg = (_model_input(t, p["wr"]) for t in (xr, xk, xv, xg))
+    r = _proj(xr, p["wr"]).reshape(B, S, -1, hd).float()
+    k = _proj(xk, p["wk"]).reshape(B, S, -1, hd).float()
+    v = _proj(xv, p["wv"]).reshape(B, S, -1, hd).float()
+    g = F.silu(_proj(xg, p["wg"]))
+    H = r.shape[2]                       # this rank's heads, or every head
+    w = _rwkv_decay(p, xw, split).reshape(B, S, H, hd)
     u = p["u"].float()[None, :, :, None]
+    scale = p["ln_scale"]
+    if split:
+        scale = _own(hooks.tensor_parallel().copy_to_model(scale), 0, H * hd)
 
     S_state = state["wkv"]
     ys = []
-    for t in range(S):
+    for t in range(hooks.time_steps(S, x.device)):
         kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], u * kv + S_state))
         S_state = w[:, t][..., None] * S_state + kv
-    y = torch.stack(ys, dim=1).reshape(B, S, D).to(x.dtype)
-    y = _rwkv_groupnorm(y, p["ln_scale"], H)
-    y = (y * g) @ p["wo"].to(x.dtype)
-    return y, {"x_prev": x[:, -1], "wkv": S_state}
+    y = _stack_steps(ys, S).reshape(B, S, H * hd).to(x.dtype)
+    y = _rwkv_groupnorm(y, scale, H)
+    y = _proj(y * g, p["wo"])
+    return y, {"x_prev": _last(x), "wkv": S_state}
 
 
 def init_rwkv6_channel_mix(key, cfg: ModelConfig):
@@ -152,14 +242,25 @@ def init_rwkv6_channel_mix(key, cfg: ModelConfig):
 
 
 def rwkv6_channel_mix(p, cfg: ModelConfig, x, state: dict):
+    """y = sigmoid(xr @ wr) * (relu(xk @ wk)^2 @ wv).  Where `wr` is this
+    rank's "ssm_proj" block (its heads' columns), k runs on its "mlp" block
+    of `wk` (or whole, where d_ff does not divide over "model"), k @ wv is
+    reduce-scattered (sliced, where whole) onto its columns and gated by
+    its block of r, and y is all-gathered over "model"."""
     d = _token_shift(state["x_prev"], x) - x
     xk = x + d * p["maa_k"].to(x.dtype)
     xr = x + d * p["maa_r"].to(x.dtype)
-    k = torch.relu(xk @ p["wk"].to(x.dtype))
+    k = torch.relu(_proj(_model_input(xk, p["wk"]), p["wk"]))
     k = k * k
-    r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
-    y = r * (k @ p["wv"].to(x.dtype))
-    return y, {"x_prev": x[:, -1]}
+    r = torch.sigmoid(_proj(_model_input(xr, p["wr"]), p["wr"]))
+    kv = k @ p["wv"].to(x.dtype)
+    if hooks.model_split(p["wr"]) != 1:
+        return r * kv, {"x_prev": _last(x)}
+    tp = hooks.tensor_parallel()
+    kv = (tp.reduce_scatter_from_model(kv, -1)
+          if hooks.model_split(p["wv"]) == 0
+          else tp.scatter_to_model(kv, -1))
+    return tp.gather_from_model(r * kv, -1), {"x_prev": _last(x)}
 
 
 def init_rwkv6_state(cfg: ModelConfig, batch: int, *, device):
@@ -226,27 +327,69 @@ def _causal_conv(x, w, b, conv_state=None):
     out = sum(
         xp[:, i:i + x.shape[1]] * w[i].to(x.dtype) for i in range(K)
     ) + b.to(x.dtype)
-    new_state = xp[:, -(K - 1):]
+    new_state = xp[:, -(K - 1):].clone()       # not a view of all of xp
     return F.silu(out), new_state
 
 
-def mamba2(p, cfg: ModelConfig, x, state: dict):
-    """x (B,S,D); state {"conv": (B,K-1,conv_dim), "ssm": (B,H,hd,N) f32}."""
+#: the mixer's leaves split over "model" where a rank computes its heads,
+#: and their split dims (`in_proj`, `conv_w` and `conv_b` are gathered
+#: whole on "model" and cut: their blocks are not head-aligned)
+_MAMBA2_HEADS = {"A_log": 0, "D": 0, "dt_bias": 0, "norm_scale": 0,
+                 "out_proj": 0}
+
+
+def _mamba2_heads_inputs(p, cfg: ModelConfig, x, conv):
+    """On this rank's heads: (x through `copy_to`, the rank's `in_proj`
+    columns z | x | B | C | dt, its `conv_w` and `conv_b` channels x | B |
+    C, its channels of the whole conv cache `conv`), each in the whole
+    mixer's layout at d_inner / m and H / m."""
+    d_inner, N = 2 * cfg.d_model, cfg.ssm_state
+    H = n_heads(cfg, "mamba")
+    tp = hooks.tensor_parallel()
+    m = tp.model.size
+    di, hl = d_inner // m, H // m
+
+    def channels(t):                    # x | B | C along the last dim
+        return torch.cat([_own(t, -1, di), t[..., d_inner:d_inner + 2 * N]],
+                         dim=-1)
+
+    w = _whole_on_model(p["in_proj"])
+    dt = w[:, 2 * d_inner + 2 * N:]
+    w_in = torch.cat([_own(w[:, :d_inner], -1, di),
+                      channels(w[:, d_inner:2 * d_inner + 2 * N]),
+                      _own(dt, -1, hl)], dim=-1)
+    return (tp.copy_to_model(x), w_in, channels(_whole_on_model(p["conv_w"])),
+            channels(_whole_on_model(p["conv_b"])), channels(conv))
+
+
+def mamba2(p, cfg: ModelConfig, x, state: dict, keep_state: bool = True):
+    """x (B,S,D); state {"conv": (B,K-1,conv_dim), "ssm": (B,H,hd,N) f32}.
+    On a rank's heads (the module docstring) `ssm` is its (B, H/m, hd, N)
+    and `conv` stays whole: its new x-channel rows are all-gathered over
+    "model", unless `keep_state` is False (a train step, which drops the
+    states: the rank's channels are returned)."""
     B, S, D = x.shape
     d_inner = 2 * D
     hd = cfg.ssm_head_dim
-    H = d_inner // hd
     N = cfg.ssm_state
+    split = _on_heads(p, _MAMBA2_HEADS)
+    if split:
+        x, w_in, conv_w, conv_b, conv = _mamba2_heads_inputs(p, cfg, x,
+                                                             state["conv"])
+    else:
+        w_in, conv_w, conv_b, conv = (p["in_proj"], p["conv_w"], p["conv_b"],
+                                      state["conv"])
+    di = conv_w.shape[-1] - 2 * N       # this rank's x channels, or all
+    H = di // hd
 
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * N]
+    zxbcdt = x @ w_in.to(x.dtype)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * N]
     dt_raw = zxbcdt[..., -H:]
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                   state["conv"])
-    xs = xbc[..., :d_inner].reshape(B, S, H, hd)
-    Bmat = xbc[..., d_inner:d_inner + N].float()    # (B,S,N)
-    Cmat = xbc[..., d_inner + N:].float()           # (B,S,N)
+    xbc, conv_state = _causal_conv(xbc, conv_w, conv_b, conv)
+    xs = xbc[..., :di].reshape(B, S, H, hd)
+    Bmat = xbc[..., di:di + N].float()              # (B,S,N)
+    Cmat = xbc[..., di + N:].float()                # (B,S,N)
     dt_in = dt_raw.float() + p["dt_bias"].float()
     dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))  # softplus (B,S,H)
     A = -torch.exp(p["A_log"].float())              # (H,)
@@ -255,22 +398,33 @@ def mamba2(p, cfg: ModelConfig, x, state: dict):
     xs32 = xs.float()
     h = state["ssm"]
     ys = []
-    for t in range(S):
+    for t in range(hooks.time_steps(S, x.device)):
         upd = torch.einsum("bhp,bn->bhpn", dt[:, t, :, None] * xs32[:, t],
                            Bmat[:, t])
         h = dA[:, t, :, None, None] * h + upd
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cmat[:, t]))
-    y = torch.stack(ys, dim=1)                      # (B,S,H,hd)
+    y = _stack_steps(ys, S)                         # (B,S,H,hd)
     y = y + p["D"].float()[None, None, :, None] * xs32
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    # gated RMSNorm (mamba2 style)
+    y = y.reshape(B, S, di).to(x.dtype)
+    # gated RMSNorm (mamba2 style), its mean square over all of d_inner
     y = y * F.silu(z)
     y32 = y.float()
-    var = (y32 * y32).mean(dim=-1, keepdim=True)
+    if split:
+        var = hooks.tensor_parallel().psum_model(
+            (y32 * y32).sum(dim=-1, keepdim=True)) / d_inner
+    else:
+        var = (y32 * y32).mean(dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + 1e-5)).to(x.dtype)
     y = y * p["norm_scale"].to(x.dtype)
-    y = y @ p["out_proj"].to(x.dtype)
-    return y, {"conv": conv_state.to(state["conv"].dtype), "ssm": h}
+    y = _proj(y, p["out_proj"])
+    conv_state = conv_state.to(state["conv"].dtype)
+    if split and keep_state:        # a cache, not differentiated
+        conv_state = conv_state.detach()
+        conv_state = torch.cat([
+            all_gather(conv_state[..., :di], -1,
+                       hooks.tensor_parallel().model),
+            conv_state[..., di:]], dim=-1)
+    return y, {"conv": conv_state, "ssm": h}
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, *, device):

@@ -2,8 +2,8 @@
 counterpart of tests/test_dryrun_smoke.py.
 
 In a subprocess, rank 0 of a fake process group of 8 ranks on a (2, 4)
-("data", "model") mesh counts the train and decode cells of the qwen2-7b,
-grok-1-314b and rwkv6-7b smoke configs on `meta`:
+("data", "model") mesh counts the train and decode cells of the smoke
+configs on `meta` (`ARCHS`, `SERVE_ARCHS`):
 
   * FLOPs a chip > 0, finite terms, the memory keys present;
   * train: each collective kind's bytes are `train_collective_bytes`',
@@ -13,7 +13,11 @@ grok-1-314b and rwkv6-7b smoke configs on `meta`:
     vocab-parallel embedding and loss); the all-gather and the
     reduce-scatter move blocks, never a whole split leaf;
   * prefill and decode: each kind's bytes are `serve_collective_bytes`',
-    the sharded serving program's, for every family;
+    the sharded serving program's, for every family (rwkv6's and zamba2's
+    on a rank's SSM heads among them);
+  * rwkv6's and zamba2's train and prefill cells with their time loops
+    fitted in the trip count from 2, 3 and 4 steps equal the direct
+    count of 24 steps;
   * an embedding cell at the smoke N: MODEL_FLOPS is the reference's
     6 N^2 (d + 4), the all-reduce bytes the layout's (N/R, 2d) block plus
     its two scalars;
@@ -49,10 +53,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: experts and shared expert over "model") and SSM families, and the vision
 #: cross-attention on "model" blocks
 ARCHS = ("qwen2-7b", "grok-1-314b", "rwkv6-7b", "llama4-maverick-400b-a17b",
-         "llama-3.2-vision-90b")
+         "llama-3.2-vision-90b", "zamba2-2.7b")
 #: the serving cells' archs: every family, the vision cross-attention and
 #: the audio codebooks too
-SERVE_ARCHS = ARCHS + ("zamba2-2.7b", "musicgen-medium")
+SERVE_ARCHS = ARCHS + ("musicgen-medium",)
+#: the archs with SSM time loops, whose loops the fitted cells count at a
+#: few trip counts (`dryrun.LOOP_POINTS`)
+LOOP_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
 
 _PROG = textwrap.dedent("""
     import contextlib, dataclasses, datetime, io, json, math, os, sys
@@ -103,6 +110,24 @@ _PROG = textwrap.dedent("""
                 want=dryrun.serve_collective_bytes(cfg, run, mesh, 8, 16,
                                                    mode))
 
+    # the SSM time loops fitted in their trip count against a direct count
+    from repro_torch.launch import hlo_cost
+    for arch in sys.argv[3].split(","):
+        cfg = get_smoke_config(arch)
+        for mode, run in (("train", RunConfig(num_microbatches=2,
+                                              remat="full")),
+                          ("prefill",
+                           dryrun.default_run_config("prefill_32k"))):
+            cell = dryrun._lm_cell(cfg, ShapeConfig(mode[0], mode, 24, 16),
+                                   run, mesh)
+            got = [cell.count_at(cell.at), hlo_cost.fit_cost(
+                cell.count_at, cell.at, {"loop": dryrun.LOOP_POINTS})]
+            out[arch, mode, "loop"] = [dict(
+                flops=c.cost.flops, bytes=c.cost.bytes, ops=c.n_ops,
+                coll=c.cost.collective_bytes, fitted=c.fitted,
+                memory={k: v for k, v in c.memory.items()
+                        if k != "estimate"}) for c in got]
+
     ecfg = get_smoke_config("embedding-coil20")
     cell, mflops = dryrun._embedding_cell(ecfg, mesh)
     out["embedding", ecfg.n_points] = dict(row(cell.count(), mflops),
@@ -136,7 +161,7 @@ _PROG = textwrap.dedent("""
 def counted():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", _PROG, ",".join(ARCHS),
-                           ",".join(SERVE_ARCHS)],
+                           ",".join(SERVE_ARCHS), ",".join(LOOP_ARCHS)],
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -168,16 +193,19 @@ def test_train_cell(counted, arch):
 def test_decode_cell_has_no_collective(counted, arch):
     """A decode cell's collectives are the sharded decode step's and
     nothing else: each kind's bytes are `serve_collective_bytes`' (no
-    reduce-scatter, all-to-all or permute: the step is forward only)."""
-    _serve_cell(counted[f"{arch}/decode"])
+    all-to-all or permute, and no reduce-scatter: the step is forward only,
+    bar RWKV6's channel mix, which reduce-scatters its partial product
+    onto a rank's heads' columns in the forward)."""
+    _serve_cell(counted[f"{arch}/decode"], arch)
 
 
-def _serve_cell(r):
+def _serve_cell(r, arch):
     _finite_row(r)
     got = r["collectives"]
     for kind, want in r["want"].items():
         assert got[kind] == want, kind
-    assert got["all-gather"] > 0 and got["reduce-scatter"] == 0
+    assert got["all-gather"] > 0
+    assert (got["reduce-scatter"] > 0) == (arch == "rwkv6-7b")
     assert got["all-to-all"] == got["collective-permute"] == 0
     assert r["memory"]["alias_size_in_bytes"] == 0    # nothing in place
 
@@ -191,7 +219,39 @@ def test_serve_cell_collectives(counted, arch, mode):
     q, k and v gathered where their heads do not divide, the row-parallel
     all-reduces, the vocab-parallel embedding and the head's last
     position, a decode step's softmax combined over the split slots)."""
-    _serve_cell(counted[f"{arch}/{mode}"])
+    _serve_cell(counted[f"{arch}/{mode}"], arch)
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+@pytest.mark.parametrize("arch", LOOP_ARCHS)
+def test_time_loop_fit_is_the_direct_count(counted, arch, mode):
+    """A cell whose SSM time loops run 2, 3 and 4 of their 24 steps
+    (`hooks.time_loop_limit`), fitted in the trip count, is the direct
+    count of the 24 steps: the same FLOPs, bytes, collective bytes, ops
+    and memory summary (its peak too, at these shapes); a step of the loop
+    dispatches the same ops at every step."""
+    direct, fit = counted[f"{arch}/{mode}/loop"]
+    assert direct["fitted"] is None and fit["fitted"] == {"loop": [2, 3, 4]}
+    for k in ("flops", "bytes", "ops", "coll", "memory"):
+        assert fit[k] == direct[k], k
+
+
+def test_time_loop_limit_is_for_meta_alone():
+    """The counting device refuses a real tensor: a cut loop computes
+    nothing for the steps it skips."""
+    import torch
+
+    from repro_torch.models import hooks
+
+    with hooks.time_loop_limit(2):
+        assert hooks.time_steps(9, "meta") == 2
+        assert hooks.time_steps(1, "meta") == 1
+        with pytest.raises(ValueError, match="meta"):
+            hooks.time_steps(9, torch.device("cpu"))
+    assert hooks.time_steps(9, "cpu") == 9
+    with pytest.raises(ValueError):
+        with hooks.time_loop_limit(0):
+            pass
 
 
 def test_embedding_cell(counted):

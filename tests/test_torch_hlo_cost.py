@@ -311,7 +311,7 @@ _FITS = _FAKE_GROUP + _COLLECTIVES + textwrap.dedent("""
     print(json.dumps(out))
 """)
 #: (arch, G, M, S): beyond the fit's points (G above 3, train's degree-2
-#: fit; M above 3; S above rwkv6's S points 8, 16, 24)
+#: fit; M above 3; S above rwkv6's time-loop points 2, 3, 4)
 FIT_CASES = (("qwen2-7b", 4, 4, 16), ("grok-1-314b", 4, 4, 16),
              ("rwkv6-7b", 4, 1, 32))
 
@@ -343,7 +343,8 @@ def test_collective_bytes_on_a_fake_group(fits):
 def test_fitted_counts_equal_direct_counts(fits, arch):
     """The smoke configs' own G (2-3), M and S lie among the fit's points,
     so each is counted at FIT_CASES' G, M and S, beyond them (rwkv6, a
-    Python time loop, fitted in S too).  FLOPs, bytes, collective bytes,
+    Python time loop, fitted in the loop's trip count T = S too, from 2,
+    3 and 4 steps).  FLOPs, bytes, collective bytes,
     the op count and the matmuls' FLOPs exactly; the memory (argument +
     temp) within 5%; qwen2-7b's prefill (degree 1 in G) as well."""
     modes = [k.split("/")[1] for k in fits if k.startswith(arch + "/")]
@@ -355,8 +356,9 @@ def test_fitted_counts_equal_direct_counts(fits, arch):
         assert f["fitted"]["groups"] == [1, 2, 3]
         assert f["fitted"].get("microbatches") == (
             [2, 3] if mode == "train" and arch != "rwkv6-7b" else None)
-        assert f["fitted"].get("seq") == (
-            [8, 16, 24] if arch == "rwkv6-7b" else None)
+        assert f["fitted"].get("loop") == (
+            [2, 3, 4] if arch == "rwkv6-7b" else None)
+        assert "seq" not in f["fitted"]
         assert d["cost"] == f["cost"], mode
         assert d["n_ops"] == f["n_ops"] and d["matmuls"] == f["matmuls"]
         # both are the sharded program: the prefill all-reduces too

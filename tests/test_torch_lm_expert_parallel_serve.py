@@ -164,7 +164,8 @@ def test_pool_case_drops_a_token_in_the_reference():
 def test_cross_cache_layout(mesh):
     """The vision cross-attention's K/V cache: its rows on the FSDP axis,
     its kv heads on "model" where they divide (2 on (2, 2)), else whole
-    there (2 kv heads on (1, 4)); the RWKV6 state stays whole on "model"."""
+    there (2 kv heads on (1, 4)); the RWKV6 state's heads (4) on "model"
+    (a rank computes its heads) and its `x_prev` whole there."""
     import types
 
     from repro_torch.models import build_model
@@ -179,5 +180,6 @@ def test_cross_cache_layout(mesh):
         assert spec[1] == "data"
         assert spec[3] == ("model" if m == 2 else None), spec
     rwkv = build_model(smoke("rwkv6-7b", "float32")).cache_shardings(
-        shape, 4, 16)["slots"][0]["tm"]["wkv"]
-    assert "model" not in tuple(rwkv.spec)
+        shape, 4, 16)["slots"][0]["tm"]
+    assert tuple(rwkv["wkv"].spec)[2] == "model", rwkv["wkv"].spec
+    assert "model" not in tuple(rwkv["x_prev"].spec), rwkv["x_prev"].spec

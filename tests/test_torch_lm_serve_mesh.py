@@ -24,9 +24,10 @@ logits the same bits.  The cases:
   * a max_len of 12 with decode steps at positions 10..13: past max_len
     the last slot, on the last "model" rank, is overwritten (JAX's clamp);
   * the MoE (grok-1) smoke on (2, 2), its 4 experts 2 a rank, and the
-    SSM (rwkv6) smoke on (2, 2), its mixers' and states' compute whole on
-    "model" (more MoE and the vision cases:
-    tests/test_torch_lm_expert_parallel_serve.py);
+    SSM (rwkv6) smoke on (2, 2), its mixers on a rank's 2 of 4 heads, the
+    `wkv` state its heads' block (more MoE and the vision cases:
+    tests/test_torch_lm_expert_parallel_serve.py; more SSM cases:
+    tests/test_torch_lm_ssm_parallel_serve.py);
   * the hybrid (zamba2) smoke with an 8-token window under a 10-token
     prompt, its shared attention's ring (slot == position % 8) on (2, 2)
     ("kv_heads") and, with 2 kv heads, on (1, 4) ("kv_seq"), two rows: at

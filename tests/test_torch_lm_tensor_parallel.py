@@ -13,7 +13,9 @@ whole-tensor computations.
     JAX's three jitted unsharded steps: the losses at rtol 1e-5 and the
     whole state gathered after every step within 1e-4 of a leaf's scale or
     3e-5 of its tree's (tests/test_torch_lm_sharding.py's bounds over
-    several steps); the ranks' losses bit-identical.
+    several steps); the ranks' losses bit-identical.  The SSM case's
+    mixers run on a rank's heads, and RWKV6's bonus `u`'s moments are held
+    within U_QUANTA (its comment).
   * Four ranks on (2, 2): each collective's forward and backward against
     the whole-tensor autograd it stands for; the vocab-parallel embedding
     (gather and one-hot, codebook tables too: bit for bit) and
@@ -53,6 +55,16 @@ CASES = (("qwen2-7b", (2, 2), ()), ("qwen2-7b", (1, 4), ()),
          ("grok-1-314b", (2, 2), ()), ("rwkv6-7b", (2, 2), ()))
 IDS = [f"{a}{'-6heads' if kw else ''}-{d}x{m}" for a, (d, m), kw in CASES]
 STEPS = 3
+#: RWKV6's zero-initialised bonus `u`: its gradient's terms cancel, so
+#: float32 rounding moves its moments by a large share of their scale.
+#: Against the port's float64 step JAX's float32 moments lie up to 3.48e-4
+#: of their scale and the sharded port's up to 2.15e-4 (rwkv6-smoke on
+#: (1, 4); 1.96e-5 on (2, 2)), so the two may part by their sum: held
+#: within 6e-4 of their scale against JAX's (read up to 3.68e-4 on (2, 2)
+#: and 1.33e-4 on (1, 4); tests/torch_ssm_f32_readings.py)
+U_QUANTA = {"/opt/m/slots/0/tm/u": 6e-4, "/opt/v/slots/0/tm/u": 6e-4}
+#: the cases whose leaves take `quanta` (assert_leaves_close)
+QUANTA = {"rwkv6-7b-2x2": U_QUANTA}
 
 
 def _jax_steps(arch, kw, embeds_f32=False):
@@ -101,7 +113,7 @@ def test_sharded_steps_match_jax(mesh_runs, arch, mesh, kw):
     np.testing.assert_allclose(got[0]["losses"], losses, rtol=1e-5)
     for k in range(STEPS):
         assert_leaves_close(states[k], got[0]["states"][k],
-                            f"{name} step {k + 1} ",
+                            f"{name} step {k + 1} ", quanta=QUANTA.get(name),
                             tol_tree=TOL_TREE_STEPS)
     # every rank gathers the same whole state
     for r in got[1:]:

@@ -1,7 +1,8 @@
 """Rank side of tests/test_torch_sharding.py,
 tests/test_torch_distributed_embed.py, tests/test_torch_lm_sharding.py,
-tests/test_torch_lm_tensor_parallel.py, tests/test_torch_lm_serve_mesh.py
-and tests/test_torch_lm_expert_parallel*.py:
+tests/test_torch_lm_tensor_parallel.py, tests/test_torch_lm_serve_mesh.py,
+tests/test_torch_lm_expert_parallel*.py and
+tests/test_torch_lm_ssm_parallel*.py:
 the port's mesh backends (the row-sharded sparse one and the 2-D-sharded
 dense one), its meshes, the LM's sharded train step, its collectives and
 its sharded prefill and decode run inside a gloo process group on the CPU.
@@ -14,6 +15,7 @@ numpy, to `<out_dir>/rank<r>.pt`.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import time
@@ -65,6 +67,18 @@ def spawn_ranks(world: int, jobs: list, tmp: Path) -> list[dict]:
                                f"{SPAWN_TIMEOUT_S} s (a deadlock?)")
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
+
+
+@contextlib.contextmanager
+def float_as_double():
+    """`Tensor.float` a float64 cast while open: every float32 cast of the
+    port's (the SSM states' included) is then a float64 one."""
+    narrow = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **kw: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = narrow
 
 
 def _rank_main(rank: int, world: int, store: str, jobs: list,
@@ -500,8 +514,10 @@ def job_lm_serve_mesh(runs):
             return (rows.gather(logits),
                     tree_map(lambda s, x: s.gather(x), csh, caches))
 
-        rec = {"spec": kv.spec, "steps": [record(*make_prefill(
-            model, sh, max_len)(blocks, batch))]}
+        logits, caches = make_prefill(model, sh, max_len)(blocks, batch)
+        # the shapes of this rank's cache blocks
+        rec = {"spec": kv.spec, "steps": [record(logits, caches)],
+               "blocks": tree_map(lambda x: tuple(x.shape), caches)}
         decode = make_decode_step(model, sh, csh)
         for caches, tokens in steps:
             caches = tree_map(lambda s, x: s.shard(x), csh,
@@ -658,6 +674,175 @@ def job_moe_grad(cases):
     return out
 
 
+def job_ssm_grad(cases):
+    """For each case ({name: (arch, config overrides, mesh shape, mixer
+    "tm", "cm" or "mamba", its whole params, its whole state, x (B, S, D),
+    the upstream gradient (B, S, D), trap)}): the mixer under the
+    tensor-parallel context on this rank's blocks of the params (and of the
+    state's heads), and the gradient of the sum of its output times the
+    upstream gradient.  `trap` puts a wrong collective in: "gather_from"
+    gathers `in_proj` and the conv over "model" with `gather_from` (its
+    backward keeps this rank's slice of its own partial gradient),
+    "reduce_from" takes the RMSNorm's mean square with `reduce_from`
+    (identity backward); None runs the port as it is.  Returns the output,
+    x's gradient, the new state (the heads gathered over "model"), the
+    params' gradients gathered from the blocks and each leaf's "model"
+    split dim as the mixer reads it."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.models import hooks, ssm
+    from repro_torch.models.layers import _MetaKey
+    from repro_torch.tree import tree_map
+
+    init = {"tm": ssm.init_rwkv6_time_mix, "cm": ssm.init_rwkv6_channel_mix,
+            "mamba": ssm.init_mamba2}
+    apply = {"tm": ssm.rwkv6_time_mix, "cm": ssm.rwkv6_channel_mix,
+             "mamba": ssm.mamba2}
+    out = {}
+    for name, (arch, cfg_kw, shape, mixer, params, state, x, g,
+               trap) in cases.items():
+        model, _, _ = _lm_mesh_state(arch, "float32", dict(remat="none"),
+                                     None, cfg_kw)
+        mesh = Mesh(shape)
+        _, axes = init[mixer](_MetaKey(), model.cfg)
+        whole = convert.lm_tree_from_numpy(params, "cpu")
+        sh = tree_shardings(mesh, axes, whole)
+        blocks = tree_map(lambda s, t: s.shard(t).clone().requires_grad_(),
+                          sh, whole)
+        tp = C.TensorParallel(mesh, sh)
+        st = convert.lm_tree_from_numpy(state, "cpu")
+        heads = [k for k in ("wkv", "ssm") if k in st]
+        for k in heads:
+            st[k] = C.local_slice(st[k], 1, tp.model)
+        xr = _t(x).clone().requires_grad_()
+        saved = ssm._whole_on_model
+        if trap == "gather_from":
+            ssm._whole_on_model = lambda w: tp.gather_from_model(
+                w, C.model_split(w))
+        if trap == "reduce_from":
+            tp.psum_model = tp.reduce_from_model
+        try:
+            with hooks.tensor_parallel_scope(tp):
+                p = tp.gather_params(blocks, sh)
+                y, new = apply[mixer](p, model.cfg, xr, st)
+        finally:
+            ssm._whole_on_model = saved
+        (y * _t(g)).sum().backward()
+        new = {k: (C.all_gather(v.detach(), 1, tp.model) if k in heads
+                   else v.detach()) for k, v in new.items()}
+        out[name] = {
+            "y": y.detach(), "x_grad": xr.grad, "state": new,
+            "grads": tree_map(lambda s, b: s.gather(b.grad), sh, blocks),
+            "split": tree_map(C.model_split, p)}
+    return out
+
+
+def job_lm_mesh_f64(runs):
+    """For each run ({name: (arch, config overrides, mesh shape)}), in
+    float64: the params and compute in float64 under `float_as_double`,
+    the one-rank step and the
+    sharded step from `init_train_state(0)` on three batches.  Returns each
+    step's losses and the largest gap of a leaf of the whole state
+    (gathered) from the one rank's, of that leaf's scale."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import (build_model, init_train_state,
+                                    make_train_step)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves, tree_map
+
+    out = {}
+    with float_as_double():
+        for name, (arch, cfg_kw, shape) in runs.items():
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      param_dtype="float64",
+                                      compute_dtype="float64", **cfg_kw)
+            model = build_model(cfg, RunConfig(num_microbatches=2,
+                                               remat="full",
+                                               moment_dtype="float64"))
+            ref, axes = init_train_state(model, 0, device="cpu")
+            mesh = Mesh(shape)
+            sh = state_shardings(mesh, axes, ref)
+            st = tree_map(lambda s, x: s.shard(x).clone(), sh, ref)
+            opt = AdamWConfig(warmup_steps=2, total_steps=10)
+            one = make_train_step(model, opt)
+            step = make_train_step(model, opt, grad_shardings=sh["params"])
+            rec = []
+            for k in range(3):
+                batch = batch_for(cfg, ShapeConfig("t", "train", 16, 8),
+                                  step=k, device="cpu")
+                ref, m1 = one(ref, batch)
+                st, m2 = step(st, batch)
+                whole = tree_map(lambda s, x: s.gather(x), sh, st)
+                gap = max(float((a - b).abs().max() / a.abs().max())
+                          for a, b in zip(leaves(ref), leaves(whole))
+                          if a.is_floating_point() and a.abs().max() > 0)
+                rec.append((float(m1["loss"]), float(m2["loss"]), gap))
+            out[name] = rec
+    return out
+
+
+def job_ssm_gathers(runs):
+    """For each run ({name: (arch, config overrides, mesh shape)}): a
+    sharded train step, prefill and decode step from `init_params(0)`,
+    with every all-gather over "model" recorded: (the shape of the tensor
+    that a rank gives, the dim), in `collectives` and `ssm.py`."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models import (init_train_state, make_decode_step,
+                                    make_prefill, make_train_step, ssm)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for name, (arch, cfg_kw, shape) in runs.items():
+        model, _, _ = _lm_mesh_state(arch, "float32",
+                                     dict(num_microbatches=1, remat="full"),
+                                     None, cfg_kw)
+        mesh = Mesh(shape)
+        model_ax = C.mesh_axis(mesh, ("model",))
+        seen = []
+        plain = C.all_gather
+
+        def spy(x, dim, ax):
+            if ax.group is model_ax.group:
+                seen.append((tuple(x.shape), dim % x.ndim))
+            return plain(x, dim, ax)
+
+        state, axes = init_train_state(model, 0, device="cpu")
+        sh = state_shardings(mesh, axes, state)
+        state = tree_map(lambda s, x: s.shard(x).clone(), sh, state)
+        cfg = model.cfg
+        batch = batch_for(cfg, ShapeConfig("t", "train", 8, 4), device="cpu")
+        psh = tree_shardings(mesh, axes, model.init_params(
+            0, device="meta")[0])
+        C.all_gather = ssm.all_gather = spy
+        try:
+            make_train_step(model, AdamWConfig(),
+                            grad_shardings=sh["params"])(state, batch)
+            train = list(seen)
+            seen.clear()
+            params = tree_map(lambda s, x: s.shard(x),
+                              psh, model.init_params(0, device="cpu")[0])
+            csh = model.cache_shardings(mesh, 4, 10)
+            _, caches = make_prefill(model, psh, 10)(
+                params, {"tokens": batch["tokens"][:, :8]})
+            make_decode_step(model, psh, csh)(params, caches,
+                                              batch["tokens"][:, 8:9])
+        finally:
+            C.all_gather = ssm.all_gather = plain
+        out[name] = {"train": train, "serve": list(seen)}
+    return out
+
+
 JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "fit": job_fit, "budget": job_budget, "api": job_api,
         "resume": job_resume, "mesh_groups": job_mesh_groups,
@@ -665,4 +850,6 @@ JOBS = {"energy_grad": job_energy_grad, "operator": job_operator,
         "dense_mesh_fits": job_dense_mesh_fits,
         "dense_mesh_api": job_dense_mesh_api, "lm_train": job_lm_train,
         "lm_mesh_steps": job_lm_mesh_steps, "collectives": job_collectives,
-        "lm_serve_mesh": job_lm_serve_mesh, "moe_grad": job_moe_grad}
+        "lm_serve_mesh": job_lm_serve_mesh, "moe_grad": job_moe_grad,
+        "ssm_grad": job_ssm_grad, "ssm_gathers": job_ssm_gathers,
+        "lm_mesh_f64": job_lm_mesh_f64}
